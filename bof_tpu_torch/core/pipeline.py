@@ -1,0 +1,125 @@
+"""Prefetch pipeline helper over the tile cache.
+
+Small utility shared by kernel planners: given an ordered list of accesses,
+keeps `depth` of them pinned ahead in the tile cache so disk I/O overlaps
+with device compute — the planner-side expression of the reference's
+prefetch pipeline (the Prioritizer+backlog machinery services the pins).
+"""
+from __future__ import annotations
+
+import time
+from typing import Sequence, Tuple
+
+import numpy as np
+
+from .cache import TileCache
+
+
+class PrefetchSeq:
+    """Sequential prefetcher: access i is pinned `depth` steps early;
+    call get(i) in order, then done(i)."""
+
+    def __init__(self, cache: TileCache,
+                 accesses: Sequence[Tuple[object, int, object]],
+                 depth: int = 4):
+        self._cache = cache
+        self._accesses = list(accesses)
+        self._depth = max(1, depth)
+        self._keys: dict[int, tuple] = {}
+        self._next_pin = 0
+        self._pump(0)
+
+    def _pump(self, upto: int):
+        while (self._next_pin < len(self._accesses)
+               and self._next_pin <= upto + self._depth - 1):
+            st, off, si = self._accesses[self._next_pin]
+            self._keys[self._next_pin] = self._cache.pin_read(st, off, si)
+            self._next_pin += 1
+
+    def get(self, idx: int) -> np.ndarray:
+        self._pump(idx)
+        key = self._keys[idx]
+        self._cache.wait_ready(key)
+        return self._cache.buf(key)
+
+    def done(self, idx: int):
+        key = self._keys.pop(idx, None)
+        if key is not None:
+            self._cache.unpin(key)
+
+    def close(self):
+        for key in self._keys.values():
+            self._cache.unpin(key)
+        self._keys.clear()
+
+
+class TicketWindow:
+    """Bounded in-flight write-ticket window.  Every store write Ticket
+    holds its source buffer alive until wait(), so accumulating all of a
+    kernel's write-backs to the end grows host RAM to the full padded
+    output size — the exact out-of-core regime these kernels exist for.
+    `depth` tickets in flight keeps the disk writer busy while bounding
+    the buffers (one shared helper instead of per-kernel copies)."""
+
+    __slots__ = ("_dq", "_depth", "wait_s")
+
+    def __init__(self, depth: int = 8):
+        import collections
+        self._dq = collections.deque()
+        self._depth = max(1, depth)
+        self.wait_s = 0.0  # total blocked-on-write time, incl. push stalls
+
+    def _wait_one(self) -> None:
+        t0 = time.perf_counter()
+        self._dq.popleft().wait()
+        self.wait_s += time.perf_counter() - t0
+
+    def push(self, t) -> None:
+        self._dq.append(t)
+        while len(self._dq) > self._depth:
+            self._wait_one()
+
+    def extend(self, ts) -> None:
+        for t in ts:
+            self.push(t)
+
+    def wait_all(self) -> None:
+        while self._dq:
+            self._wait_one()
+
+    def __len__(self) -> int:
+        return len(self._dq)
+
+
+def queue_put(q, item, errors, timeout: float = 1.0) -> bool:
+    """Timeout-put guarded by a shared error list: a dead consumer can
+    never block a producer forever (the producer may be holding pinned
+    tiles).  Returns False once an error is recorded.  Shared by the
+    gemm/csrmm/sharded pipeline stages — one shutdown protocol, not four
+    hand-rolled copies."""
+    import queue as _queue
+    while not errors:
+        try:
+            q.put(item, timeout=timeout)
+            return True
+        except _queue.Full:
+            continue
+    return False
+
+
+def queue_put_sentinel(q, errors):
+    """Deliver the end-of-stream None even against a full queue; once an
+    error is recorded, make one non-blocking attempt (to unblock a live
+    consumer mid-get) and give up — consumers key their shutdown off the
+    shared error list."""
+    import queue as _queue
+    while not errors:
+        try:
+            q.put(None, timeout=1.0)
+            return
+        except _queue.Full:
+            continue
+    try:
+        q.put_nowait(None)
+    except _queue.Full:
+        pass

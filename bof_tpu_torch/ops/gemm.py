@@ -1,0 +1,564 @@
+"""Out-of-core GEMM: C = alpha * op(A) op(B) + beta * C, on torch.
+
+The port of `bof_tpu/ops/gemm.py` (reference: src/blas/gemm.cpp:27-202 +
+include/tasks/gemm_task.h): the reference blocks the problem into
+GEMM_BLK_SIZE^3 tasks, serializes the K dimension with parent chains
+(gemm.cpp:114-126), and re-reads the C block each chain step.  Here the K
+accumulation lives in device memory: for each output superblock, the C
+tile stays resident on the device across the whole K loop (one read iff
+beta != 0, one write at the end), while A/B superblocks stream
+SSD → host pin cache → device with prefetch lookahead.  The host pin cache
+gives cross-superblock reuse and a device-side LRU tile cache
+(`HbmCache`) gives device-side reuse when panels fit.
+
+All 8 {order R/C} x {transa N/T} x {transb N/T} configurations are
+supported without any host or device transposition: blocks are read
+storage-major and kernel K1 (ops/matmul_cuda.py) absorbs the transposes.
+Superblocks are zero-padded to the full block size, as in bof_tpu.
+
+Streams: the producer (uploads), the main thread (K1 launches) and the
+writer (downloads) all use their thread's current stream, which is the
+device's default stream unless the caller set another on all three.  One
+stream orders every upload before the kernels that read it and every
+download after the last accumulate into its block, and makes the caching
+allocator's reuse of a dropped tile safe; overlapping uploads with
+compute on a side stream is later work (ROADMAP).
+
+Not ported yet, and refused with NotImplementedError rather than routed
+elsewhere: float64 (ROADMAP A13), transfer_dtype bfloat16/int8 and
+c_transfer_dtype bfloat16 (ROADMAP A6).
+"""
+from __future__ import annotations
+
+import collections
+import os
+import queue
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+
+from ..context import get_context
+from ..core.flash_array import FlashArray
+from ..core.pipeline import queue_put, queue_put_sentinel
+from ..utils import LOG, METRICS, Timer, cdiv
+from . import device as dev
+
+
+class HbmCache:
+    """Budget-bounded LRU cache of device-resident tiles (new capability —
+    the reference has no device tier).  Keys match the host tile cache."""
+
+    def __init__(self, budget_bytes: int):
+        self.budget = budget_bytes
+        self._used = 0
+        self._map = collections.OrderedDict()  # key -> (dev_tensor, nbytes)
+
+    def get(self, key):
+        hit = self._map.get(key)
+        if hit is None:
+            return None
+        self._map.move_to_end(key)
+        METRICS.add("hbm.hit")
+        return hit[0]
+
+    def peek(self, key) -> bool:
+        """Residency probe with NO side effects: the producer's pin-time
+        lookahead must not count a hit (the real get at use time does) or
+        LRU-promote a tile `depth` steps before its use over tiles needed
+        sooner."""
+        return key in self._map
+
+    def put(self, key, arr, nbytes: int):
+        while self._used + nbytes > self.budget and self._map:
+            # drop the reference only — consumers queued in the pipeline
+            # may still hold the tensor, and kernels already queued on the
+            # stream are ordered before any reuse of its memory
+            _, (_old, nb) = self._map.popitem(last=False)
+            self._used -= nb
+        self._map[key] = (arr, nbytes)
+        self._used += nbytes
+        METRICS.add("hbm.miss")
+        return arr
+
+    def clear(self):
+        self._map.clear()
+        self._used = 0
+
+
+def _op_block_reader(arr: FlashArray, trans: bool):
+    """Returns (access_fn, km_flag): access_fn(i, l, bi, bl) gives the
+    ((offset, StrideInfo), storage_shape) of the (i, l) superblock of
+    op(arr); km_flag says the storage buffer is laid out (k, m)-major
+    relative to the op's logical (m, k) block."""
+    if not trans:
+        def access(i0, l0, bi, bl):
+            # i0/l0 are *element* offsets into op(arr)'s (m, k) space
+            return (arr.block_access(i0, bi, l0, bl),
+                    arr._block_shape_storage(bi, bl))
+        km = arr.order == "C"
+    else:
+        def access(i0, l0, bi, bl):
+            return (arr.block_access(l0, bl, i0, bi),
+                    arr._block_shape_storage(bl, bi))
+        km = arr.order == "R"
+    return access, km
+
+
+def _storage_shape(arr: FlashArray, logical_shape):
+    r, c = logical_shape
+    return (r, c) if arr.order == "R" else (c, r)
+
+
+def _journal_header(m, n, k, alpha, beta, transa, transb, sb, dtype,
+                    xfer_mode) -> str:
+    """Identical to bof_tpu's header, so a journal names the same problem
+    in both packages."""
+    import json
+    return json.dumps(
+        {"m": m, "n": n, "k": k, "alpha": float(alpha),
+         "beta": float(beta), "ta": transa, "tb": transb, "blk": sb,
+         "dtype": str(dtype), "xfer": xfer_mode}, sort_keys=True)
+
+
+def _load_journal(path: str, header: str) -> set:
+    """Completed (i, j) C-superblocks recorded by an interrupted run.
+    A header mismatch means the journal belongs to a DIFFERENT problem
+    (shape/blk/precision changed between runs) — resuming from it would
+    silently skip wrong blocks, so that is an error, not a restart."""
+    done = set()
+    if not os.path.exists(path):
+        return done
+    with open(path) as f:
+        first = f.readline().rstrip("\n")
+        if first != header:
+            raise ValueError(
+                f"resume journal {path} was written by a different gemm "
+                "call (shape/blk/config mismatch); delete it to start "
+                "fresh")
+        for line in f:
+            parts = line.split()
+            # a torn final line is ignored — and a tear can truncate a
+            # TOKEN, not just drop one ('12 34\n' -> '12 3' still splits
+            # into two parts), so only a complete line (trailing newline
+            # intact) may mark a superblock done
+            if line.endswith("\n") and len(parts) == 2:
+                done.add((int(parts[0]), int(parts[1])))
+    return done
+
+
+def _check_slice(cfg, dtype) -> None:
+    """Refuse what this port does not carry yet, naming the ROADMAP item."""
+    if dtype == np.float64:
+        raise NotImplementedError(
+            "float64 gemm is not ported yet (ROADMAP A13: fp64 gemm on "
+            "Hopper fp64 tensor cores)")
+    if dtype != np.float32:
+        raise NotImplementedError(f"gemm on {dtype} operands: the port "
+                                  "carries float32 only")
+    xfer = cfg.transfer_dtype
+    if xfer != "float32":
+        raise NotImplementedError(
+            f"transfer_dtype={xfer!r} is not ported yet (ROADMAP A6: gemm "
+            "transfer modes, with kernel B4)")
+    if cfg.c_transfer_dtype != "float32":
+        raise NotImplementedError(
+            f"c_transfer_dtype={cfg.c_transfer_dtype!r} is not ported yet "
+            "(ROADMAP A6: gemm transfer modes)")
+
+
+def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
+         alpha: float = 1.0, beta: float = 0.0,
+         transa: str = "N", transb: str = "N",
+         blk: Optional[int] = None, ctx=None,
+         resume_journal: Optional[str] = None) -> None:
+    """C = alpha*op(A)op(B) + beta*C over flash-resident matrices.
+
+    a: logical (m,k) if transa=='N' else (k,m)
+    b: logical (k,n) if transb=='N' else (n,k)
+    c: logical (m,n).  Layouts may mix freely.
+
+    `resume_journal` makes the kernel restartable at C-SUPERBLOCK
+    granularity (beyond the reference, which restarts only at kernel
+    boundaries — SURVEY §5 checkpoint/resume): each finished (i, j)
+    superblock is appended to the journal only AFTER its bytes are
+    fsync-durable in C, so a killed run resumes by skipping exactly the
+    superblocks whose data is already on disk, and the resumed C is
+    byte-identical to an uninterrupted run (the K-chain order per block
+    is deterministic).  The journal is keyed by the problem header and
+    removed on completion.  Requires beta == 0: an interrupted write may
+    leave an unfinished block partially written, which a beta
+    accumulation would then read back.
+    """
+    ctx = ctx or c.ctx or get_context()
+    cfg = ctx.config
+    sb = blk or cfg.gemm_blk_size
+    ta, tb = transa.upper() == "T", transb.upper() == "T"
+
+    m, n = c.shape
+    ka = a.shape[0] if ta else a.shape[1]
+    kb = b.shape[1] if tb else b.shape[0]
+    if ka != kb:
+        raise ValueError(f"inner dims disagree: {ka} vs {kb}")
+    k = ka
+    if (a.shape != ((k, m) if ta else (m, k))
+            or b.shape != ((n, k) if tb else (k, n))):
+        raise ValueError("operand shapes inconsistent with transposes")
+    if not (a.dtype == b.dtype == c.dtype):
+        raise ValueError("mixed dtypes not supported")
+    from ..core.flash_array import check_output_distinct
+    check_output_distinct(c, a=a, b=b)
+    _check_slice(cfg, c.dtype)
+    device = dev.resolve_device(cfg.device)
+
+    # tile-major operands (core/tiled_array.py): every superblock access
+    # is one contiguous run, but only when the kernel blocking matches
+    # the stored tile grid
+    from ..core.tiled_array import check_tile_blk
+    check_tile_blk((("a", a), ("b", b), ("c", c)), sb)
+    c_tiled = getattr(c, "tile", None) is not None
+
+    mB, nB, kB = cdiv(m, sb), cdiv(n, sb), cdiv(k, sb)
+    a_access, a_km = _op_block_reader(a, ta)
+    b_access, b_nk = _op_block_reader(b, tb)  # storage is (n,k)-major?
+    c_nm = c.order == "C"
+    prec = cfg.matmul_precision
+
+    cache = ctx.pin_cache()
+    hbm = HbmCache(cfg.hbm_budget)
+    depth = max(1, cfg.pipeline_depth)
+    sync_mode = cfg.telemetry_sync
+
+    # Device-memory-aware group schedule: partition the j space into
+    # groups whose whole B panel set (G * kB tiles) plus G live C
+    # accumulators fits the budget, then sweep  jg -> i -> l -> j∈jg.
+    # Within a group, every B tile crosses host->device once (resident
+    # across all i), and each A(i,l) tile is fetched once per group sweep
+    # and reused for all G accumulations.  Total host->device traffic ≈
+    # |B| + |A| * n_groups — the analog of the reference Prioritizer's
+    # minimum-bytes-to-fetch objective, applied at the device tier.
+    tile_bytes = sb * sb * np.dtype(c.dtype).itemsize
+    spare = max(cfg.hbm_budget * 0.6 - 2 * depth * tile_bytes, tile_bytes)
+    G = int(max(1, min(nB, spare // (kB * tile_bytes + tile_bytes))))
+    groups = [list(range(g, min(g + G, nB))) for g in range(0, nB, G)]
+    if G >= nB and (nB * kB + mB * kB) * tile_bytes <= spare:
+        # whole A and B tile sets fit the budget: the j-outer order
+        # transfers each tile once via the LRU and spreads C write-backs
+        # evenly
+        steps = [(i, j, l) for j in range(nB) for i in range(mB)
+                 for l in range(kB)]
+    else:
+        steps = [(i, j, l) for jg in groups for i in range(mB)
+                 for l in range(kB) for j in jg]
+
+    journal_f = None
+    if resume_journal is not None:
+        if beta != 0.0:
+            raise ValueError(
+                "resume_journal requires beta == 0 (an interrupted write "
+                "can leave an unfinished C block partially written, which "
+                "a beta accumulation would read back)")
+        header = _journal_header(m, n, k, alpha, beta, transa, transb,
+                                 sb, c.dtype, cfg.transfer_dtype)
+        done_blocks = _load_journal(resume_journal, header)
+        if done_blocks:
+            steps = [s for s in steps
+                     if (s[0], s[1]) not in done_blocks]
+            LOG.info("gemm resume: %d of %d C superblocks already "
+                     "durable, %d steps remain", len(done_blocks),
+                     mB * nB, len(steps))
+        journal_f = open(resume_journal, "a")
+        if not done_blocks and journal_f.tell() == 0:
+            journal_f.write(header + "\n")
+            journal_f.flush()
+
+    def tile_dims(i, j, l):
+        return min(sb, m - i * sb), min(sb, n - j * sb), min(sb, k - l * sb)
+
+    from ..io.store import store_uid
+
+    def _prep(arr, access_fn, i0, l0, d0, d1):
+        """Pin descriptor for one operand tile: skip the host pin (and its
+        possible disk read) entirely when the tile is already
+        device-resident — pinning first would re-read from disk just to
+        throw it away."""
+        (off, sinfo), st_shape = access_fn(i0, l0, d0, d1)
+        hkey = (store_uid(arr.store), off, sinfo)
+        # side-effect-free probe: hit counting + the LRU touch happen at
+        # use time (get_dev), not pin-lookahead time
+        if hbm.peek(hkey):
+            return ("hbm", hkey, arr.store, off, sinfo, st_shape)
+        pin = cache.pin_read(arr.store, off, sinfo)
+        return ("pin", hkey, arr.store, off, sinfo, st_shape, pin)
+
+    def pin_pair(idx):
+        i, j, l = steps[idx]
+        bi, bj, bl = tile_dims(i, j, l)
+        return (_prep(a, a_access, i * sb, l * sb, bi, bl),
+                _prep(b, b_access, l * sb, j * sb, bl, bj))
+
+    def _unpin(desc):
+        if desc[0] == "pin":
+            cache.unpin(desc[6])
+
+    def pad_to(mat: np.ndarray, full_shape) -> np.ndarray:
+        if mat.shape == full_shape:
+            return mat
+        out = np.zeros(full_shape, mat.dtype)
+        out[:mat.shape[0], :mat.shape[1]] = mat
+        return out
+
+    def upload(host: np.ndarray):
+        """Host -> device copy; with telemetry_sync the device is drained
+        inside the window so the rate sample is a transfer rate."""
+        t1 = time.perf_counter()
+        arr = dev.to_device(host, device)
+        if sync_mode:
+            dev.sync(arr)
+        t2 = time.perf_counter()
+        if sync_mode:
+            METRICS.observe("gemm.h2d_tile_gbps",
+                            arr.nbytes / max(t2 - t1, 1e-9) / 1e9)
+        METRICS.add("gemm.h2d_s", t2 - t1)
+        METRICS.add("gemm.h2d_bytes", arr.nbytes)
+        return arr
+
+    timer = Timer()
+    c_full_storage = (sb, sb)
+
+    # ---- 4-stage threaded pipeline ------------------------------------
+    # producer thread: disk->host (cache pins) -> host->device, with the
+    #   device LRU for reuse; emits ready device tiles in order
+    # main thread: launches the accumulate steps (K1)
+    # writer thread: D2H of finished C superblocks -> async disk write
+    tile_q: queue.Queue = queue.Queue(maxsize=depth)
+    write_q: queue.Queue = queue.Queue(maxsize=max(2, depth))
+    errors: list = []
+
+    def producer():
+        pinned = collections.deque()
+        try:
+            for idx in range(min(depth, len(steps))):
+                pinned.append(pin_pair(idx))
+
+            def get_dev(desc):
+                kind, hkey, store, off, sinfo, st_shape = desc[:6]
+                hit = hbm.get(hkey)
+                if hit is not None:
+                    return hit
+                if kind == "hbm":
+                    # device-resident at pin time but evicted since: pin
+                    # now.  This LOCAL pin must be released on EVERY path —
+                    # the caller's finally unpins the original 'hbm'
+                    # descriptor, which records no pin
+                    pin = cache.pin_read(store, off, sinfo)
+                    desc = ("pin", hkey, store, off, sinfo, st_shape, pin)
+                try:
+                    return _load(desc, hkey, st_shape)
+                finally:
+                    if kind == "hbm":
+                        cache.unpin(desc[6])
+
+            def _load(desc, hkey, st_shape):
+                pin = desc[6]
+                t0 = time.perf_counter()
+                cache.wait_ready(pin)
+                t_disk = time.perf_counter()
+                host = cache.buf(pin).view(a.dtype).reshape(st_shape)
+                padded = pad_to(host, (sb, sb))
+                METRICS.add("gemm.disk_wait_s", t_disk - t0)
+                METRICS.add("gemm.prep_s", time.perf_counter() - t_disk)
+                # to_device returns only once the pinned buffer has been
+                # read, so the caller may unpin right after
+                arr = upload(padded)
+                return hbm.put(hkey, arr, arr.nbytes)
+
+            for idx, (i, j, l) in enumerate(steps):
+                bi, bj, bl = tile_dims(i, j, l)
+                c_init = None
+                if l == 0 and beta != 0.0:
+                    t0 = time.perf_counter()
+                    c_host = c.read_block_storage(i * sb, bi, j * sb, bj)
+                    c_pad = pad_to(c_host, c_full_storage)
+                    # read+pad span only — the upload is booked to h2d_s
+                    METRICS.add("gemm.c_read_s", time.perf_counter() - t0)
+                    c_init = upload(c_pad)
+                da, db = pinned.popleft()
+                try:
+                    if idx + depth < len(steps):
+                        pinned.append(pin_pair(idx + depth))
+                    a_dev = get_dev(da)
+                    b_dev = get_dev(db)
+                finally:
+                    _unpin(da)  # release current-step pins even on error
+                    _unpin(db)
+                # timeout-put (core/pipeline.queue_put): a dead consumer
+                # can't block us holding pins forever
+                if not queue_put(tile_q, (a_dev, b_dev, c_init), errors):
+                    return
+        except BaseException as e:  # pragma: no cover
+            errors.append(e)
+            try:
+                tile_q.put_nowait(None)
+            except queue.Full:
+                pass
+        finally:
+            for da, db in pinned:  # release lookahead pins on any exit
+                _unpin(da)
+                _unpin(db)
+
+    def writer():
+        try:
+            from ..core.pipeline import TicketWindow
+            write_tickets = TicketWindow(depth=8)
+            while True:
+                try:  # timeout-get: a dead dispatcher can't hang us —
+                    # the error-path sentinel can be dropped on a full
+                    # queue, so the errors flag is the fallback signal
+                    item = write_q.get(timeout=1.0)
+                except queue.Empty:
+                    if errors:
+                        break
+                    continue
+                if item is None:
+                    break
+                i, j, bi, bj, c_dev = item
+                # tile-major C stores the full padded tile — hand the
+                # whole buffer over instead of slicing the logical tail
+                ci_shape = ((sb, sb) if c_tiled
+                            else _storage_shape(c, (bi, bj)))
+                # split the wait for the block's last accumulate from the
+                # download itself (stages partition the wall time)
+                t0 = time.perf_counter()
+                dev.sync(c_dev)
+                t1 = time.perf_counter()
+                c_full = dev.from_device(c_dev)
+                t2 = time.perf_counter()
+                METRICS.add("gemm.accum_wait_s", t1 - t0)
+                METRICS.add("gemm.d2h_s", t2 - t1)
+                if sync_mode:
+                    METRICS.observe("gemm.d2h_tile_gbps",
+                                    c_full.nbytes / max(t2 - t1, 1e-9) / 1e9)
+                c_host = c_full[:ci_shape[0], :ci_shape[1]]
+                METRICS.add("gemm.d2h_bytes", c_host.nbytes)
+                if journal_f is None:
+                    write_tickets.push(c.write_block_storage_async(
+                        i * sb, j * sb, bi, bj, c_host))
+                else:
+                    # durability order is the journal's correctness: the
+                    # block's bytes reach disk (wait + fsync) BEFORE its
+                    # journal line does — a crash between the two re-does
+                    # the block, never skips a missing one
+                    t0 = time.perf_counter()
+                    c.write_block_storage_async(
+                        i * sb, j * sb, bi, bj, c_host).wait()
+                    c.store.flush()
+                    METRICS.add("gemm.write_wait_s",
+                                time.perf_counter() - t0)
+                    journal_f.write(f"{i} {j}\n")
+                    journal_f.flush()
+                    os.fsync(journal_f.fileno())
+            write_tickets.wait_all()
+            # includes waits absorbed inside push() when the window was
+            # full, so disk-bound write stalls are not under-reported
+            METRICS.add("gemm.write_wait_s", write_tickets.wait_s)
+        except BaseException as e:  # pragma: no cover
+            errors.append(e)
+
+    prod_t = threading.Thread(target=producer, daemon=True)
+    writ_t = threading.Thread(target=writer, daemon=True)
+    prod_t.start()
+    writ_t.start()
+
+    c_live: dict = {}  # j -> device accumulator for the current i sweep
+    alpha_s = float(np.float32(alpha))
+    beta_s = float(np.float32(beta))
+    try:
+        for idx, (i, j, l) in enumerate(steps):
+            item = None
+            t_get = time.perf_counter()
+            while True:  # timeout-get: survive a dead producer
+                try:
+                    item = tile_q.get(timeout=1.0)
+                    break
+                except queue.Empty:
+                    if errors:
+                        break
+            METRICS.add("gemm.tile_wait_s", time.perf_counter() - t_get)
+            if item is None:
+                break
+            a_dev, b_dev, c_init = item
+            bi, bj, bl = tile_dims(i, j, l)
+            if l == 0:
+                c_live[j] = (dev.scale_init(c_init, beta_s)
+                             if c_init is not None
+                             else dev.zeros_block(c_full_storage, device))
+            c_live[j] = dev.accum_step(c_live[j], a_dev, b_dev, alpha_s,
+                                       a_km=a_km, b_nk=b_nk, c_nm=c_nm,
+                                       prec=prec)
+            if l == kB - 1:
+                # timeout-put so a dead writer can't deadlock the loop
+                done_c = c_live.pop(j)
+                queue_put(write_q, (i, j, bi, bj, done_c), errors)
+            if errors:
+                break
+    except BaseException as e:
+        # a dispatch failure (device OOM, launch error) must land in
+        # `errors`: both helper threads key their shutdown off it — the
+        # producer would otherwise spin forever holding pinned tiles
+        errors.append(e)
+    queue_put_sentinel(write_q, errors)
+    # unbounded joins while healthy (a slow-disk writer can legitimately
+    # outlast any fixed timeout; returning early would report success with
+    # writes still in flight); bounded once an error is recorded
+    while prod_t.is_alive():
+        prod_t.join(timeout=1.0)
+        if errors:
+            prod_t.join(timeout=30)
+            break
+    while writ_t.is_alive():
+        writ_t.join(timeout=1.0)
+        if errors:
+            writ_t.join(timeout=30)
+            break
+    if errors:
+        if journal_f is not None:
+            journal_f.close()  # keep the journal: the next call resumes
+        raise errors[0]
+    c.store.flush()
+    if journal_f is not None:
+        # complete: the journal has served its purpose (leaving it would
+        # make a LATER run over rewritten operands silently skip blocks)
+        journal_f.close()
+        try:
+            os.unlink(resume_journal)
+        except OSError:
+            pass
+    hbm.clear()
+    METRICS.add("gemm.ms", timer.elapsed_ms())
+    flops = 2.0 * m * n * k
+    LOG.debug("gemm %dx%dx%d done in %.1f ms (%.1f GFLOP/s)",
+              m, n, k, timer.elapsed_ms(), flops / timer.elapsed_ms() / 1e6)
+
+
+def gemm_in_mem(a_np: np.ndarray, b_np: np.ndarray,
+                c_np: Optional[np.ndarray] = None,
+                alpha: float = 1.0, beta: float = 0.0,
+                transa: str = "N", transb: str = "N",
+                device: str = "cpu") -> np.ndarray:
+    """In-memory golden twin (reference: drivers/in_mem_gemm.cpp — the MKL
+    twin every out-of-core kernel is differentially tested against): one
+    torch matmul on `device`, full fp32 unless the caller switched TF32
+    on (torch.backends.cuda.matmul.allow_tf32, off by default)."""
+    import torch
+    dvc = dev.resolve_device(device)
+    a = torch.from_numpy(np.ascontiguousarray(a_np)).to(dvc)
+    b = torch.from_numpy(np.ascontiguousarray(b_np)).to(dvc)
+    opa = a.T if transa.upper() == "T" else a
+    opb = b.T if transb.upper() == "T" else b
+    out = alpha * (opa @ opb)
+    if beta != 0.0 and c_np is not None:
+        out = out + beta * torch.from_numpy(
+            np.ascontiguousarray(c_np)).to(dvc)
+    return out.cpu().numpy().astype(a_np.dtype)

@@ -1,0 +1,231 @@
+"""The port's out-of-core gemm against bof_tpu's, on the same files.
+
+Each case writes A, B and a starting C once from a seeded numpy
+generator, runs `bof_tpu.gemm` and `bof_tpu_torch.gemm` (device "cpu",
+the plain version of K1) over them under one configuration carried across
+by `config_from_reference`, and compares the two C files at the repo's
+fp32 tolerance (rtol 2e-4, atol 1e-4, as tests/test_gemm.py), plus the
+float64 golden.  Tiny superblocks make every case multi-block: padding,
+accumulate chains, the group schedule and write-back all run.
+"""
+import dataclasses
+import itertools
+import os
+
+import numpy as np
+import pytest
+
+import bof_tpu
+import bof_tpu_torch
+from bof_tpu.ops.gemm import _journal_header as ref_journal_header
+from bof_tpu_torch.ops.gemm import _journal_header as port_journal_header
+from bof_tpu_torch.utils import METRICS
+
+F32 = np.float32
+
+
+def _configs(tmp_path, **kw):
+    ref = bof_tpu.FlashConfig(scratch_dir=str(tmp_path / "scratch"),
+                              n_io_threads=4, n_compute_threads=2,
+                              program_budget=256 << 20, **kw)
+    port = bof_tpu_torch.config_from_reference(dataclasses.asdict(ref),
+                                               device="cpu")
+    return ref, port
+
+
+def _write(path, data, order):
+    np.ascontiguousarray(data if order == "R" else data.T).tofile(path)
+
+
+def _read(path, shape, order):
+    st = shape if order == "R" else shape[::-1]
+    x = np.fromfile(path, F32).reshape(st)
+    return x if order == "R" else x.T
+
+
+def _run(pkg, cfg, paths, shapes, order, c_path, **gemm_kw):
+    ctx = pkg.FlashContext(cfg)
+    try:
+        arrs = [pkg.map_array(p, s, F32, order, ctx=ctx)
+                for p, s in zip(paths, shapes)]
+        arrs.append(pkg.map_array(c_path, shapes[2], F32, order, ctx=ctx))
+        pkg.gemm(*arrs, ctx=ctx, **gemm_kw)
+    finally:
+        ctx.destroy()
+
+
+def run_both(tmp_path, order="R", ta="N", tb="N", m=37, n=29, k=41, blk=16,
+             alpha=1.5, beta=0.0, seed=0, **cfg_kw):
+    """Both packages on the same A/B/C files; returns (ref C, port C,
+    golden C) as logical float32 arrays."""
+    rng = np.random.default_rng(seed)
+    a_shape = (k, m) if ta == "T" else (m, k)
+    b_shape = (n, k) if tb == "T" else (k, n)
+    a = rng.standard_normal(a_shape).astype(F32)
+    b = rng.standard_normal(b_shape).astype(F32)
+    c0 = rng.standard_normal((m, n)).astype(F32)
+    d = str(tmp_path)
+    a_path, b_path = os.path.join(d, "A.bin"), os.path.join(d, "B.bin")
+    _write(a_path, a, order)
+    _write(b_path, b, order)
+    c_paths = {}
+    for name in ("ref", "port"):
+        c_paths[name] = os.path.join(d, f"C_{name}.bin")
+        _write(c_paths[name], c0, order)
+    ref_cfg, port_cfg = _configs(tmp_path, **cfg_kw)
+    kw = dict(alpha=alpha, beta=beta, transa=ta, transb=tb, blk=blk)
+    shapes = (a_shape, b_shape, (m, n))
+    _run(bof_tpu, ref_cfg, (a_path, b_path), shapes, order, c_paths["ref"],
+         **kw)
+    _run(bof_tpu_torch, port_cfg, (a_path, b_path), shapes, order,
+         c_paths["port"], **kw)
+    opa = (a.T if ta == "T" else a).astype(np.float64)
+    opb = (b.T if tb == "T" else b).astype(np.float64)
+    golden = alpha * (opa @ opb) + beta * c0.astype(np.float64)
+    return (_read(c_paths["ref"], (m, n), order),
+            _read(c_paths["port"], (m, n), order), golden.astype(F32))
+
+
+def _check(got_ref, got_port, golden):
+    np.testing.assert_allclose(got_port, got_ref, rtol=2e-4, atol=1e-4)
+    np.testing.assert_allclose(got_port, golden, rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("order,ta,tb",
+                         list(itertools.product("RC", "NT", "NT")))
+def test_all_eight_configs_match_reference(tmp_path, order, ta, tb):
+    _check(*run_both(tmp_path, order, ta, tb))
+
+
+def test_ragged_tiny_blk(tmp_path):
+    _check(*run_both(tmp_path, "C", "N", "T", m=50, n=23, k=19, blk=8))
+
+
+def test_beta_accumulate(tmp_path):
+    _check(*run_both(tmp_path, "R", "T", "N", alpha=0.75, beta=0.6))
+
+
+def test_small_device_budget_groups_and_evicts(tmp_path):
+    """hbm_budget=1 forces G=1 < nB groups and an LRU that evicts every
+    tile: tiles cross host->device more often than there are tiles."""
+    m, n, k, blk = 48, 64, 40, 16
+    METRICS.reset()
+    _check(*run_both(tmp_path, "R", "N", "N", m=m, n=n, k=k, blk=blk,
+                     beta=0.4, hbm_budget=1, pipeline_depth=2))
+    kb = -(-k // blk)
+    n_tiles = (m // blk) * kb + kb * (n // blk)
+    # both packages count misses in their own METRICS; the port's alone
+    # must exceed the distinct tile count
+    assert METRICS.get("hbm.miss") > n_tiles
+
+
+@pytest.mark.parametrize("io_backend", ["native", "python"])
+def test_io_backends(tmp_path, io_backend):
+    _check(*run_both(tmp_path, "R", "N", "T", m=60, n=44, k=52,
+                     io_backend=io_backend))
+
+
+def test_gemm_in_mem_twin_matches_reference():
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((33, 21)).astype(F32)
+    b = rng.standard_normal((19, 21)).astype(F32)
+    c = rng.standard_normal((33, 19)).astype(F32)
+    want = bof_tpu.gemm_in_mem(a, b, c, alpha=1.25, beta=0.5, transb="T")
+    got = bof_tpu_torch.gemm_in_mem(a, b, c, alpha=1.25, beta=0.5,
+                                    transb="T")
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4)
+
+
+def test_resume_journal_is_the_reference_format_and_byte_identical(
+        tmp_path):
+    """A journal written by a killed run names its problem with the same
+    header in both packages; resuming from it (here: the first two C
+    superblocks already durable) gives the uninterrupted run's bytes."""
+    n, blk = 64, 16
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal((n, n)).astype(F32)
+    b = rng.standard_normal((n, n)).astype(F32)
+    d = str(tmp_path)
+    paths = {x: os.path.join(d, f"{x}.bin") for x in ("A", "B")}
+    _write(paths["A"], a, "R")
+    _write(paths["B"], b, "R")
+    _, cfg = _configs(tmp_path)
+    header = port_journal_header(n, n, n, 1.0, 0.0, "N", "N", blk,
+                                 np.dtype(F32), "float32")
+    assert header == ref_journal_header(n, n, n, 1.0, 0.0, "N", "N", blk,
+                                        np.dtype(F32), "float32")
+
+    full = os.path.join(d, "C_full.bin")
+    np.zeros((n, n), F32).tofile(full)
+    journal = os.path.join(d, "journal.txt")
+    shapes = ((n, n), (n, n), (n, n))
+    _run(bof_tpu_torch, cfg, (paths["A"], paths["B"]), shapes, "R", full,
+         blk=blk, resume_journal=journal)
+    assert not os.path.exists(journal), "a finished run removes its journal"
+    want = np.fromfile(full, F32)
+
+    # an interrupted run: blocks (0,0) and (0,1) durable, the rest not
+    resumed = os.path.join(d, "C_resumed.bin")
+    c = np.full((n, n), np.nan, F32)
+    c[:blk, :2 * blk] = want.reshape(n, n)[:blk, :2 * blk]
+    c.tofile(resumed)
+    with open(journal, "w") as f:
+        f.write(header + "\n0 0\n0 1\n")
+    METRICS.reset()
+    _run(bof_tpu_torch, cfg, (paths["A"], paths["B"]), shapes, "R", resumed,
+         blk=blk, resume_journal=journal)
+    assert not os.path.exists(journal)
+    assert METRICS.get("gemm.d2h_bytes") == (n * n - 2 * blk * blk) * 4, \
+        "the journaled blocks are skipped"
+    np.testing.assert_array_equal(np.fromfile(resumed, F32), want)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("transfer_dtype", "bfloat16"), ("transfer_dtype", "int8"),
+    ("c_transfer_dtype", "bfloat16")])
+def test_unported_transfer_modes_raise(tmp_path, field, value):
+    cfg = bof_tpu_torch.FlashConfig(device="cpu",
+                                    scratch_dir=str(tmp_path / "s"),
+                                    **{field: value})
+    ctx = bof_tpu_torch.FlashContext(cfg)
+    try:
+        a = bof_tpu_torch.mem_array((8, 8), F32, ctx=ctx)
+        c = bof_tpu_torch.mem_array((8, 8), F32, ctx=ctx)
+        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+            bof_tpu_torch.gemm(a, a, c, blk=4, ctx=ctx)
+    finally:
+        ctx.destroy()
+
+
+def test_float64_raises(tmp_path):
+    ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+        device="cpu", scratch_dir=str(tmp_path / "s")))
+    try:
+        a = bof_tpu_torch.mem_array((8, 8), np.float64, ctx=ctx)
+        c = bof_tpu_torch.mem_array((8, 8), np.float64, ctx=ctx)
+        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+            bof_tpu_torch.gemm(a, a, c, blk=4, ctx=ctx)
+    finally:
+        ctx.destroy()
+
+
+def test_driver_cli_runs_on_cpu(tmp_path, capsys):
+    """python -m bof_tpu_torch.drivers.gemm, as a user runs it."""
+    from bof_tpu_torch.drivers import gemm as driver
+    rng = np.random.default_rng(2)
+    m, n, k = 40, 30, 20
+    a = rng.standard_normal((m, k)).astype(F32)
+    b = rng.standard_normal((k, n)).astype(F32)
+    d = str(tmp_path)
+    for name, x in (("A", a), ("B", b)):
+        x.tofile(os.path.join(d, f"{name}.bin"))
+    c_path = os.path.join(d, "C.bin")
+    secs = driver.main([os.path.join(d, "A.bin"), os.path.join(d, "B.bin"),
+                        c_path, str(m), str(n), str(k), "--blk", "16",
+                        "--create-c", "--device", "cpu",
+                        "--scratch", os.path.join(d, "s")])
+    assert secs > 0
+    assert "checksum" in capsys.readouterr().out
+    np.testing.assert_allclose(np.fromfile(c_path, F32).reshape(m, n),
+                               a.astype(np.float64) @ b, rtol=2e-4,
+                               atol=1e-4)
