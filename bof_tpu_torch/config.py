@@ -57,8 +57,8 @@ class FlashConfig:
     #   every setting; TF32 passes for "high"/"default" are ROADMAP B1
 
     # ---- sparse kernels (reference: MAX_NNZS, CSRMM_*_CBLK_SIZE) ----
-    # carried so configurations round-trip from bof_tpu; the kernels that
-    # read them are not ported yet (ROADMAP A9)
+    # sparse_device_impl takes bof_tpu's values ("xla"|"pallas"|"auto");
+    # every one runs kernel K2 on the card
     max_nnzs: int = 1 << 26
     csrmm_cblk_size: int = 4096
     csrgemv_blk_size: int = 1 << 20

@@ -34,6 +34,12 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--precision", default="highest",
                    choices=["default", "high", "highest"],
                    help="matmul precision on device")
+    p.add_argument("--sparse-compute", default="auto",
+                   choices=["auto", "host", "device"],
+                   help="placement of sparse block products (csrmm, "
+                        "csrgemv): device = the ELL kernels on the card, "
+                        "host = scipy on the pinned tile (the reference's "
+                        "MKL-on-host model), auto = by measured link rate")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on (cuda, cuda:N, cpu); "
                         "never auto-detected")
@@ -49,6 +55,7 @@ def make_context(args) -> FlashContext:
         use_o_direct=args.o_direct,
         io_backend=args.io_backend,
         matmul_precision=args.precision,
+        sparse_compute=args.sparse_compute,
         device=args.device)
     return FlashContext(cfg)
 

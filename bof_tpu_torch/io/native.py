@@ -11,9 +11,10 @@ multi-threaded strided I/O — the role the reference's
 FlashFileHandle/IoExecutor pair plays (reference: flash_file_handle.cpp,
 io_executor.cpp).
 
-Only the engine and pin-cache entry points the dense slice uses are bound;
-the engine's quantize/cast/ELL/sort/fold helpers join with the modules
-that call them (ROADMAP A6, A9, A11, A13).
+Bound: the engine and pin-cache entry points, and the two host helpers of
+the sparse planners (`ell_fill`, `counting_argsort_i32`).  The engine's
+quantize/cast/sort-merge/fold helpers join with the modules that call them
+(ROADMAP A6, A11, A13).
 """
 from __future__ import annotations
 
@@ -125,6 +126,16 @@ def load_library():
         lib.bof_set_aio_depth.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.bof_set_verify_writes.argtypes = [ctypes.c_int]
         lib.bof_set_span_disable.argtypes = [ctypes.c_int]
+        lib.bof_ell_fill.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        lib.bof_ell_fill.restype = None
+        lib.bof_counting_argsort_i32.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p]
+        lib.bof_counting_argsort_i32.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -165,6 +176,62 @@ def alloc_aligned(nbytes: int, alignment: int = SECTOR_LEN) -> np.ndarray:
     raw = np.empty(nbytes + alignment, dtype=np.uint8)
     off = (-raw.ctypes.data) % alignment
     return raw[off:off + nbytes]
+
+
+def counting_argsort_i32(keys: np.ndarray, k: int):
+    """Stable argsort of int32 keys known to lie in [0, k) — the ordering
+    pass of csrcsc's phase-2 ragged merge (reference: BlockMergeTask's
+    OpenMP merge, csrcsc_task.h:101-169).  Parallel counting sort:
+    O(n + k) work beats comparison argsort even single-threaded.  Returns
+    the int64 permutation, or None (caller falls back to np.argsort)."""
+    lib = load_library()
+    if lib is None:
+        return None
+    keys = np.ascontiguousarray(keys, np.int32)
+    out = np.empty(keys.size, np.int64)
+    rc = lib.bof_counting_argsort_i32(keys.ctypes.data, keys.size,
+                                      int(k), out.ctypes.data)
+    return out if rc == 0 else None
+
+
+def ell_fill(starts: np.ndarray, counts: np.ndarray, ja_blk: np.ndarray,
+             va_blk: np.ndarray, rows_pad: int, rmax: int,
+             idx_dtype, val_dtype):
+    """Native padded-ELL row gather (the sparse planners' host prep);
+    returns (ja_ell, va_ell) or None when the engine or this dtype
+    combination is unavailable (caller falls back to the numpy chain).
+    Supported: ja int64 -> int32|uint16; va f32 -> f32, f64 -> f64,
+    bit-identical to the numpy path.  The engine's bf16 value mode belongs
+    to the transfer modes (ROADMAP A6) and is not bound."""
+    lib = load_library()
+    if lib is None:
+        return None
+    if ja_blk.dtype != np.int64 or not ja_blk.flags.c_contiguous \
+            or not va_blk.flags.c_contiguous:
+        return None
+    idx_dtype = np.dtype(idx_dtype)
+    if idx_dtype == np.int32:
+        jk = 0
+    elif idx_dtype == np.uint16:
+        jk = 1
+    else:
+        return None
+    vd = np.dtype(val_dtype if val_dtype is not None else va_blk.dtype)
+    if va_blk.dtype == np.float32 and vd == np.float32:
+        vk = 0
+    elif va_blk.dtype == np.float64 and vd == np.float64:
+        vk = 2
+    else:
+        return None
+    starts = np.ascontiguousarray(starts, np.int64)
+    counts = np.ascontiguousarray(counts, np.int64)
+    ja_ell = np.empty((rows_pad, rmax), idx_dtype)
+    va_ell = np.empty((rows_pad, rmax), vd)
+    lib.bof_ell_fill(starts.ctypes.data, counts.ctypes.data,
+                     len(counts), rows_pad, rmax, len(ja_blk),
+                     ja_blk.ctypes.data, ja_ell.ctypes.data, jk,
+                     va_blk.ctypes.data, va_ell.ctypes.data, vk)
+    return ja_ell, va_ell
 
 
 class NativeTicket(Ticket):

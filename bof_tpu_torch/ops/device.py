@@ -15,6 +15,8 @@ still in flight would read a recycled buffer.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -42,6 +44,36 @@ def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def from_device(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def dtype_native_on_device(dt) -> bool:
+    """True iff the port's device kernels compute in `dt` exactly.  The
+    sparse kernels (K2, the SpMV) are fp32, so 64-bit values take the
+    exact scipy host path instead of narrowing — as bof_tpu does on a TPU
+    and on a CPU without x64 (an fp64 K2 is ROADMAP work)."""
+    return np.dtype(dt).itemsize < 8
+
+
+_link_gbps: dict = {}
+
+
+def link_gbps_estimate(device: torch.device) -> float:
+    """One-shot measured host->device rate (GB/s) for `device`, cached per
+    device for the process: one 8 MiB incompressible upload, synchronized.
+    Drives the sparse compute-placement heuristic ('auto').  A CPU device
+    has no link to cross: infinite."""
+    if device.type == "cpu":
+        return float("inf")
+    key = str(device)
+    if key not in _link_gbps:
+        x = np.random.default_rng(99).integers(0, 256, 8 << 20,
+                                               dtype=np.uint8)
+        sync(to_device(x[:1 << 16], device))  # warm the path
+        t0 = time.perf_counter()
+        sync(to_device(x, device))
+        _link_gbps[key] = x.nbytes / max(time.perf_counter() - t0,
+                                         1e-9) / 1e9
+    return _link_gbps[key]
 
 
 def sync(t: torch.Tensor) -> None:

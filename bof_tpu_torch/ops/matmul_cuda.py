@@ -7,96 +7,14 @@ tensors, and runs its plain PyTorch version, `accum_matmul_ref`, on CPU
 tensors.  Nothing else chooses between the two: a CUDA tensor launches the
 kernel or raises.
 
-The kernel is built at first use from `csrc/*.cu` with nvcc into
-`build/bof_tpu_torch/kernels/` (route (b): a plain C entry point loaded with
-ctypes, no PyTorch headers), keyed by a digest of the sources and flags
-and serialized by a flock.  A failed build raises.
+The kernel is built at first use with the port's other kernels into one
+library (`ops/cuda_lib.py`).
 """
 from __future__ import annotations
 
-import ctypes
-import glob
-import os
-import shutil
-import subprocess
-import threading
-import time
-
 import torch
 
-from ..io.native import build_root
-from ..utils import LOG
-
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
-_lib_lock = threading.Lock()
-BUILD_INFO: dict = {}  # filled by the first build: path, seconds, ptxas log
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
-                       "kernels of bof_tpu_torch cannot be built")
-
-
-def _digest(sources) -> str:
-    import hashlib
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources:
-        with open(p, "rb") as f:
-            h.update(os.path.basename(p).encode())
-            h.update(f.read())
-    return h.hexdigest()[:16]
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source digest) and load the kernel library."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        import fcntl
-        sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
-        out_dir = os.path.join(build_root(), "kernels")
-        os.makedirs(out_dir, exist_ok=True)
-        so = os.path.join(out_dir, f"libbof_kernels-{_digest(sources)}.so")
-        t0 = time.perf_counter()
-        log = ""
-        with open(so + ".lock", "w") as lk:
-            fcntl.flock(lk, fcntl.LOCK_EX)
-            try:
-                if not os.path.exists(so):
-                    tmp = f"{so}.tmp.{os.getpid()}"
-                    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-                    LOG.info("building CUDA kernels: %s", " ".join(cmd))
-                    res = subprocess.run(cmd, capture_output=True, text=True)
-                    log = res.stdout + res.stderr
-                    if res.returncode != 0:
-                        raise RuntimeError(
-                            f"nvcc failed ({res.returncode}):\n{log}")
-                    os.replace(tmp, so)
-            finally:
-                fcntl.flock(lk, fcntl.LOCK_UN)
-        lib = ctypes.CDLL(so)
-        fn = lib.bof_accum_matmul_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0,
-                          ptxas=log)
-        _lib = lib
-        return _lib
+from .cuda_lib import build
 
 
 def _logical_dims(c, a, b, a_km, b_nk, c_nm):

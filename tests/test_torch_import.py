@@ -100,3 +100,61 @@ def test_native_engine_builds_outside_the_reference_package():
     assert so.startswith(native.build_root() + os.sep)
     assert "bof_tpu" + os.sep + "native" not in so
     assert os.path.basename(so).startswith("libbof_io-")
+
+
+def test_sparse_slice_imports_neither_jax_nor_ml_dtypes():
+    code = ("import sys, bof_tpu_torch.sparse, bof_tpu_torch.drivers.csrmm, "
+            "bof_tpu_torch.drivers.csrgemv, bof_tpu_torch.drivers.csrcsc, "
+            "bof_tpu_torch.drivers.sparse_create, "
+            "bof_tpu_torch.drivers.in_mem_sparse; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'ml_dtypes', 'bof_tpu')); print(bad)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    pat = re.compile(r"^\s*(from|import)\s+ml_dtypes(\.|\s|$)")
+    for root, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    assert not any(pat.match(line) for line in f), name
+
+
+@pytest.mark.parametrize("kernel", ["csrmm", "csrgemv"])
+def test_sparse_cuda_device_without_card_raises(tmp_path, kernel):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the CPU-only contract does "
+                    "not apply")
+    import scipy.sparse as sps
+    cfg = bof_tpu_torch.FlashConfig(device="cuda",
+                                    scratch_dir=str(tmp_path / "s"))
+    ctx = bof_tpu_torch.FlashContext(cfg)
+    try:
+        a = bof_tpu_torch.CsrFlashMatrix.from_scipy(
+            sps.identity(8, dtype=np.float32, format="csr"), ctx=ctx)
+        b = bof_tpu_torch.mem_array((8, 4), np.float32, ctx=ctx,
+                                    data=np.ones((8, 4), np.float32))
+        c = bof_tpu_torch.mem_array((8, 4), np.float32, ctx=ctx)
+        with pytest.raises(RuntimeError, match="cuda"):
+            if kernel == "csrmm":
+                bof_tpu_torch.csrmm(a, b, c, ctx=ctx)
+            else:
+                bof_tpu_torch.csrgemv(a, np.ones(8, np.float32), ctx=ctx)
+        assert not c.read_all().any(), "nothing may run on the CPU instead"
+    finally:
+        ctx.destroy()
+
+
+def test_config_round_trips_non_default_sparse_fields():
+    ref = bof_tpu.FlashConfig(max_nnzs=12345, csrmm_cblk_size=96,
+                              csrgemv_blk_size=777, sparse_compute="host",
+                              sparse_device_impl="pallas",
+                              ell_sort_rows=False, ell_idx_narrow=False)
+    port = bof_tpu_torch.config_from_reference(dataclasses.asdict(ref))
+    for key in ("max_nnzs", "csrmm_cblk_size", "csrgemv_blk_size",
+                "sparse_compute", "sparse_device_impl", "ell_sort_rows",
+                "ell_idx_narrow"):
+        assert getattr(port, key) == getattr(ref, key), key
+    assert port.device == "cuda"  # never inferred from the reference
