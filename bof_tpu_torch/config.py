@@ -53,8 +53,8 @@ class FlashConfig:
 
     # ---- dense kernels (reference: GEMM_BLK_SIZE=8192) ----
     gemm_blk_size: int = 8192          # superblock edge for out-of-core gemm
-    matmul_precision: str = "highest"  # the FFMA kernel is full fp32 at
-    #   every setting; TF32 passes for "high"/"default" are ROADMAP B1
+    matmul_precision: str = "highest"  # K1 on the tensor cores: 3xTF32
+    #   for "highest"/"high", one TF32 pass for "default"
 
     # ---- sparse kernels (reference: MAX_NNZS, CSRMM_*_CBLK_SIZE) ----
     # sparse_device_impl takes bof_tpu's values ("xla"|"pallas"|"auto");

@@ -27,9 +27,10 @@
 // sequential fmaf accumulation, which is what matmul_precision='highest'
 // promises; one TF32 tensor-core pass would not.
 //
-// Future work (ROADMAP B1): a TMA + wgmma tensor-core path (3xTF32 for
-// 'highest', one TF32/bf16 pass for 'default') and an s8 variant for the
-// int8 transfer mode (B4).
+// This is K1's FFMA variant: ops/matmul_cuda.py:k1_variant sends here the
+// shapes whose leading dimensions or base addresses TMA cannot describe;
+// everything else goes to the tensor-core variants in matmul_tf32.cu.  An
+// s8 variant for the int8 transfer mode is ROADMAP B4.
 
 #include <cuda_runtime.h>
 

@@ -1,11 +1,12 @@
 """ctypes bindings to the native I/O engine.
 
-The engine is the JAX package's C++ source, `bof_tpu/native/bof_io.cpp`
-(which #includes the pin cache `bof_cache.inc`), found by file path and
-never imported: importing `bof_tpu` would import jax.  It is built with
-the same g++ line into `build/bof_tpu_torch/native/libbof_io-<digest>.so`,
-keyed by a digest of both sources and serialized by a flock, so the port
-never writes next to the reference's sources.  `NativeFileStore`
+The engine is the port's own copy of the JAX package's C++ source,
+`bof_tpu_torch/native/bof_io.cpp` (which #includes the pin cache
+`bof_cache.inc`), byte for byte the reference's while that is frozen, so
+the port reads no file of `bof_tpu`.  It is built with the reference's g++
+line into `build/bof_tpu_torch/native/libbof_io-<digest>.so`, keyed by a
+digest of both sources and serialized by a flock, so nothing is written
+next to the sources.  `NativeFileStore`
 implements the BaseStore interface on top of it, giving O_DIRECT +
 multi-threaded strided I/O — the role the reference's
 FlashFileHandle/IoExecutor pair plays (reference: flash_file_handle.cpp,
@@ -31,7 +32,7 @@ from .store import BaseStore, Ticket, _check_access, store_uid
 from .stride import StrideInfo
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_NATIVE_DIR = os.path.join(os.path.dirname(_PKG_DIR), "bof_tpu", "native")
+_NATIVE_DIR = os.path.join(_PKG_DIR, "native")
 _SRC = os.path.join(_NATIVE_DIR, "bof_io.cpp")
 _INC = os.path.join(_NATIVE_DIR, "bof_cache.inc")
 

@@ -4,7 +4,9 @@ Every `bof_tpu_torch/csrc/*.cu` is compiled at first use, one nvcc
 process per source, all started together, and the objects are linked
 into `build/bof_tpu_torch/kernels/libbof_kernels-<digest>.so` (route (b):
 plain C entry points loaded with ctypes, no PyTorch headers), keyed by a
-digest of the sources and flags and serialized by a flock.  A failed
+digest of the flags and of every `csrc/*.cu` and `*.cuh`, and serialized
+by a flock.  Nothing is linked beyond nvcc's defaults: the TMA tensor
+maps' encoder is fetched from the driver at run time.  A failed
 build raises.  The kernel wrappers (`ops/matmul_cuda.py`,
 `sparse/spmm_cuda.py`) take their entry points from `build()`.
 """
@@ -33,6 +35,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _ENTRIES = {
     "bof_accum_matmul_f32": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _P],
+    "bof_accum_matmul_tf32": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
+                              _LL, _LL, _LL, _I, _P, _P, _P, _P, _LL, _P],
     "bof_spmm_ell_f32": [_P, _P, _P, _I, _P, _LL, _LL, _LL, _I, _P],
     "bof_spmv_ell_f32": [_P, _P, _P, _I, _P, _LL, _LL, _P],
 }
@@ -52,10 +56,12 @@ def _nvcc() -> str:
                        "kernels of bof_tpu_torch cannot be built")
 
 
-def _digest(sources) -> str:
+def _digest(files) -> str:
+    """Of the flags and every source and header, so that any change to
+    what the compiler reads rebuilds."""
     import hashlib
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources:
+    for p in files:
         with open(p, "rb") as f:
             h.update(os.path.basename(p).encode())
             h.update(f.read())
@@ -104,9 +110,11 @@ def build() -> ctypes.CDLL:
             return _lib
         import fcntl
         sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+        headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
         out_dir = os.path.join(build_root(), "kernels")
         os.makedirs(out_dir, exist_ok=True)
-        so = os.path.join(out_dir, f"libbof_kernels-{_digest(sources)}.so")
+        so = os.path.join(out_dir,
+                          f"libbof_kernels-{_digest(sources + headers)}.so")
         t0 = time.perf_counter()
         log = ""
         with open(so + ".lock", "w") as lk:

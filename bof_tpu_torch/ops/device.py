@@ -103,9 +103,8 @@ def accum_step(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     b: (bk,bn) if not b_nk else (bn,bk)
     c: (bm,bn) if not c_nm else (bn,bm)
 
-    `prec` is accepted for every value bof_tpu accepts: K1 is full fp32
-    FFMA, at least as precise as any of them (the faster TF32 passes for
-    'high'/'default' are ROADMAP B1)."""
-    if prec not in ("highest", "high", "default"):
-        raise ValueError(f"unknown matmul precision {prec!r}")
-    return accum_matmul(c, a, b, alpha, a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+    `prec` takes bof_tpu's values, each at least as precise as the TPU's
+    tier: 'highest' and 'high' run K1 as 3xTF32, 'default' as one TF32
+    pass (`matmul_cuda.K1_PASSES`); an unknown value raises ValueError."""
+    return accum_matmul(c, a, b, alpha, a_km=a_km, b_nk=b_nk, c_nm=c_nm,
+                        prec=prec)

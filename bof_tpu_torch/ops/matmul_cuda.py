@@ -1,13 +1,20 @@
 """Kernel K1: the superblock accumulate step `C += alpha * op(A) op(B)`.
 
-`accum_matmul` launches the hand-written CUDA kernel in
-`bof_tpu_torch/csrc/matmul.cu` (replacing `bof_tpu/ops/matmul_pallas.py:
-matmul` plus `bof_tpu/ops/device.py:accum_step`'s epilogue) on CUDA
-tensors, and runs its plain PyTorch version, `accum_matmul_ref`, on CPU
-tensors.  Nothing else chooses between the two: a CUDA tensor launches the
-kernel or raises.
+`accum_matmul` launches a hand-written CUDA kernel (replacing
+`bof_tpu/ops/matmul_pallas.py:matmul` plus `bof_tpu/ops/device.py:
+accum_step`'s epilogue) on CUDA tensors, and runs its plain PyTorch
+version, `accum_matmul_ref`, on CPU tensors.  Nothing else chooses between
+the two: a CUDA tensor launches the kernel or raises.
 
-The kernel is built at first use with the port's other kernels into one
+K1 has three variants, and `k1_variant` alone picks one:
+- 'tf32x3' (`csrc/matmul_tf32.cu`, 3 passes): TMA + wgmma 3xTF32, for
+  precision 'highest' and 'high';
+- 'tf32' (the same kernel, 1 pass): one TF32 pass, for 'default';
+- 'ffma' (`csrc/matmul.cu`): full fp32 FFMA, for operands TMA cannot
+  describe (a leading dimension that is not a multiple of 4 floats, or a
+  base address that is not 16-byte aligned), at every precision.
+
+The kernels are built at first use with the port's other kernels into one
 library (`ops/cuda_lib.py`).
 """
 from __future__ import annotations
@@ -15,6 +22,11 @@ from __future__ import annotations
 import torch
 
 from .cuda_lib import build
+
+# matmul precision -> tensor-core passes; each tier keeps at least the bits
+# the TPU's tier keeps ('highest': 6 bf16 passes; 'default': 1 bf16 pass)
+K1_PASSES = {"highest": 3, "high": 3, "default": 1}
+K1_VARIANTS = ("tf32x3", "tf32", "ffma")
 
 
 def _logical_dims(c, a, b, a_km, b_nk, c_nm):
@@ -32,24 +44,83 @@ def _logical_dims(c, a, b, a_km, b_nk, c_nm):
     return m, n, k
 
 
+def _passes(prec: str) -> int:
+    if prec not in K1_PASSES:
+        raise ValueError(f"unknown matmul precision {prec!r} (one of "
+                         f"{sorted(K1_PASSES)})")
+    return K1_PASSES[prec]
+
+
+def k1_variant(lda: int, ldb: int, prec: str, *, aligned: bool = True) -> str:
+    """The K1 variant a CUDA launch runs: 'tf32x3' for 'highest'/'high',
+    'tf32' for 'default', when TMA can describe both operands (storage
+    leading dimensions `lda`, `ldb` multiples of 4 floats, i.e. 16 bytes,
+    and both base addresses 16-byte `aligned`); 'ffma', the full-fp32 FFMA
+    kernel, otherwise.  C has no constraint (the epilogue stores floats
+    one by one).  Raises ValueError on an unknown `prec`."""
+    passes = _passes(prec)
+    if not aligned or lda % 4 or ldb % 4:
+        return "ffma"
+    return "tf32x3" if passes == 3 else "tf32"
+
+
+def k1_workspace(m: int, n: int, k: int, *, a_km: bool, b_nk: bool,
+                 passes: int) -> dict:
+    """Row counts of the K-major fp32 workspaces the tensor-core variants
+    write before the product (each rows x `k1_ldw(k)`): 'a_x' (op(A)
+    rewritten K-major) when a_km, 'b_x' (op(B)^T) when B is stored (K,N),
+    and 'a_lo'/'b_lo' (x - tf32(x)) for 3 passes."""
+    rows = {}
+    if a_km:
+        rows["a_x"] = m
+    if not b_nk:
+        rows["b_x"] = n
+    if passes == 3:
+        rows["a_lo"] = m
+        rows["b_lo"] = n
+    return rows
+
+
+def k1_ldw(k: int) -> int:
+    """Leading dimension of the workspaces: k rounded up to 4 floats."""
+    return -(-k // 4) * 4
+
+
 def accum_matmul_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                      alpha: float, *, a_km: bool, b_nk: bool,
                      c_nm: bool) -> torch.Tensor:
-    """Plain PyTorch version of K1: c += alpha * op(a) @ op(b) in c's
-    storage layout, in place; returns c."""
+    """Plain PyTorch version of K1 at every precision: c += alpha *
+    op(a) @ op(b) in c's storage layout, in place; returns c."""
     _logical_dims(c, a, b, a_km, b_nk, c_nm)
     out = (a.T if a_km else a) @ (b.T if b_nk else b)
     return c.add_(out.T if c_nm else out, alpha=float(alpha))
 
 
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x with its 13 low mantissa bits cleared: TF32 by truncation."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def accum_matmul_tf32_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                          alpha: float, *, a_km: bool, b_nk: bool,
+                          c_nm: bool) -> torch.Tensor:
+    """Plain one-pass TF32 emulation: `accum_matmul_ref` on operands
+    truncated to TF32, the 'tf32' variant's arithmetic up to summation
+    order.  For tests and chip_smoke.py only."""
+    return accum_matmul_ref(c, tf32_truncate(a), tf32_truncate(b), alpha,
+                            a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+
+
 def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                  alpha: float, *, a_km: bool, b_nk: bool,
-                 c_nm: bool) -> torch.Tensor:
+                 c_nm: bool, prec: str = "highest") -> torch.Tensor:
     """c += alpha * op(a) @ op(b), in place, all in storage-major layout:
     a is (M,K) or (K,M) with a_km; b is (K,N) or (N,K) with b_nk; c is
     (M,N) or (N,M) with c_nm.  fp32, contiguous, one device.  CUDA tensors
-    launch K1 on the current stream; CPU tensors take the plain version."""
+    launch the K1 variant `k1_variant` names on the current stream; CPU
+    tensors take the plain version, full fp32 at every `prec`."""
     m, n, k = _logical_dims(c, a, b, a_km, b_nk, c_nm)
+    passes = _passes(prec)
     devs = {c.device, a.device, b.device}
     if len(devs) != 1:
         raise ValueError(f"accum_matmul operands on several devices: {devs}")
@@ -66,18 +137,45 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"accum_matmul: unsupported device {dev}")
     if min(m, n, k) == 0:
-        return c  # nothing to add; the C entry would launch nothing
-    fn = build().bof_accum_matmul_f32
+        return c  # nothing to add; the C entries would launch nothing
+    lda, ldb = a.shape[1], b.shape[1]
+    variant = k1_variant(lda, ldb, prec, aligned=(
+        a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0))
+    lib = build()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha),
-                m, n, k, int(a_km), int(b_nk), int(c_nm),
-                a.shape[1], b.shape[1], c.shape[1], stream)
+        if variant == "ffma":
+            entry = "bof_accum_matmul_f32"
+            rc = lib.bof_accum_matmul_f32(
+                c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha), m, n,
+                k, int(a_km), int(b_nk), int(c_nm), lda, ldb, c.shape[1],
+                stream)
+        else:
+            entry = "bof_accum_matmul_tf32"
+            rows = k1_workspace(m, n, k, a_km=a_km, b_nk=b_nk, passes=passes)
+            ldw = k1_ldw(k)
+            ws = torch.empty(sum(rows.values()) * ldw, dtype=torch.float32,
+                             device=dev)
+            ptr, off = {}, 0
+            for name, r in rows.items():
+                ptr[name] = ws.data_ptr() + 4 * off
+                off += r * ldw
+            rc = lib.bof_accum_matmul_tf32(
+                c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha), m, n,
+                k, int(a_km), int(b_nk), int(c_nm), lda, ldb, c.shape[1],
+                passes, ptr.get("a_x"), ptr.get("a_lo"), ptr.get("b_x"),
+                ptr.get("b_lo"), ldw, stream)
     if rc != 0:
-        raise RuntimeError(f"bof_accum_matmul_f32 launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     accum_matmul.launches += 1
+    accum_matmul.variant_launches[variant] += 1
     return c
 
 
-accum_matmul.launches = 0
+def reset_launch_counts() -> None:
+    """Set K1's launch count and its per-variant counts to 0."""
+    accum_matmul.launches = 0
+    accum_matmul.variant_launches = dict.fromkeys(K1_VARIANTS, 0)
+
+
+reset_launch_counts()

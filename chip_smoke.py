@@ -10,17 +10,26 @@ Steps, each of which raises (exit code != 0) when it fails:
    and CUDA versions and `nvcc --version`;
 2. build the kernels from `bof_tpu_torch/csrc` (one nvcc per source, all
    at once) and print the build time and what ptxas reports;
-3. kernel K1 (`accum_matmul`) against its plain PyTorch version for all 8
-   storage layouts at 8192^3 and at a ragged 1000x777x513, with alpha 1.5
-   and a non-zero starting C; tolerance max|kernel - plain| <=
-   2e-4 * max|plain|; the median of 5 CUDA-event times of both at 8192^3;
+3. kernel K1 (`accum_matmul`): first a probe that wgmma truncates tf32
+   operands (what the 3xTF32 split assumes); then every variant against
+   its plain PyTorch version for all 8 storage layouts, with alpha 1.5 and
+   a non-zero starting C: the tensor-core variants at 8192^3 and at a
+   ragged 1000x776x516 with 16-byte rows, 'highest' (3xTF32) within
+   2e-4 * max|plain| and 'default' (one TF32 pass) within 2e-4 *
+   max|emulation| of its truncating emulation and within 2^-10 * sqrt(k) *
+   max|A| * max|B| * |alpha| of full fp32; the FFMA variant at a ragged
+   1000x777x513 that TMA cannot describe, within 2e-4 * max|plain|.  At
+   8192^3 R/N/N, the median of 5 CUDA-event times of each tier, the plain
+   version, `addmm_` with TF32 off (the library yardstick) and on, and the
+   FFMA variant; ptxas must report no spills for the tensor-core kernel;
 4. kernel K2 (`spmm_ell`) against its plain version at (a) the csrmm
    band shape rows 512, rmax 256, k 131072, cb 4096, int32 indices;
    (b) uint16 indices, k 65536, cb 999, rows 24, rmax 64; (c) a mega-row
    band rows 8, rmax 16384, cb 256; then the ELL SpMV (`spmv_ell`) at
    rows 16384, rmax 256, k 131072.  Tolerance max|kernel - plain| <=
    2e-4 * max|plain| + 1e-5 * sqrt(rmax) * max|va| * max|B|; the median
-   of 5 CUDA-event times of both at (a) and at the SpMV shape;
+   of 5 CUDA-event times of both, and of the same band as a torch CSR
+   matrix times B (or x), at (a) and at the SpMV shape;
 5. S1/S2, the gemm main path through `bof_tpu_torch.drivers.gemm.main`:
    32768^3 fp32 order R N/N (alpha 1, beta 0), then 12288^3 (ragged
    superblocks) order C, ta T, tb N, alpha 0.5, beta 2; O_DIRECT, the
@@ -39,7 +48,8 @@ Steps, each of which raises (exit code != 0) when it fails:
 9. after each call, 16 sampled rows and 16 sampled columns of C (the
    whole y for csrgemv) against float64 numpy/scipy with rtol 2e-4 and
    atol 1e-5 * sqrt(inner length) * max|A| * max|B| * |alpha|; each
-   kernel's launch count against what the planner forms (K1: mB*nB*kB;
+   kernel's launch count against what the planner forms (K1: mB*nB*kB,
+   every one on the 3xTF32 variant;
    K2 and the SpMV: the ELL bands, recomputed here from the offsets with
    fill_row_blocks + ell_row_ranges); the wall time, GFLOP/s, the
    driver's GB/s, stage seconds and peak device memory.
@@ -47,12 +57,15 @@ Steps, each of which raises (exit code != 0) when it fails:
 Operands are written from seeded generators under `$BOF_SCRATCH`
 (default `build/chip_smoke` in this checkout), which must be a real
 filesystem (O_DIRECT) with about 24 GiB free; every file is deleted after
-its check.  TF32 is switched off, so every torch matmul here is full fp32.
-With BOF_SMOKE_PROFILE=1 the S3 call runs under torch.profiler and the
-device time by kernel and the device's busy share are printed.
+its check.  TF32 is switched off, so every torch matmul here is full fp32
+(but for the one timing that asks for it).
+With BOF_SMOKE_PROFILE=1 the S1, S2 and S3 calls run under torch.profiler
+and the device time by kernel and the device's busy share are printed.
 
-The line before the last is the kernel summary as JSON; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the kernel summary as JSON (each kernel's
+time, plain and library times, and its bound: the larger of its bytes over
+3.35 TB/s and its operations over the peak rate of their type); the last
+line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -101,62 +114,157 @@ def _median_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+HBM_BPS = 3.35e12      # H100 SXM device memory, bytes/s (data sheet)
+TF32_FLOPS = 495e12    # H100 SXM dense TF32 tensor cores, FLOP/s
+FP32_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores, FLOP/s
+
+
+def _bound(nbytes, flops, peak):
+    """The least time the card could take: bytes over the memory rate or
+    operations over their peak rate, whichever is larger (ms, which)."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _k1_check(label, got, want, limit, limit_desc) -> float:
+    err = float((got - want).abs().max())
+    ok = err <= limit
+    print(f"K1 {label}: max|kernel-plain| {err:.6g} (limit {limit:.6g} = "
+          f"{limit_desc}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"K1 disagrees with its plain version: {label}")
+    return err
+
+
+def _tf32_probe(dev) -> None:
+    """wgmma's TF32 conversion, which the 3xTF32 split assumes is
+    truncation: with A = I one 'default' pass returns op(B) as converted."""
+    import numpy as np
+    import torch
+    from bof_tpu_torch.ops.matmul_cuda import accum_matmul, tf32_truncate
+    b = torch.from_numpy(np.random.default_rng([SEED, 1]).standard_normal(
+        (128, 128), dtype=np.float32)).to(dev)
+    c = torch.zeros_like(b)
+    accum_matmul(c, torch.eye(128, device=dev), b, 1.0, a_km=False,
+                 b_nk=False, c_nm=False, prec="default")
+    torch.cuda.synchronize()
+    truncated = bool(torch.equal(c, tf32_truncate(b)))
+    print(f"K1 probe: wgmma {'truncates' if truncated else 'does NOT truncate'}"
+          " tf32 operands (A = I, one pass: C == truncate(B) "
+          f"{truncated}, C == B {bool(torch.equal(c, b))})", flush=True)
+    if not truncated:
+        raise AssertionError("the 3xTF32 split assumes truncation")
+
+
 def kernel_phase(dev) -> dict:
-    """K1 against its plain version on the card; returns the summary."""
+    """K1 against its plain versions on the card, every variant and
+    layout; times at 8192^3; returns the summary."""
     import itertools
 
     import numpy as np
     import torch
-    from bof_tpu_torch.ops.matmul_cuda import accum_matmul, accum_matmul_ref
+    from bof_tpu_torch.ops.cuda_lib import build
+    from bof_tpu_torch.ops.matmul_cuda import (accum_matmul,
+                                               accum_matmul_ref,
+                                               accum_matmul_tf32_ref,
+                                               k1_variant)
 
+    _tf32_probe(dev)
     rng = np.random.default_rng(SEED)
     alpha = 1.5
-    worst = 0.0
+    worst = worst_default = 0.0
     timing = {}
-    for (m, n, k) in ((8192, 8192, 8192), (1000, 777, 513)):
+    # (shape, precisions, whether k1_variant sends it to the tensor cores):
+    # the main path's superblock, a ragged shape with 16-byte rows, and a
+    # ragged shape that TMA cannot describe (the FFMA variant)
+    cases = (((8192, 8192, 8192), ("highest", "default"), True),
+             ((1000, 776, 516), ("highest", "default"), True),
+             ((1000, 777, 513), ("highest",), False))
+    for (m, n, k), precs, tensor_cores in cases:
         a_log = torch.from_numpy(
             rng.standard_normal((m, k), dtype=np.float32)).to(dev)
         b_log = torch.from_numpy(
             rng.standard_normal((k, n), dtype=np.float32)).to(dev)
         c_log = torch.from_numpy(
             rng.standard_normal((m, n), dtype=np.float32)).to(dev)
-        for a_km, b_nk, c_nm in itertools.product((False, True), repeat=3):
+        for (a_km, b_nk, c_nm), prec in itertools.product(
+                itertools.product((False, True), repeat=3), precs):
             a = a_log.T.contiguous() if a_km else a_log
             b = b_log.T.contiguous() if b_nk else b_log
             c0 = c_log.T.contiguous() if c_nm else c_log
             flags = dict(a_km=a_km, b_nk=b_nk, c_nm=c_nm)
-            got = accum_matmul(c0.clone(), a, b, alpha, **flags)
+            variant = k1_variant(a.shape[1], b.shape[1], prec)
+            expect = ("ffma" if not tensor_cores else
+                      "tf32x3" if prec == "highest" else "tf32")
+            if variant != expect:
+                raise AssertionError(f"k1_variant chose {variant} at "
+                                     f"{m}x{n}x{k} {flags} {prec}")
+            before = accum_matmul.variant_launches[variant]
+            got = accum_matmul(c0.clone(), a, b, alpha, prec=prec, **flags)
             want = accum_matmul_ref(c0.clone(), a, b, alpha, **flags)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
+            if accum_matmul.variant_launches[variant] != before + 1:
+                raise AssertionError(f"the {variant} count did not move")
+            label = (f"{variant} {m}x{n}x{k} a_km={int(a_km)} "
+                     f"b_nk={int(b_nk)} c_nm={int(c_nm)}")
             scale = float(want.abs().max())
-            ok = err <= RTOL * scale
-            print(f"K1 {m}x{n}x{k} a_km={int(a_km)} b_nk={int(b_nk)} "
-                  f"c_nm={int(c_nm)}: max|kernel-plain| {err:.6g} "
-                  f"(limit {RTOL * scale:.6g} = {RTOL}*max|plain|) "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                raise AssertionError(f"K1 disagrees with its plain version "
-                                     f"at {m}x{n}x{k} {flags}")
-            worst = max(worst, err)
+            if prec == "highest":
+                worst = max(worst, _k1_check(label, got, want, RTOL * scale,
+                                             f"{RTOL}*max|plain|"))
+            else:
+                emul = accum_matmul_tf32_ref(c0.clone(), a, b, alpha,
+                                             **flags)
+                _k1_check(label + " vs one-pass emulation", got, emul,
+                          RTOL * float(emul.abs().max()),
+                          f"{RTOL}*max|emulation|")
+                del emul
+                limit = 2.0 ** -10 * k ** 0.5 * float(a.abs().max()) \
+                    * float(b.abs().max()) * abs(alpha)
+                worst_default = max(worst_default, _k1_check(
+                    label + " vs full fp32", got, want, limit,
+                    "2^-10*sqrt(k)*max|A|*max|B|*|alpha|"))
             if (m, n, k) == (8192, 8192, 8192) and not (a_km or b_nk
                                                        or c_nm):
-                c_k, c_p = c0.clone(), c0.clone()
-                timing["ms"] = _median_ms(
-                    lambda: accum_matmul(c_k, a, b, alpha, **flags))
-                timing["plain_ms"] = _median_ms(
-                    lambda: accum_matmul_ref(c_p, a, b, alpha, **flags))
+                c_t = c0.clone()
+                key = "ms" if prec == "highest" else "ms_default"
+                timing[key] = _median_ms(lambda: accum_matmul(
+                    c_t, a, b, alpha, prec=prec, **flags))
+                if prec == "highest":
+                    timing["plain_ms"] = _median_ms(
+                        lambda: accum_matmul_ref(c_t, a, b, alpha, **flags))
+                    timing["library_ms"] = _median_ms(
+                        lambda: c_t.addmm_(a, b, alpha=alpha))
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    try:
+                        timing["library_tf32_ms"] = _median_ms(
+                            lambda: c_t.addmm_(a, b, alpha=alpha))
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = False
+                    # the FFMA variant on the same operands, through its
+                    # entry point (k1_variant sends 8192^3 to the tensor
+                    # cores): the kernel this PR's variants replace
+                    ffma = build().bof_accum_matmul_f32
+                    stream = torch.cuda.current_stream(dev).cuda_stream
+                    timing["ffma_ms"] = _median_ms(lambda: ffma(
+                        c_t.data_ptr(), a.data_ptr(), b.data_ptr(), alpha, m,
+                        n, k, 0, 0, 0, k, n, n, stream))
+                del c_t
             del got, want
         del a_log, b_log, c_log
-    torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     flop = 2.0 * 8192 ** 3
-    print(f"K1 8192^3 canonical: kernel {timing['ms']:.3f} ms "
-          f"({flop / timing['ms'] / 1e9:.1f} TFLOP/s), plain "
-          f"{timing['plain_ms']:.3f} ms "
-          f"({flop / timing['plain_ms'] / 1e9:.1f} TFLOP/s), median of 5 "
-          "CUDA-event times", flush=True)
-    torch.cuda.empty_cache()
-    return {"max_abs_err": worst, **timing}
+    bound, by = _bound(4 * 8192 ** 2 * 4, 3 * flop, TF32_FLOPS)
+    timing["bound_default_ms"] = _bound(4 * 8192 ** 2 * 4, flop,
+                                        TF32_FLOPS)[0]
+    print("K1 8192^3 canonical, median of 5 CUDA-event times: " + ", ".join(
+        f"{key} {timing[key]:.3f} ms ({flop / timing[key] / 1e9:.1f} "
+        "TFLOP/s)" for key in ("ms", "ms_default", "plain_ms", "library_ms",
+                               "library_tf32_ms", "ffma_ms"))
+        + f"; 3xTF32 bound {bound:.3f} ms ({by}), the kernel at "
+        f"{100 * bound / timing['ms']:.1f} % of it; one-pass bound "
+        f"{timing['bound_default_ms']:.3f} ms", flush=True)
+    return {"max_abs_err": worst, "max_abs_err_default": worst_default,
+            "bound_ms": bound, "bound_by": by, **timing}
 
 
 def _write_operand(ctx, path, shape, order, rng):
@@ -226,11 +334,23 @@ def _write_operands(dev, scratch, specs, rng) -> list:
         ctx.destroy()
 
 
-def _counters():
+def _reset_launch_counts():
+    from bof_tpu_torch.ops.matmul_cuda import reset_launch_counts
+    from bof_tpu_torch.sparse.spmm_cuda import spmm_ell, spmv_ell
+    reset_launch_counts()
+    spmm_ell.launches = spmv_ell.launches = 0
+
+
+def _launch_counts() -> dict:
+    """Every kernel's launch count, and K1's by variant as
+    'accum_matmul[<variant>]'."""
     from bof_tpu_torch.ops.matmul_cuda import accum_matmul
     from bof_tpu_torch.sparse.spmm_cuda import spmm_ell, spmv_ell
-    return {"accum_matmul": accum_matmul, "spmm_ell": spmm_ell,
-            "spmv_ell": spmv_ell}
+    counts = {"accum_matmul": accum_matmul.launches,
+              "spmm_ell": spmm_ell.launches, "spmv_ell": spmv_ell.launches}
+    counts.update((f"accum_matmul[{v}]", n)
+                  for v, n in accum_matmul.variant_launches.items())
+    return counts
 
 
 def _drive(dev, fn, argv, profile=False):
@@ -239,9 +359,7 @@ def _drive(dev, fn, argv, profile=False):
     launches by kernel, METRICS snapshot, peak device bytes)."""
     import torch
     from bof_tpu_torch.utils import METRICS
-    counters = _counters()
-    for c in counters.values():
-        c.launches = 0
+    _reset_launch_counts()
     METRICS.reset()
     torch.cuda.init()  # the allocator's statistics exist only after it
     torch.cuda.reset_peak_memory_stats(dev)
@@ -249,7 +367,7 @@ def _drive(dev, fn, argv, profile=False):
         wall = _profiled(fn, argv)
     else:
         wall = fn(argv)
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = _launch_counts()
     return (wall, launches, METRICS.snapshot(),
             torch.cuda.max_memory_allocated(dev))
 
@@ -353,13 +471,18 @@ def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta) -> dict:
             "--scratch", scratch]
     if beta == 0.0:
         argv.append("--create-c")
-    wall, launches, stages, peak = _drive(dev, gemm_driver.main, argv)
+    wall, launches, stages, peak = _drive(
+        dev, gemm_driver.main, argv,
+        profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
     blk = bt.FlashConfig().gemm_blk_size
-    _check_launches(label, launches, {
-        "accum_matmul": cdiv(m, blk) * cdiv(n, blk) * cdiv(k, blk)})
+    steps = cdiv(m, blk) * cdiv(n, blk) * cdiv(k, blk)
+    # every step on the tensor cores: the superblocks are zero-padded to blk
+    _check_launches(label, launches, {"accum_matmul": steps,
+                                      "accum_matmul[tf32x3]": steps})
     flop = 2.0 * m * n * k
     print(f"[{label}] wall {wall:.3f} s, {flop / wall / 1e9:.1f} GFLOP/s, "
-          f"K1 launches {launches['accum_matmul']} (= mB*nB*kB), peak "
+          f"K1 launches {launches['accum_matmul']} (= mB*nB*kB, all "
+          f"tf32x3), peak "
           f"device memory {peak / 2**30:.2f} GiB", flush=True)
     _stages(label, stages, "gemm.",
             ("disk_wait_s", "prep_s", "h2d_s", "c_read_s", "tile_wait_s",
@@ -406,6 +529,26 @@ def _random_ell(rng, rows, rmax, k, idt, fill_lo, dev):
             float(np.abs(va).max()))
 
 
+def _ell_yardsticks(ja, va, dense):
+    """The bound of an ELL product over `dense` (B, or x) and the same
+    band as a torch CSR matrix for the library call.  Bytes: ja and va
+    once, the rows of `dense` that real slots reference once, the output
+    once; operations: 2 per real slot and column, on the fp32 cores."""
+    import torch
+    real = va != 0  # padding slots hold va 0
+    width = dense.shape[1] if dense.dim() == 2 else 1
+    nnz = int(real.sum())
+    used = int(torch.unique(ja[real].to(torch.int64)).numel())
+    nbytes = (ja.numel() * ja.element_size() + va.numel() * 4
+              + (used + ja.shape[0]) * width * 4)
+    bound, by = _bound(nbytes, 2.0 * nnz * width, FP32_FLOPS)
+    rows = torch.arange(ja.shape[0], device=va.device)[:, None].expand_as(ja)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows[real], ja[real].to(torch.int64)]), va[real],
+        size=(ja.shape[0], dense.shape[0]))
+    return bound, by, coo.coalesce().to_sparse_csr()  # sorted, summed
+
+
 def ell_kernel_phase(dev) -> dict:
     """K2 and the ELL SpMV against their plain versions on the card;
     returns {name: summary}."""
@@ -440,14 +583,20 @@ def ell_kernel_phase(dev) -> dict:
                                  f"({tag})")
         worst = max(worst, err)
         if tag == "a":
+            bound, by, csr = _ell_yardsticks(ja, va, b)
             ms = _median_ms(lambda: spmm_ell(b, ja, va))
             plain_ms = _median_ms(lambda: spmm_ell_ref(b, ja, va))
+            library_ms = _median_ms(lambda: csr @ b)
             gathered = rows * rmax * cb * 4
             print(f"K2 (a): kernel {ms:.3f} ms ({gathered / ms / 1e6:.1f} "
                   f"GB/s of gathered B rows), plain {plain_ms:.3f} ms "
-                  f"({gathered / plain_ms / 1e6:.1f} GB/s), median of 5 "
-                  "CUDA-event times", flush=True)
-            out["spmm_ell"] = {"ms": ms, "plain_ms": plain_ms}
+                  f"({gathered / plain_ms / 1e6:.1f} GB/s), library (torch "
+                  f"CSR @ B) {library_ms:.3f} ms, bound {bound:.4f} ms "
+                  f"({by}), median of 5 CUDA-event times", flush=True)
+            out["spmm_ell"] = {"ms": ms, "plain_ms": plain_ms,
+                               "library_ms": library_ms, "bound_ms": bound,
+                               "bound_by": by}
+            del csr
         del got, want, b, ja, va
         torch.cuda.empty_cache()
     out["spmm_ell"]["max_abs_err"] = worst
@@ -466,11 +615,16 @@ def ell_kernel_phase(dev) -> dict:
     if err > limit:
         raise AssertionError("the SpMV kernel disagrees with its plain "
                              "version")
+    bound, by, csr = _ell_yardsticks(ja, va, x)
     ms = _median_ms(lambda: spmv_ell(x, ja, va))
     plain_ms = _median_ms(lambda: spmv_ell_ref(x, ja, va))
-    print(f"SpMV: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, median of 5 "
-          "CUDA-event times", flush=True)
-    out["spmv_ell"] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+    library_ms = _median_ms(lambda: csr @ x)
+    print(f"SpMV: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"(torch CSR @ x) {library_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({by}), median of 5 CUDA-event times", flush=True)
+    out["spmv_ell"] = {"ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound,
+                       "bound_by": by, "max_abs_err": err}
     torch.cuda.empty_cache()
     return out
 
@@ -686,6 +840,22 @@ def csrgemv_phase(dev, scratch, prefix, a_sp, trans) -> dict:
     return launches
 
 
+def _ptxas_report(log: str) -> None:
+    """Print what ptxas says of each kernel; raise if the tensor-core
+    kernel spills."""
+    entry = ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "warning")):
+            print("ptxas:", line.strip())
+        if "spill stores" in line and "accum_tf32_kernel" in entry \
+                and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            raise AssertionError(f"{entry} spills: {line.strip()}")
+    sys.stdout.flush()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -720,10 +890,7 @@ def main() -> int:
     t2 = time.perf_counter()
     print(f"built: native I/O engine {t1 - t0:.1f} s, CUDA kernels "
           f"{t2 - t1:.1f} s ({cuda_lib.BUILD_INFO['path']})")
-    for line in cuda_lib.BUILD_INFO.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip())
-    sys.stdout.flush()
+    _ptxas_report(cuda_lib.BUILD_INFO.get("ptxas", ""))
 
     summary = {"accum_matmul": kernel_phase(dev), **ell_kernel_phase(dev)}
 
@@ -770,18 +937,20 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     meta = {
-        "accum_matmul": ("bof_tpu_torch/csrc/matmul.cu",
+        "accum_matmul": ("bof_tpu_torch/csrc/matmul_tf32.cu",
                          "bof_tpu/ops/matmul_pallas.py:65"),
         "spmm_ell": ("bof_tpu_torch/csrc/spmm_ell.cu",
                      "bof_tpu/sparse/spmm_pallas.py:64"),
         "spmv_ell": ("bof_tpu_torch/csrc/spmm_ell.cu",
                      "bof_tpu/sparse/spmm_device.py:89"),
     }
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": repl,
-        "launches": summary[name]["launches"],
-        "max_abs_err": summary[name]["max_abs_err"],
-        "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
+        **{key: summary[name][key] for key in keys},
+        **{key: val for key, val in summary[name].items()
+           if key not in keys}}
         for name, (source, repl) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

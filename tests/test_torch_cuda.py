@@ -1,6 +1,7 @@
-"""bof_tpu_torch on a CUDA card: kernels K1, K2 (ELL SpMM) and the ELL
-SpMV against their plain versions, and the out-of-core gemm, csrmm and
-csrgemv through them against the same calls on the CPU.
+"""bof_tpu_torch on a CUDA card: kernel K1 (its FFMA and tensor-core
+variants), K2 (ELL SpMM) and the ELL SpMV against their plain versions,
+and the out-of-core gemm, csrmm and csrgemv through them against the same
+calls on the CPU.
 
 These need the card (a CUDA kernel has no CPU mode): they carry the
 `cuda` marker and skip where torch.cuda.is_available() is False.  This
@@ -20,7 +21,9 @@ import pytest
 import torch
 
 import bof_tpu_torch
-from bof_tpu_torch.ops.matmul_cuda import accum_matmul, accum_matmul_ref
+from bof_tpu_torch.ops.matmul_cuda import (accum_matmul, accum_matmul_ref,
+                                           accum_matmul_tf32_ref, k1_variant,
+                                           tf32_truncate)
 from bof_tpu_torch.sparse.spmm_cuda import (spmm_ell, spmm_ell_ref, spmv_ell,
                                             spmv_ell_ref)
 
@@ -56,6 +59,82 @@ def test_kernel_matches_plain(cuda_device, a_km, b_nk, c_nm):
     accum_matmul_ref(want, a, b, 1.5, a_km=a_km, b_nk=b_nk, c_nm=c_nm)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-4, atol=1e-4)
+
+
+def _k1_operands(rng, m, n, k, a_km, b_nk, c_nm, device):
+    a_log = rng.standard_normal((m, k), dtype=np.float32)
+    b_log = rng.standard_normal((k, n), dtype=np.float32)
+    c_log = rng.standard_normal((m, n), dtype=np.float32)
+    return [torch.from_numpy(x.T.copy() if t else x).to(device)
+            for x, t in ((a_log, a_km), (b_log, b_nk), (c_log, c_nm))]
+
+
+@pytest.mark.parametrize("prec", ["highest", "default"])
+@pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
+def test_tensor_core_variant_matches_plain(cuda_device, prec, a_km, b_nk,
+                                           c_nm):
+    """1000x776x516: no dimension a multiple of the 128x256x16 tiles, but
+    16-byte rows, so the TMA + wgmma variant runs.  'highest' (3xTF32)
+    within the fp32 tolerance of the plain version; 'default' (one TF32
+    pass) within that of its truncating emulation, and within
+    2^-10*sqrt(k)*max|A|*max|B|*|alpha| of full fp32 (TF32 keeps 10
+    explicit mantissa bits; a sum's error grows as sqrt(k))."""
+    rng = np.random.default_rng(11)
+    m, n, k, alpha = 1000, 776, 516, 1.5
+    a, b, got = _k1_operands(rng, m, n, k, a_km, b_nk, c_nm, cuda_device)
+    c0 = got.clone()
+    variant = k1_variant(a.shape[1], b.shape[1], prec)
+    assert variant == ("tf32x3" if prec == "highest" else "tf32")
+    flags = dict(a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+    before = dict(accum_matmul.variant_launches)
+    accum_matmul(got, a, b, alpha, prec=prec, **flags)
+    torch.cuda.synchronize()
+    assert accum_matmul.variant_launches[variant] == before[variant] + 1
+    want = accum_matmul_ref(c0.clone(), a, b, alpha, **flags)
+    if prec == "highest":
+        err = float((got - want).abs().max())
+        assert err <= 2e-4 * float(want.abs().max()), err
+    else:
+        emul = accum_matmul_tf32_ref(c0.clone(), a, b, alpha, **flags)
+        err = float((got - emul).abs().max())
+        assert err <= 2e-4 * float(emul.abs().max()), err
+        limit = 2.0 ** -10 * k ** 0.5 * float(a.abs().max()) \
+            * float(b.abs().max()) * alpha
+        assert float((got - want).abs().max()) <= limit
+
+
+def test_tf32_operands_are_truncated(cuda_device):
+    """The 3xTF32 split (hi = the raw operand, lo = x - truncate(x))
+    assumes wgmma drops the 13 low mantissa bits of a tf32 operand: with
+    A = I, one pass returns B rounded exactly as wgmma rounds it."""
+    rng = np.random.default_rng(12)
+    n = 128
+    a = torch.eye(n, device=cuda_device)
+    b = torch.from_numpy(rng.standard_normal((n, n), dtype=np.float32)
+                         ).to(cuda_device)
+    c = torch.zeros(n, n, device=cuda_device)
+    accum_matmul(c, a, b, 1.0, a_km=False, b_nk=False, c_nm=False,
+                 prec="default")
+    torch.cuda.synchronize()
+    assert torch.equal(c, tf32_truncate(b))
+    assert not torch.equal(c, b)
+
+
+def test_variant_launch_counters(cuda_device):
+    """One launch of each variant moves its own count and the total."""
+    rng = np.random.default_rng(13)
+    before = (accum_matmul.launches, dict(accum_matmul.variant_launches))
+    for (m, n, k), prec in (((256, 256, 64), "highest"),
+                            ((256, 256, 64), "default"),
+                            ((100, 77, 51), "highest")):
+        a, b, c = _k1_operands(rng, m, n, k, False, False, False,
+                               cuda_device)
+        accum_matmul(c, a, b, 1.0, a_km=False, b_nk=False, c_nm=False,
+                     prec=prec)
+    torch.cuda.synchronize()
+    assert accum_matmul.launches == before[0] + 3
+    assert {v: accum_matmul.variant_launches[v] - before[1][v]
+            for v in before[1]} == {"tf32x3": 1, "tf32": 1, "ffma": 1}
 
 
 @pytest.mark.parametrize("order,ta,tb", [("R", "N", "N"), ("C", "T", "N")])

@@ -102,6 +102,19 @@ def test_native_engine_builds_outside_the_reference_package():
     assert os.path.basename(so).startswith("libbof_io-")
 
 
+def test_native_engine_source_is_the_ports_own_copy():
+    """The engine builds from sources inside bof_tpu_torch/, which are
+    byte-identical to the reference's while bof_tpu is frozen."""
+    from bof_tpu_torch.io import native
+    ref_dir = os.path.join(REPO, "bof_tpu", "native")
+    for path in (native._SRC, native._INC):
+        assert os.path.realpath(path).startswith(
+            os.path.realpath(PKG) + os.sep), path
+        with open(path, "rb") as f, open(os.path.join(
+                ref_dir, os.path.basename(path)), "rb") as g:
+            assert f.read() == g.read(), path
+
+
 def test_sparse_slice_imports_neither_jax_nor_ml_dtypes():
     code = ("import sys, bof_tpu_torch.sparse, bof_tpu_torch.drivers.csrmm, "
             "bof_tpu_torch.drivers.csrgemv, bof_tpu_torch.drivers.csrcsc, "

@@ -16,7 +16,11 @@ import torch
 from bof_tpu.ops import device as ref_device
 from bof_tpu.ops.matmul_pallas import matmul as pallas_matmul
 from bof_tpu_torch.ops import device as port_device
-from bof_tpu_torch.ops.matmul_cuda import accum_matmul, accum_matmul_ref
+from bof_tpu_torch.ops.matmul_cuda import (K1_PASSES, accum_matmul,
+                                           accum_matmul_ref,
+                                           accum_matmul_tf32_ref, k1_ldw,
+                                           k1_variant, k1_workspace,
+                                           tf32_truncate)
 
 LAYOUTS = list(itertools.product([False, True], repeat=3))
 
@@ -88,3 +92,95 @@ def test_scale_init_and_zeros_block():
     assert float(c.sum()) == 30.0
     z = port_device.zeros_block((2, 3), torch.device("cpu"))
     assert z.dtype == torch.float32 and not z.any()
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+@pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
+def test_accum_step_every_precision_matches_reference(rng, prec, a_km, b_nk,
+                                                      c_nm):
+    """The other precisions on the CPU: the plain version is full fp32 at
+    every prec, as bof_tpu's XLA step is on a CPU."""
+    m, n, k = 40, 24, 56
+    a, b, c = _storage(rng, m, n, k, a_km, b_nk, c_nm)
+    want = np.asarray(ref_device.accum_step(
+        c.copy(), a, b, np.float32(-0.5), a_km=a_km, b_nk=b_nk, c_nm=c_nm,
+        prec=prec, impl="xla"))
+    got = port_device.accum_step(torch.from_numpy(c.copy()),
+                                 torch.from_numpy(a), torch.from_numpy(b),
+                                 -0.5, a_km=a_km, b_nk=b_nk, c_nm=c_nm,
+                                 prec=prec)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-4)
+
+
+def test_precision_maps_to_tensor_core_passes():
+    """3xTF32 (about 21 bits kept) for the tiers the TPU runs as 3 or 6
+    bf16 passes; one TF32 pass (11 bits) for its one bf16 pass (8)."""
+    assert K1_PASSES == {"highest": 3, "high": 3, "default": 1}
+
+
+@pytest.mark.parametrize("lda,ldb,aligned,prec,want", [
+    (8192, 8192, True, "highest", "tf32x3"),
+    (8192, 8192, True, "high", "tf32x3"),
+    (8192, 8192, True, "default", "tf32"),
+    (516, 776, True, "highest", "tf32x3"),
+    (1000, 516, True, "default", "tf32"),
+    (513, 777, True, "highest", "ffma"),   # chip_smoke's ragged shape
+    (513, 777, True, "default", "ffma"),
+    (516, 514, True, "highest", "ffma"),   # 8-byte rows: not TMA's 16
+    (6, 8, True, "default", "ffma"),
+    (8192, 8192, False, "highest", "ffma"),  # a base not 16-byte aligned
+])
+def test_k1_variant_rule(lda, ldb, aligned, prec, want):
+    assert k1_variant(lda, ldb, prec, aligned=aligned) == want
+
+
+@pytest.mark.parametrize("call", ["variant", "wrapper", "accum_step"])
+def test_unknown_precision_raises(call):
+    a, b, c = torch.zeros(4, 8), torch.zeros(8, 4), torch.zeros(4, 4)
+    with pytest.raises(ValueError, match="precision"):
+        if call == "variant":
+            k1_variant(8, 4, "fastest")
+        elif call == "wrapper":
+            accum_matmul(c, a, b, 1.0, a_km=False, b_nk=False, c_nm=False,
+                         prec="fastest")
+        else:
+            port_device.accum_step(c, a, b, 1.0, a_km=False, b_nk=False,
+                                   c_nm=False, prec="bfloat16")
+
+
+@pytest.mark.parametrize("a_km,b_nk,passes", list(itertools.product(
+    [False, True], [False, True], [1, 3])))
+def test_k1_workspace(a_km, b_nk, passes):
+    """A K-major copy only of an operand whose storage is not K-major, lo
+    parts only for 3 passes; rows of k rounded up to 16 bytes."""
+    rows = k1_workspace(1000, 776, 513, a_km=a_km, b_nk=b_nk, passes=passes)
+    want = {}
+    if a_km:
+        want["a_x"] = 1000
+    if not b_nk:
+        want["b_x"] = 776
+    if passes == 3:
+        want.update(a_lo=1000, b_lo=776)
+    assert rows == want
+    assert (k1_ldw(513), k1_ldw(516), k1_ldw(1)) == (516, 516, 4)
+
+
+def test_tf32_truncation_and_one_pass_emulation(rng):
+    """tf32_truncate keeps sign, exponent and 10 mantissa bits; the
+    one-pass emulation is the plain version on truncated operands, and
+    exact where the operands are TF32 already."""
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11, -3.0000002,
+                      0.0])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0, -3.0, 0.0])
+    assert torch.equal(tf32_truncate(x), want)
+    a, b, c = _storage(rng, 24, 16, 40, False, True, True)
+    a_t, b_t = (torch.from_numpy(v) for v in (a, b))
+    got = accum_matmul_tf32_ref(torch.from_numpy(c.copy()), a_t, b_t, 1.5,
+                                a_km=False, b_nk=True, c_nm=True)
+    want = accum_matmul_ref(torch.from_numpy(c.copy()), tf32_truncate(a_t),
+                            tf32_truncate(b_t), 1.5, a_km=False, b_nk=True,
+                            c_nm=True)
+    assert torch.equal(got, want)
+    lo = a_t - tf32_truncate(a_t)
+    assert float(lo.abs().max()) <= 2.0 ** -10 * float(a_t.abs().max())
+    assert torch.equal(tf32_truncate(tf32_truncate(a_t)), tf32_truncate(a_t))
