@@ -5,7 +5,8 @@ The port of `bof_tpu/sparse/csrgemv.py` (reference: src/blas/csrgemv.cpp
 reference keeps x/y in memory, only A streams), row blocks are
 nnz-budgeted, and each 'N' block is cut into count-sorted ELL bands, each
 one launch of the ELL SpMV kernel (sparse/spmm_cuda.py:spmv_ell) against
-x uploaded once.  'T' is a scatter over columns, so it accumulates on the
+x uploaded once, writing its rows of the block's device y in place; y
+comes down once per block.  'T' is a scatter over columns, so it accumulates on the
 HOST, as in bof_tpu and in the reference's mutex-guarded OpenMP
 accumulation (csrgemv_task.h:169-176): one scipy CSC matvec per block
 summed into a float64 y.  fp64 values take exact per-block scipy products
@@ -20,6 +21,7 @@ import time
 from typing import Union
 
 import numpy as np
+import torch
 
 from ..context import get_context
 from ..core.flash_array import FlashArray
@@ -99,6 +101,9 @@ def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
             order = (np.argsort(counts, kind="stable") if cfg.ell_sort_rows
                      else np.arange(e - r))
             METRICS.add("csrgemv.prep_s", time.perf_counter() - t0)
+            # the bands partition the block's rows and each writes its
+            # own rows of y_blk in place: one download per block
+            y_blk = torch.empty(e - r, dtype=torch.float32, device=device)
             for (s0, s1) in sdev.ell_row_ranges(counts[order], entry_cap):
                 t0 = time.perf_counter()
                 rows_sel = order[s0:s1]
@@ -106,17 +111,22 @@ def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
                                                   rows_sel,
                                                   idx_dtype=ell_idt,
                                                   counts=counts)
+                counts_sel = counts[rows_sel].astype(np.int32)
+                rows_sel = rows_sel.astype(np.int32)
                 t1 = time.perf_counter()
                 METRICS.add("csrgemv.prep_s", t1 - t0)
+                rows_d = dev.to_device(rows_sel, device)
+                counts_d = dev.to_device(counts_sel, device)
                 ja_d = dev.to_device(ja_ell, device)
                 va_d = dev.to_device(va_ell, device)
                 t2 = time.perf_counter()
                 METRICS.add("csrgemv.h2d_s", t2 - t1)
-                out = sdev.spmv_ell_block(x_dev, ja_d, va_d)
-                t3 = time.perf_counter()
-                METRICS.add("csrgemv.dispatch_s", t3 - t2)
-                y[r + rows_sel] = dev.from_device(out)[:len(rows_sel)]
-                METRICS.add("csrgemv.d2h_s", time.perf_counter() - t3)
+                sdev.spmv_ell_block(x_dev, ja_d, va_d, counts=counts_d,
+                                    rows=rows_d, out=y_blk)
+                METRICS.add("csrgemv.dispatch_s", time.perf_counter() - t2)
+            t0 = time.perf_counter()
+            y[r:e] = dev.from_device(y_blk)
+            METRICS.add("csrgemv.d2h_s", time.perf_counter() - t0)
         return y
 
     # trans: y[k] += A_blk^T x_blk — a scatter over columns, accumulated

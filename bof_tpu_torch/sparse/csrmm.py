@@ -9,7 +9,10 @@ host or transposes A via csrcsc into scratch and recurses as 'N'
 On the device: the B column panel (k x cb) is uploaded once per column
 block and reused by every row block; sparse row blocks stream through the
 pin cache with prefetch lookahead, are cut into count-sorted ELL bands on
-the host and multiplied by kernel K2 (sparse/spmm_cuda.py).  When even
+the host and multiplied by kernel K2 (sparse/spmm_cuda.py), each band
+writing its rows of the row block's device buffer in place with alpha
+applied, so the writer downloads each row block in one pass of
+contiguous row pieces and scatters nothing.  When even
 the narrowest B panel exceeds the device budget, the K dimension splits
 into ranges accumulated into C with a barrier between them.  C row
 panels are written back asynchronously by a writer thread.  The planner's
@@ -240,6 +243,33 @@ def _upload_b_panel(b_host, b_order, k_sub, bc, k_r_pad, cb, device):
     return b_dev.contiguous()
 
 
+PIECE_BYTES = 8 << 20  # the largest piece of a row block's download
+
+
+def _download_rows(buf, bc, sync_mode):
+    """A row block's device buffer (rows_b, cb) down to the host in one
+    pass of contiguous row pieces of at most PIECE_BYTES: yields (first
+    row, (rows, bc) array).  Pieces this small come from host memory the
+    allocator reuses, where one fresh multi-GiB array faults in every
+    page during the copy (S3's three 8 GiB blocks took 11.2 s of device
+    time as whole downloads on an H100 host; PERF.md §6)."""
+    if sync_mode:
+        t0 = time.perf_counter()
+        dev.sync(buf)  # wait for the block's K2s
+        METRICS.add("csrmm.accum_wait_s", time.perf_counter() - t0)
+    step = max(1, PIECE_BYTES // (buf.shape[1] * buf.element_size()))
+    for p0 in range(0, buf.shape[0], step):
+        t0 = time.perf_counter()
+        piece = dev.from_device(buf[p0:p0 + step])
+        dt = time.perf_counter() - t0
+        METRICS.add("csrmm.d2h_s", dt)
+        METRICS.add("csrmm.d2h_bytes", piece.nbytes)
+        if sync_mode:
+            METRICS.observe("csrmm.d2h_tile_gbps",
+                            piece.nbytes / max(dt, 1e-9) / 1e9)
+        yield p0, piece[:, :bc]
+
+
 def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                  seq_accesses, cb, entry_cap, cache, cfg, device,
                  idt, vdt, write_tickets):
@@ -283,7 +313,8 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
         # prepper: disk tiles -> ELL prep (CPU)
         # uploader: H2D + K2 launches (device path only — prep of block
         #   b+1 overlaps the uploads of block b)
-        # writer: D2H of results -> alpha/beta -> async disk write
+        # writer: D2H of the row block (alpha applied on the device path)
+        #   -> beta -> async disk write
         out_q: queue.Queue = queue.Queue(maxsize=max(2, cfg.pipeline_depth))
         prep_q: queue.Queue = queue.Queue(maxsize=max(2, cfg.pipeline_depth))
         errors: list = []
@@ -333,14 +364,14 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                              blk_ia.astype(np.int64)),
                             shape=(rows_b, k_sub))
                         # reference-style CPU block product (MKL's role)
-                        payload = (r, rows_b, [(None, blk_sp @ b_panel_np)])
+                        payload = (r, rows_b, blk_sp @ b_panel_np)
                     else:
                         counts = np.diff(blk_ia)
                         bands = []
                         # count-sorted ELL banding: range over rows SORTED
                         # by nnz so each band's rmax is tight to its own
-                        # rows, not the block max; output rows scatter
-                        # back through the same selection on the host
+                        # rows, not the block max; K2 writes each band's
+                        # rows in place through the same selection
                         order = (np.argsort(counts, kind="stable")
                                  if cfg.ell_sort_rows
                                  else np.arange(rows_b))
@@ -352,7 +383,9 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                             ja_ell, va_ell = sdev.to_ell_rows(
                                 blk_ia, blk_ja, blk_va, rows_sel,
                                 idx_dtype=ell_idt, counts=counts)
-                            bands.append((rows_sel, ja_ell, va_ell))
+                            bands.append((rows_sel.astype(np.int32),
+                                          counts[rows_sel].astype(np.int32),
+                                          ja_ell, va_ell))
                         payload = (r, rows_b, bands)
                     pf.done(2 * bi)
                     pf.done(2 * bi + 1)
@@ -381,9 +414,14 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                         break
                     r, rows_b, bands = item
                     t1 = time.perf_counter()
-                    outs = []
-                    for rows_sel, ja_ell, va_ell in bands:
+                    # the bands partition the block's rows, so every row
+                    # of the buffer is written (an empty row with alpha*0)
+                    buf = torch.empty((rows_b, cb), dtype=torch.float32,
+                                      device=device)
+                    for rows_sel, counts_sel, ja_ell, va_ell in bands:
                         th = time.perf_counter()
+                        rows_d = dev.to_device(rows_sel, device)
+                        counts_d = dev.to_device(counts_sel, device)
                         ja_d = dev.to_device(ja_ell, device)
                         va_d = dev.to_device(va_ell, device)
                         if sync_mode:
@@ -393,15 +431,18 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                             th2 = time.perf_counter()
                             METRICS.observe(
                                 "csrmm.h2d_tile_gbps",
-                                (ja_ell.nbytes + va_ell.nbytes)
+                                (ja_ell.nbytes + va_ell.nbytes
+                                 + rows_sel.nbytes + counts_sel.nbytes)
                                 / max(th2 - th, 1e-9) / 1e9)
                         METRICS.add("csrmm.h2d_s", time.perf_counter() - th)
-                        out = sdev.spmm_ell_block_dispatch(
-                            b_panel, ja_d, va_d, impl=impl)
-                        outs.append((rows_sel, out))
+                        sdev.spmm_ell_block_dispatch(
+                            b_panel, ja_d, va_d, impl=impl, counts=counts_d,
+                            rows=rows_d, out=buf, alpha=alpha)
                     METRICS.add("csrmm.dispatch_s",
                                 time.perf_counter() - t1)
-                    if not _put(out_q, (r, rows_b, outs)):
+                    ok = _put(out_q, (r, rows_b, buf))
+                    del buf  # the writer holds the only reference now
+                    if not ok:
                         return
                 _put_sentinel(out_q)
             except BaseException as e:  # pragma: no cover
@@ -410,6 +451,24 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                     out_q.put_nowait(None)
                 except queue.Full:
                     pass
+
+        def write_back(r0, blk):
+            """C[r0 : r0 + len(blk), c0 : c0 + bc] = blk + beta * C."""
+            nr = blk.shape[0]
+            if beta != 0.0:
+                t0 = time.perf_counter()
+                blk += beta * c.read_block(r0, nr, c0, bc)
+                METRICS.add("csrmm.c_read_s", time.perf_counter() - t0)
+            blk = np.ascontiguousarray(blk, dtype=vdt)
+            if c_tiled:
+                # general-window RMW through the tile grid (sync; no
+                # ticket — the k-range barrier is implicit)
+                c.write_block(r0, blk, c0)
+                return
+            if c.order != "R":
+                blk = np.ascontiguousarray(blk.T)
+            write_tickets.push(c.write_block_storage_async(r0, c0, nr, bc,
+                                                           blk))
 
         def writer():
             try:
@@ -422,56 +481,34 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                         continue
                     if item is None:
                         break
-                    r, rows_b, outs = item
-                    c_np = np.empty((rows_b, bc), vdt)
-                    for sel, out in outs:
-                        if isinstance(out, np.ndarray):
-                            # host block product: already in DRAM
-                            c_np[:] = out[:, :bc]
-                            continue
+                    r, rows_b, res = item
+                    del item
+                    if isinstance(res, np.ndarray):
+                        # host block product: already in DRAM, alpha here
                         t0 = time.perf_counter()
-                        if sync_mode:
-                            dev.sync(out)  # wait for the block's K2
-                            ta = time.perf_counter()
-                            full = dev.from_device(out)
-                            tb = time.perf_counter()
-                            METRICS.add("csrmm.accum_wait_s", ta - t0)
-                            METRICS.add("csrmm.d2h_s", tb - ta)
-                            METRICS.observe(
-                                "csrmm.d2h_tile_gbps",
-                                full.nbytes / max(tb - ta, 1e-9) / 1e9)
-                        else:
-                            full = dev.from_device(out)
-                            METRICS.add("csrmm.d2h_s",
-                                        time.perf_counter() - t0)
-                        METRICS.add("csrmm.d2h_bytes", full.nbytes)
-                        t0 = time.perf_counter()
-                        if sel is None:
-                            c_np[:] = full[:rows_b, :bc]
-                        else:
-                            c_np[sel] = full[:len(sel), :bc]
+                        c_np = np.empty((rows_b, bc), vdt)
+                        c_np[:] = res[:, :bc]
+                        c_np *= alpha
                         METRICS.add("csrmm.assemble_s",
                                     time.perf_counter() - t0)
-                    del outs  # release the block's device outputs
-                    t0 = time.perf_counter()
-                    c_np *= alpha
-                    METRICS.add("csrmm.assemble_s", time.perf_counter() - t0)
-                    if beta != 0.0:
-                        t0 = time.perf_counter()
-                        c_np += beta * c.read_block(r, rows_b, c0, bc)
-                        METRICS.add("csrmm.c_read_s",
-                                    time.perf_counter() - t0)
-                    if c_tiled:
-                        # general-window RMW through the tile grid (sync;
-                        # no ticket — the k-range barrier is implicit)
-                        c.write_block(
-                            r, np.ascontiguousarray(c_np, dtype=vdt), c0)
+                        pieces = [(0, c_np)]
+                    else:
+                        # the row-block buffer the bands filled in place,
+                        # alpha applied by K2
+                        pieces = _download_rows(res, bc, sync_mode)
+                    del res
+                    if c.order == "R" and not c_tiled:
+                        for p0, piece in pieces:  # to disk as they come
+                            write_back(r + p0, piece)
+                        del pieces  # release the block's device buffer
                         continue
-                    c_np = np.ascontiguousarray(c_np, dtype=vdt)
-                    if c.order != "R":
-                        c_np = np.ascontiguousarray(c_np.T)
-                    write_tickets.push(c.write_block_storage_async(
-                        r, c0, rows_b, bc, c_np))
+                    # column-major or tile-major C: one block, as the
+                    # storage runs span every row of it
+                    c_np = np.empty((rows_b, bc), vdt)
+                    for p0, piece in pieces:
+                        c_np[p0:p0 + len(piece)] = piece
+                    del pieces
+                    write_back(r, c_np)
             except BaseException as e:  # pragma: no cover
                 errors.append(e)
 

@@ -9,9 +9,23 @@ spmv_ell_block`).  On CPU tensors each runs its plain PyTorch version
 (`spmm_ell_ref`, `spmv_ell_ref`); on a CUDA tensor it launches the kernel
 or raises.  Each wrapper counts its launches in `.launches`.
 
+The contract, in the wrappers, the plain versions and the kernels alike:
+with n ELL rows (n = len(rows) when `rows` is given, else all of ja's)
+
+    out[rows[i]] = alpha * sum_{s < counts[i]} va[i, s] * dense[ja[i, s]]
+
+`counts` (int32, n entries; None: every slot is real) stops each row's
+slot loop, so padding slots are never read; `rows` (int32, n entries)
+says where ELL row i lands in `out`, and every row of `out` it does not
+name keeps what it held.  Without `rows` and `out` the call returns a new
+(n, cb) tensor (n for the SpMV).  The sum is fp32, then times alpha once.
+csrmm and csrgemv use it to let each band write its rows of a row-block
+buffer in place.
+
 The Pallas kernel's eligibility gates (`pallas_feasible`,
 `pallas_eligible`) exist only for the v5e's VMEM and are not ported: the
-CUDA kernel takes any panel height, any cb and any rmax.
+CUDA kernel takes any panel height and any rmax, and K2 a cb of up to
+65535 slabs of 64 columns.
 """
 from __future__ import annotations
 
@@ -50,41 +64,111 @@ def _check(name, dense, ja_ell, va_ell, dense_dim):
     return dev
 
 
+def _check_placement(name, dev, ja_ell, counts, rows, out, width):
+    """n, the ELL rows computed, after checking counts, rows and out
+    against the contract; `width` is out's shape past its rows."""
+    n = ja_ell.shape[0] if rows is None else rows.shape[0]
+    for t, what in ((counts, "counts"), (rows, "rows")):
+        if t is None:
+            continue
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name}: {what} must be 1-D int32, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous on {dev}")
+    if n > ja_ell.shape[0]:
+        raise ValueError(f"{name}: {n} rows named, the ELL has "
+                         f"{ja_ell.shape[0]}")
+    if counts is not None and counts.shape[0] != n:
+        raise ValueError(f"{name}: counts has {counts.shape[0]} entries, "
+                         f"not one per ELL row ({n})")
+    if out is None:
+        if rows is not None:
+            raise ValueError(f"{name}: rows needs an out tensor to land in")
+        return n
+    if out.dtype != torch.float32 or out.device != dev \
+            or not out.is_contiguous():
+        raise ValueError(f"{name}: out must be contiguous fp32 on {dev}")
+    if tuple(out.shape[1:]) != width or (rows is None and out.shape[0] != n):
+        raise ValueError(f"{name}: out {tuple(out.shape)} does not take "
+                         f"{n} rows of shape {width}")
+    return n
+
+
+def _ell_ref(gather, dense, ja_ell, va_ell, counts, rows, out, alpha):
+    """The plain version of both kernels: `gather(dense, idx)` reads the
+    dense operand at the ELL indices; slots past counts are masked before
+    the gather (their ja may hold anything) and after the product."""
+    n = ja_ell.shape[0] if rows is None else rows.shape[0]
+    ja, va = ja_ell[:n].to(torch.int64), va_ell[:n]
+    keep = None
+    if counts is not None:
+        keep = (torch.arange(ja.shape[1], device=ja.device)[None, :]
+                < counts.to(torch.int64)[:, None])
+        ja = torch.where(keep, ja, 0)
+    prod = gather(dense, ja, va)
+    if keep is not None:
+        prod = torch.where(keep.view(keep.shape + (1,) * (prod.dim() - 2)),
+                           prod, 0.0)
+    res = prod.sum(1) * alpha
+    if out is None:
+        return res
+    if rows is None:
+        out.copy_(res)
+    else:
+        out.index_copy_(0, rows.to(torch.int64), res)
+    return out
+
+
+def spmm_ell_ref(b_panel: torch.Tensor, ja_ell: torch.Tensor,
+                 va_ell: torch.Tensor, *, counts=None, rows=None, out=None,
+                 alpha: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of K2 under the module's contract (fp32; the
+    gather materializes n * rmax * cb values)."""
+    return _ell_ref(lambda b, ja, va: va[:, :, None] * b[ja], b_panel,
+                    ja_ell, va_ell, counts, rows, out, alpha)
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def _launch(fn, dev, *args):
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*args, stream)
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
-def spmm_ell_ref(b_panel: torch.Tensor, ja_ell: torch.Tensor,
-                 va_ell: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K2: (rows, cb) = sum_s va[:, s] * B[ja[:, s]]
-    (fp32; the gather materializes rows * rmax * cb values)."""
-    return (va_ell[:, :, None] * b_panel[ja_ell.to(torch.int64)]).sum(1)
-
-
 def spmm_ell(b_panel: torch.Tensor, ja_ell: torch.Tensor,
-             va_ell: torch.Tensor) -> torch.Tensor:
-    """out[r, :] = sum_s va_ell[r, s] * b_panel[ja_ell[r, s], :].
+             va_ell: torch.Tensor, *, counts=None, rows=None, out=None,
+             alpha: float = 1.0) -> torch.Tensor:
+    """out[rows[i], :] = alpha * sum_{s < counts[i]} va_ell[i, s] *
+    b_panel[ja_ell[i, s], :] (the module's contract).
 
-    b_panel: (k, cb) fp32; ja_ell: (rows, rmax) int32 or uint16 with
-    entries in [0, k); va_ell: (rows, rmax) fp32, padding slots 0.  Any
-    cb and rmax.  Returns a new (rows, cb) fp32 tensor; CUDA tensors
-    launch K2 on the current stream, CPU tensors take the plain version."""
+    b_panel: (k, cb) fp32; ja_ell: (rows, rmax) int32 or uint16 with real
+    entries in [0, k); va_ell: (rows, rmax) fp32.  Any rmax, and cb up to
+    65535 * 64 (a wider cb fails to launch).
+    Returns `out`, or a new (rows, cb) fp32 tensor; CUDA tensors launch K2
+    on the current stream, CPU tensors take the plain version."""
     dev = _check("spmm_ell", b_panel, ja_ell, va_ell, 2)
-    if dev.type == "cpu":
-        return spmm_ell_ref(b_panel, ja_ell, va_ell)
-    rows, rmax = ja_ell.shape
     cb = b_panel.shape[1]
-    out = torch.empty((rows, cb), dtype=torch.float32, device=dev)
+    n = _check_placement("spmm_ell", dev, ja_ell, counts, rows, out, (cb,))
+    if dev.type == "cpu":
+        return spmm_ell_ref(b_panel, ja_ell, va_ell, counts=counts,
+                            rows=rows, out=out, alpha=alpha)
+    if out is None:
+        out = torch.empty((n, cb), dtype=torch.float32, device=dev)
     vec4 = (cb % 4 == 0 and b_panel.data_ptr() % 16 == 0
             and out.data_ptr() % 16 == 0)
     _launch(build().bof_spmm_ell_f32, dev, out.data_ptr(),
             b_panel.data_ptr(), ja_ell.data_ptr(),
-            int(ja_ell.dtype == torch.uint16), va_ell.data_ptr(), rows, rmax,
-            cb, int(vec4))
+            int(ja_ell.dtype == torch.uint16), va_ell.data_ptr(),
+            _ptr(counts), _ptr(rows), float(alpha), n, ja_ell.shape[1], cb,
+            int(vec4))
     spmm_ell.launches += 1
     return out
 
@@ -93,28 +177,38 @@ spmm_ell.launches = 0
 
 
 def spmv_ell_ref(x: torch.Tensor, ja_ell: torch.Tensor,
-                 va_ell: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the SpMV: y[r] = sum_s va[r, s] * x[ja[r, s]]."""
-    return (va_ell * x[ja_ell.to(torch.int64)]).sum(1)
+                 va_ell: torch.Tensor, *, counts=None, rows=None, out=None,
+                 alpha: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of the SpMV under the module's contract."""
+    return _ell_ref(lambda xv, ja, va: va * xv[ja], x, ja_ell, va_ell,
+                    counts, rows, out, alpha)
 
 
 def spmv_ell(x: torch.Tensor, ja_ell: torch.Tensor,
-             va_ell: torch.Tensor) -> torch.Tensor:
-    """y[r] = sum_s va_ell[r, s] * x[ja_ell[r, s]] (csrgemv 'N').
+             va_ell: torch.Tensor, *, counts=None, rows=None, out=None,
+             alpha: float = 1.0) -> torch.Tensor:
+    """y[rows[i]] = alpha * sum_{s < counts[i]} va_ell[i, s] *
+    x[ja_ell[i, s]] (csrgemv 'N'; the module's contract).
 
-    x: (k,) fp32; ja_ell/va_ell as for `spmm_ell`.  Returns a new (rows,)
-    fp32 tensor; CUDA tensors launch the kernel, CPU tensors take the
-    plain version."""
+    x: (k,) fp32; ja_ell/va_ell as for `spmm_ell`.  Returns `out`, or a
+    new (rows,) fp32 tensor; CUDA tensors launch the kernel, CPU tensors
+    take the plain version."""
     dev = _check("spmv_ell", x, ja_ell, va_ell, 1)
+    n = _check_placement("spmv_ell", dev, ja_ell, counts, rows, out, ())
     if dev.type == "cpu":
-        return spmv_ell_ref(x, ja_ell, va_ell)
-    rows, rmax = ja_ell.shape
-    y = torch.empty((rows,), dtype=torch.float32, device=dev)
-    _launch(build().bof_spmv_ell_f32, dev, y.data_ptr(), x.data_ptr(),
+        return spmv_ell_ref(x, ja_ell, va_ell, counts=counts, rows=rows,
+                            out=out, alpha=alpha)
+    if out is None:
+        out = torch.empty((n,), dtype=torch.float32, device=dev)
+    rmax = ja_ell.shape[1]
+    vec = (rmax % 4 == 0 and va_ell.data_ptr() % 16 == 0
+           and ja_ell.data_ptr() % (4 * ja_ell.element_size()) == 0)
+    _launch(build().bof_spmv_ell_f32, dev, out.data_ptr(), x.data_ptr(),
             ja_ell.data_ptr(), int(ja_ell.dtype == torch.uint16),
-            va_ell.data_ptr(), rows, rmax)
+            va_ell.data_ptr(), _ptr(counts), _ptr(rows), float(alpha), n,
+            rmax, int(vec))
     spmv_ell.launches += 1
-    return y
+    return out
 
 
 spmv_ell.launches = 0

@@ -5,8 +5,10 @@ in SimpleCsrmmRmTask::execute, csrmm_task.h:201-229; mkl_cspblas_scsrgemv
 in csrgemv_task.h): a CSR row block becomes a padded ELL pair (ja, va) of
 shape (rows_pad, rmax) on the host, and the block product is one launch
 of kernel K2 (`spmm_cuda.spmm_ell`) or of the ELL SpMV
-(`spmm_cuda.spmv_ell`).  Padding slots carry ja = 0, va = 0 and
-contribute nothing.
+(`spmm_cuda.spmv_ell`).  Padding slots carry ja = 0, va = 0; the callers
+pass each band's row counts, so the kernels never read them, and the
+band's row selection, so each band writes its rows of the row-block
+output in place.
 
 The host prep is bof_tpu's, unchanged, so both packages form the same
 bands from the same offsets.  Not ported yet: the bf16/int8 value
@@ -21,24 +23,27 @@ from .spmm_cuda import spmm_ell, spmv_ell
 _IMPLS = ("xla", "pallas", "auto")
 
 
-def spmm_ell_block(b_panel, ja_ell, va_ell):
-    """(rows, cb) = sum_s va_ell[row, s] * B[ja_ell[row, s]] (K2)."""
-    return spmm_ell(b_panel, ja_ell, va_ell)
+def spmm_ell_block(b_panel, ja_ell, va_ell, **where):
+    """(rows, cb) = sum_s va_ell[row, s] * B[ja_ell[row, s]] (K2); `where`
+    takes spmm_cuda's counts / rows / out / alpha."""
+    return spmm_ell(b_panel, ja_ell, va_ell, **where)
 
 
-def spmm_ell_block_dispatch(b_panel, ja_ell, va_ell, impl: str = "auto"):
+def spmm_ell_block_dispatch(b_panel, ja_ell, va_ell, impl: str = "auto",
+                            **where):
     """One ELL block product.  `impl` takes every value bof_tpu's
     FlashConfig.sparse_device_impl takes, so configurations round-trip;
     bof_tpu chooses between its XLA and Pallas bodies with it, and here
     every value runs K2, the one kernel that replaces both."""
     if impl not in _IMPLS:
         raise ValueError(f"sparse_device_impl {impl!r} not in {_IMPLS}")
-    return spmm_ell(b_panel, ja_ell, va_ell)
+    return spmm_ell(b_panel, ja_ell, va_ell, **where)
 
 
-def spmv_ell_block(x, ja_ell, va_ell):
-    """y_blk[row] = sum_s va_ell[row, s] * x[ja_ell[row, s]] (csrgemv 'N')."""
-    return spmv_ell(x, ja_ell, va_ell)
+def spmv_ell_block(x, ja_ell, va_ell, **where):
+    """y_blk[row] = sum_s va_ell[row, s] * x[ja_ell[row, s]] (csrgemv 'N');
+    `where` as for spmm_ell_block."""
+    return spmv_ell(x, ja_ell, va_ell, **where)
 
 
 def expand_row_ids(ia_blk: np.ndarray) -> np.ndarray:

@@ -22,14 +22,24 @@ Steps, each of which raises (exit code != 0) when it fails:
    8192^3 R/N/N, the median of 5 CUDA-event times of each tier, the plain
    version, `addmm_` with TF32 off (the library yardstick) and on, and the
    FFMA variant; ptxas must report no spills for the tensor-core kernel;
-4. kernel K2 (`spmm_ell`) against its plain version at (a) the csrmm
-   band shape rows 512, rmax 256, k 131072, cb 4096, int32 indices;
-   (b) uint16 indices, k 65536, cb 999, rows 24, rmax 64; (c) a mega-row
-   band rows 8, rmax 16384, cb 256; then the ELL SpMV (`spmv_ell`) at
-   rows 16384, rmax 256, k 131072.  Tolerance max|kernel - plain| <=
-   2e-4 * max|plain| + 1e-5 * sqrt(rmax) * max|va| * max|B|; the median
-   of 5 CUDA-event times of both, and of the same band as a torch CSR
-   matrix times B (or x), at (a) and at the SpMV shape;
+4. kernel K2 (`spmm_ell`) and the ELL SpMV (`spmv_ell`) against their
+   plain versions through the contract csrmm and csrgemv use: each
+   row's real slot count (`counts`; about one row in 16 empty, padding
+   slots holding va NaN, so a kernel that read one returns NaN), the
+   rows permuted (`rows`) into a larger sentinel-filled `out`, and alpha;
+   K2 at (a) the csrmm band shape rows 512, rmax 256, k 131072, cb 4096,
+   int32 indices; (b) uint16 indices, k 65536, cb 999, rows 24, rmax 64,
+   alpha 0.5; (c) a mega-row band rows 8, rmax 16384, cb 256; the SpMV at
+   rows 16384, rmax 256, k 131072.  Tolerance on the named rows
+   max|kernel - plain| <= 2e-4 * max|plain| + 1e-5 * sqrt(rmax) *
+   max|va| * max|B| * |alpha|; every other row must keep the sentinel.
+   The SpMV runs 8 such bands, each checked.  At (a), and over the 8
+   SpMV bands in turn (their ja/va outgrow L2; csrgemv uploads each band
+   afresh), the median of 5 samples of back-to-back calls of the kernel
+   as csrmm (csrgemv) calls it, of the plain version, and of the same
+   band as a torch CSR matrix times B (or x), beside the bound, which
+   counts the real slots' ja/va, counts, rows, the dense rows they
+   reference and the output once;
 5. S1/S2, the gemm main path through `bof_tpu_torch.drivers.gemm.main`:
    32768^3 fp32 order R N/N (alpha 1, beta 0), then 12288^3 (ragged
    superblocks) order C, ta T, tb N, alpha 0.5, beta 2; O_DIRECT, the
@@ -51,8 +61,10 @@ Steps, each of which raises (exit code != 0) when it fails:
    kernel's launch count against what the planner forms (K1: mB*nB*kB,
    every one on the 3xTF32 variant;
    K2 and the SpMV: the ELL bands, recomputed here from the offsets with
-   fill_row_blocks + ell_row_ranges); the wall time, GFLOP/s, the
-   driver's GB/s, stage seconds and peak device memory.
+   fill_row_blocks + ell_row_ranges); for csrmm, that the writer did no
+   host assembly (no `csrmm.assemble_s`) and downloaded each row block
+   and column panel once (`csrmm.d2h_bytes`); the wall time, GFLOP/s,
+   the driver's GB/s, stage seconds and peak device memory.
 
 Operands are written from seeded generators under `$BOF_SCRATCH`
 (default `build/chip_smoke` in this checkout), which must be a real
@@ -60,7 +72,8 @@ filesystem (O_DIRECT) with about 24 GiB free; every file is deleted after
 its check.  TF32 is switched off, so every torch matmul here is full fp32
 (but for the one timing that asks for it).
 With BOF_SMOKE_PROFILE=1 the S1, S2 and S3 calls run under torch.profiler
-and the device time by kernel and the device's busy share are printed.
+and the device time by kernel (and a launch, for K1, K2 and the SpMV) and
+the device's busy share are printed.
 
 The line before the last is the kernel summary as JSON (each kernel's
 time, plain and library times, and its bound: the larger of its bytes over
@@ -99,7 +112,10 @@ def _nvcc() -> str:
     return shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
 
 
-def _median_ms(fn, reps: int = 5) -> float:
+def _median_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """The median over `reps` samples of one call's time, each sample
+    `inner` calls back to back between two CUDA events (so that the host's
+    time to launch a short kernel hides behind the one before)."""
     import torch
     fn()  # warm-up (and first-launch costs)
     times = []
@@ -107,10 +123,11 @@ def _median_ms(fn, reps: int = 5) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -396,6 +413,14 @@ def _profiled(fn, argv) -> float:
     for us, count, key in rows[:8]:
         print(f"[profile] {us / 1e6:9.3f} s  {count:6d}x  {key[:90]}",
               flush=True)
+    for name in ("accum_tf32_kernel", "spmm_ell_kernel", "spmv_ell_kernel"):
+        hits = [(us, count) for us, count, key in rows if name in key]
+        if hits:
+            us = sum(h[0] for h in hits)
+            count = sum(h[1] for h in hits)
+            print(f"[profile] {name}: {us / 1e3:.3f} ms device time over "
+                  f"{count} launches, {us / 1e3 / count:.4f} ms a launch",
+                  flush=True)
     return wall
 
 
@@ -509,37 +534,80 @@ def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta) -> dict:
 
 # ------------------------------------------------------------ sparse path
 
-def _ell_tolerance(want, rmax, va_max, b_max):
+def _ell_tolerance(want, rmax, va_max, b_max, alpha=1.0):
     return RTOL * float(want.abs().max()) + ATOL_SCALE * rmax ** 0.5 \
-        * va_max * b_max
+        * va_max * b_max * abs(alpha)
+
+
+SENTINEL = -1234.5    # what out holds where a band names no row
+K2_INNER = 20         # K2 calls a timing sample (about 0.5 ms each)
+SPMV_INNER = 200      # SpMV calls a timing sample (tens of microseconds)
+SPMV_BANDS = 8        # SpMV bands timed in turn (about 190 MB of real ja/va)
 
 
 def _random_ell(rng, rows, rmax, k, idt, fill_lo, dev):
-    """An ELL block with padding slots (ja 0, va 0) past a random count
-    in [fill_lo * rmax, rmax] per row."""
+    """An ELL block of `rows` rows: a random count in [fill_lo * rmax,
+    rmax] real slots per row, about one row in 16 (at least one) empty,
+    and padding slots past the count that hold ja 0 and va NaN, so that a
+    kernel that read one would return NaN.  Returns (ja, va, counts,
+    max|va| over the real slots)."""
     import numpy as np
     import torch
     counts = rng.integers(int(fill_lo * rmax), rmax + 1, rows)
+    counts[rng.choice(rows, max(1, rows // 16), replace=False)] = 0
     ja = rng.integers(0, k, (rows, rmax)).astype(idt)
     va = rng.standard_normal((rows, rmax), dtype=np.float32)
     pad = np.arange(rmax)[None, :] >= counts[:, None]
     ja[pad] = 0
-    va[pad] = 0.0
+    va[pad] = np.nan
     return (torch.from_numpy(ja).to(dev), torch.from_numpy(va).to(dev),
-            float(np.abs(va).max()))
+            torch.from_numpy(counts.astype(np.int32)).to(dev),
+            float(np.abs(va[~pad]).max()))
 
 
-def _ell_yardsticks(ja, va, dense):
-    """The bound of an ELL product over `dense` (B, or x) and the same
-    band as a torch CSR matrix for the library call.  Bytes: ja and va
-    once, the rows of `dense` that real slots reference once, the output
-    once; operations: 2 per real slot and column, on the fp32 cores."""
+def _placement(rng, rows, width, dev):
+    """rows permuted into a larger sentinel-filled out: (rows index, out
+    for the kernel, out for the plain version, the untouched rows)."""
+    import numpy as np
     import torch
-    real = va != 0  # padding slots hold va 0
+    total = rows + rows // 2 + 3
+    perm = rng.permutation(total)
+    idx = torch.from_numpy(perm[:rows].astype(np.int32)).to(dev)
+    out = torch.full((total,) + width, SENTINEL, device=dev)
+    untouched = torch.from_numpy(np.sort(perm[rows:])).to(dev)
+    return idx, out, out.clone(), untouched
+
+
+def _check_placed(label, got, want, untouched, idx, limit) -> float:
+    """The named rows within `limit` of the plain version, every other
+    row still the sentinel; returns the max abs error."""
+    import torch
+    err = float((got[idx.long()] - want[idx.long()]).abs().max())
+    kept = bool(torch.all(got[untouched] == SENTINEL)) and bool(
+        torch.all(want[untouched] == SENTINEL))
+    ok = err <= limit and kept
+    print(f"{label}: max|kernel-plain| {err:.6g} (limit {limit:.6g} = "
+          f"{RTOL}*max|plain| + {ATOL_SCALE}*sqrt(rmax)*max|va|*max|dense|"
+          f"*|alpha|), {untouched.numel()} untouched rows keep the "
+          f"sentinel: {kept} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def _ell_yardsticks(ja, va, counts, dense):
+    """The bound of an ELL product over `dense` (B, or x) and the same
+    band as a torch CSR matrix for the library call.  Bytes: the real
+    slots' ja and va once, counts and rows once, the rows of `dense` that
+    real slots reference once, the output once; operations: 2 per real
+    slot and column, on the fp32 cores."""
+    import torch
+    real = (torch.arange(ja.shape[1], device=ja.device)[None, :]
+            < counts[:, None])
     width = dense.shape[1] if dense.dim() == 2 else 1
     nnz = int(real.sum())
     used = int(torch.unique(ja[real].to(torch.int64)).numel())
-    nbytes = (ja.numel() * ja.element_size() + va.numel() * 4
+    nbytes = (nnz * (ja.element_size() + 4) + ja.shape[0] * 8
               + (used + ja.shape[0]) * width * 4)
     bound, by = _bound(nbytes, 2.0 * nnz * width, FP32_FLOPS)
     rows = torch.arange(ja.shape[0], device=va.device)[:, None].expand_as(ja)
@@ -549,9 +617,17 @@ def _ell_yardsticks(ja, va, dense):
     return bound, by, coo.coalesce().to_sparse_csr()  # sorted, summed
 
 
+def _in_turn(fn, bands):
+    """fn over the bands in turn, one band a call."""
+    import itertools
+    it = itertools.cycle(bands)
+    return lambda: fn(*next(it))
+
+
 def ell_kernel_phase(dev) -> dict:
-    """K2 and the ELL SpMV against their plain versions on the card;
-    returns {name: summary}."""
+    """K2 and the ELL SpMV against their plain versions on the card,
+    through the contract csrmm and csrgemv use (counts, a permuted rows
+    into a larger sentinel-filled out, alpha); returns {name: summary}."""
     import numpy as np
     import torch
     from bof_tpu_torch.sparse.spmm_cuda import (spmm_ell, spmm_ell_ref,
@@ -561,38 +637,41 @@ def ell_kernel_phase(dev) -> dict:
     gen.manual_seed(SEED)
     out = {}
     worst = 0.0
-    for tag, rows, rmax, k, cb, idt in (
-            ("a", 512, 256, 131072, 4096, np.int32),
-            ("b", 24, 64, 65536, 999, np.uint16),
-            ("c", 8, 16384, 131072, 256, np.int32)):
-        ja, va, va_max = _random_ell(rng, rows, rmax, k, idt, 0.5, dev)
+    for tag, rows, rmax, k, cb, idt, alpha in (
+            ("a", 512, 256, 131072, 4096, np.int32, 1.0),
+            ("b", 24, 64, 65536, 999, np.uint16, 0.5),
+            ("c", 8, 16384, 131072, 256, np.int32, 1.0)):
+        ja, va, counts, va_max = _random_ell(rng, rows, rmax, k, idt, 0.5,
+                                             dev)
         b = torch.randn((k, cb), generator=gen, device=dev)
         b_max = float(b.abs().max())
-        got = spmm_ell(b, ja, va)
-        want = spmm_ell_ref(b, ja, va)
+        idx, got, want, untouched = _placement(rng, rows, (cb,), dev)
+        where = dict(counts=counts, rows=idx, alpha=alpha)
+        before = spmm_ell.launches
+        spmm_ell(b, ja, va, out=got, **where)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        limit = _ell_tolerance(want, rmax, va_max, b_max)
-        print(f"K2 ({tag}) rows {rows} rmax {rmax} k {k} cb {cb} "
-              f"{np.dtype(idt).name}: max|kernel-plain| {err:.6g} (limit "
-              f"{limit:.6g} = {RTOL}*max|plain| + {ATOL_SCALE}*sqrt(rmax)"
-              f"*max|va|*max|B|) {'ok' if err <= limit else 'FAIL'}",
-              flush=True)
-        if err > limit:
-            raise AssertionError(f"K2 disagrees with its plain version at "
-                                 f"({tag})")
-        worst = max(worst, err)
+        if spmm_ell.launches != before + 1:
+            raise AssertionError("the K2 count did not move")
+        spmm_ell_ref(b, ja, va, out=want, **where)
+        limit = _ell_tolerance(want[idx.long()], rmax, va_max, b_max, alpha)
+        worst = max(worst, _check_placed(
+            f"K2 ({tag}) rows {rows} rmax {rmax} k {k} cb {cb} "
+            f"{np.dtype(idt).name} alpha {alpha}", got, want, untouched, idx,
+            limit))
         if tag == "a":
-            bound, by, csr = _ell_yardsticks(ja, va, b)
-            ms = _median_ms(lambda: spmm_ell(b, ja, va))
-            plain_ms = _median_ms(lambda: spmm_ell_ref(b, ja, va))
-            library_ms = _median_ms(lambda: csr @ b)
-            gathered = rows * rmax * cb * 4
-            print(f"K2 (a): kernel {ms:.3f} ms ({gathered / ms / 1e6:.1f} "
-                  f"GB/s of gathered B rows), plain {plain_ms:.3f} ms "
-                  f"({gathered / plain_ms / 1e6:.1f} GB/s), library (torch "
-                  f"CSR @ B) {library_ms:.3f} ms, bound {bound:.4f} ms "
-                  f"({by}), median of 5 CUDA-event times", flush=True)
+            bound, by, csr = _ell_yardsticks(ja, va, counts, b)
+            ms = _median_ms(lambda: spmm_ell(b, ja, va, out=got, **where),
+                            inner=K2_INNER)
+            plain_ms = _median_ms(
+                lambda: spmm_ell_ref(b, ja, va, out=want, **where))
+            library_ms = _median_ms(lambda: csr @ b, inner=K2_INNER)
+            print(f"K2 (a): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library (torch CSR @ B) {library_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}; the kernel at "
+                  f"{100 * bound / ms:.1f} % of it), median of 5 samples of "
+                  f"{K2_INNER} calls back to back (the plain version: 1), "
+                  "as csrmm calls it (counts, rows, out, alpha)",
+                  flush=True)
             out["spmm_ell"] = {"ms": ms, "plain_ms": plain_ms,
                                "library_ms": library_ms, "bound_ms": bound,
                                "bound_by": by}
@@ -602,29 +681,46 @@ def ell_kernel_phase(dev) -> dict:
     out["spmm_ell"]["max_abs_err"] = worst
 
     rows, rmax, k = 16384, 256, 131072
-    ja, va, va_max = _random_ell(rng, rows, rmax, k, np.int32, 0.5, dev)
     x = torch.randn((k,), generator=gen, device=dev)
-    got = spmv_ell(x, ja, va)
-    want = spmv_ell_ref(x, ja, va)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    limit = _ell_tolerance(want, rmax, va_max, float(x.abs().max()))
-    print(f"SpMV rows {rows} rmax {rmax} k {k} int32: max|kernel-plain| "
-          f"{err:.6g} (limit {limit:.6g}) {'ok' if err <= limit else 'FAIL'}",
-          flush=True)
-    if err > limit:
-        raise AssertionError("the SpMV kernel disagrees with its plain "
-                             "version")
-    bound, by, csr = _ell_yardsticks(ja, va, x)
-    ms = _median_ms(lambda: spmv_ell(x, ja, va))
-    plain_ms = _median_ms(lambda: spmv_ell_ref(x, ja, va))
-    library_ms = _median_ms(lambda: csr @ x)
+    x_max = float(x.abs().max())
+    bands, bounds, worst = [], [], 0.0
+    for i in range(SPMV_BANDS):
+        ja, va, counts, va_max = _random_ell(rng, rows, rmax, k, np.int32,
+                                             0.5, dev)
+        idx, got, want, untouched = _placement(rng, rows, (), dev)
+        before = spmv_ell.launches
+        spmv_ell(x, ja, va, counts=counts, rows=idx, out=got)
+        torch.cuda.synchronize()
+        if spmv_ell.launches != before + 1:
+            raise AssertionError("the SpMV count did not move")
+        spmv_ell_ref(x, ja, va, counts=counts, rows=idx, out=want)
+        limit = _ell_tolerance(want[idx.long()], rmax, va_max, x_max)
+        worst = max(worst, _check_placed(
+            f"SpMV band {i} rows {rows} rmax {rmax} k {k} int32", got, want,
+            untouched, idx, limit))
+        bound, by, csr = _ell_yardsticks(ja, va, counts, x)
+        bounds.append(bound)
+        bands.append((ja, va, counts, idx, got, csr))
+    ms = _median_ms(_in_turn(lambda ja, va, counts, idx, got, csr: spmv_ell(
+        x, ja, va, counts=counts, rows=idx, out=got), bands),
+        inner=SPMV_INNER)
+    plain_ms = _median_ms(_in_turn(
+        lambda ja, va, counts, idx, got, csr: spmv_ell_ref(
+            x, ja, va, counts=counts, rows=idx, out=got), bands),
+        inner=SPMV_INNER)
+    library_ms = _median_ms(_in_turn(
+        lambda ja, va, counts, idx, got, csr: csr @ x, bands),
+        inner=SPMV_INNER)
+    bound = statistics.mean(bounds)
     print(f"SpMV: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
           f"(torch CSR @ x) {library_ms:.4f} ms, bound {bound:.4f} ms "
-          f"({by}), median of 5 CUDA-event times", flush=True)
+          f"({by}; the kernel at {100 * bound / ms:.1f} % of it), median of "
+          f"5 samples of {SPMV_INNER} calls back to back over "
+          f"{SPMV_BANDS} bands in turn, as csrgemv calls it", flush=True)
     out["spmv_ell"] = {"ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound,
-                       "bound_by": by, "max_abs_err": err}
+                       "bound_by": by, "max_abs_err": worst}
+    del bands
     torch.cuda.empty_cache()
     return out
 
@@ -672,6 +768,23 @@ def _driver_args(dev, scratch):
 
 def _report_csrmm(label, wall, a_nnz, b_rows, c_rows, n, launches, stages,
                   peak):
+    """Print the call's throughput and stages; raise unless the writer
+    took the device path's shape: no host assembly (the bands wrote their
+    rows in place, alpha applied by K2) and each row block and column
+    panel downloaded once (c_rows * cb * npanels floats in all)."""
+    import importlib
+    import bof_tpu_torch as bt
+    from bof_tpu_torch.utils import cdiv
+    if "csrmm.assemble_s" in stages:
+        raise AssertionError(f"[{label}] the device path assembled on the "
+                             "host")
+    cb = importlib.import_module("bof_tpu_torch.sparse.csrmm") \
+        ._col_block_width(n, b_rows, bt.FlashConfig())
+    want_d2h = c_rows * cb * cdiv(n, cb) * 4
+    if stages.get("csrmm.d2h_bytes") != want_d2h:
+        raise AssertionError(f"[{label}] downloaded "
+                             f"{stages.get('csrmm.d2h_bytes')} bytes, not "
+                             f"one row block a panel ({want_d2h})")
     gbytes = a_nnz * 12.0 + (b_rows + c_rows) * n * 4.0
     print(f"[{label}] wall {wall:.3f} s, {2.0 * a_nnz * n / wall / 1e9:.1f} "
           f"GFLOP/s, {gbytes / wall / 1e9:.2f} GB/s (the driver's bytes: "
@@ -679,9 +792,10 @@ def _report_csrmm(label, wall, a_nnz, b_rows, c_rows, n, launches, stages,
           f"bands), peak device memory {peak / 2**30:.2f} GiB", flush=True)
     _stages(label, stages, "csrmm.",
             ("disk_wait_s", "prep_s", "h2d_s", "dispatch_s", "d2h_s",
-             "assemble_s", "c_read_s", "write_wait_s"))
-    print(f"[{label}] d2h {stages.get('csrmm.d2h_bytes', 0) / 2**30:.2f} "
-          "GiB", flush=True)
+             "c_read_s", "write_wait_s"))
+    print(f"[{label}] d2h {stages['csrmm.d2h_bytes'] / 2**30:.2f} GiB: "
+          "each row block and panel downloaded once (in contiguous row "
+          "pieces); no host assembly (csrmm.assemble_s absent)", flush=True)
 
 
 def _sample_cols(c_out, cols):

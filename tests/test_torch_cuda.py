@@ -210,6 +210,18 @@ def test_spmm_ell_kernel_matches_plain(cuda_device, idt, rows, rmax, k, cb):
                                rtol=2e-4, atol=1e-4)
 
 
+def test_spmm_ell_rejects_a_cb_past_one_grid(cuda_device):
+    """65535 slabs of 64 columns fill the grid's y dimension: one column
+    more fails to launch, and the wrapper raises without counting."""
+    ja = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    va = torch.ones((1, 1), device=cuda_device)
+    b = torch.ones((1, 65535 * 64 + 1), device=cuda_device)
+    before = spmm_ell.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        spmm_ell(b, ja, va)
+    assert spmm_ell.launches == before
+
+
 @pytest.mark.parametrize("idt", [np.int32, np.uint16])
 @pytest.mark.parametrize("rows,rmax", [(1001, 40), (9, 2000)])
 def test_spmv_ell_kernel_matches_plain(cuda_device, idt, rows, rmax):
@@ -283,3 +295,87 @@ def test_csrgemv_on_card_matches_cpu(cuda_device, tmp_path):
             ctx.destroy()
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=2e-4,
                                atol=1e-4)
+
+
+def _placed_ell(rng, rows, rmax, k, idt, device, mega=0):
+    """An ELL band under the kernels' contract: counts with empty rows
+    (and `mega` rows at the full rmax), padding slots past each count
+    holding ja 0 and va NaN, which a kernel that read them would turn
+    into a NaN."""
+    counts = rng.integers(0, rmax + 1, rows)
+    counts[::5] = 0
+    counts[1:1 + mega] = rmax
+    ja = rng.integers(0, k, (rows, rmax)).astype(idt)
+    va = rng.standard_normal((rows, rmax), dtype=np.float32)
+    pad = np.arange(rmax)[None, :] >= counts[:, None]
+    ja[pad] = 0
+    va[pad] = np.nan
+    return [torch.from_numpy(x).to(device)
+            for x in (ja, va, counts.astype(np.int32))]
+
+
+def _sentinel_out(rng, rows, width, device):
+    total = 2 * rows + 3
+    perm = rng.permutation(total)
+    rows_idx = torch.from_numpy(perm[:rows].astype(np.int32)).to(device)
+    out = torch.full((total,) + width, -7.25, device=device)
+    return rows_idx, out, torch.from_numpy(np.sort(perm[rows:])).to(device)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+@pytest.mark.parametrize("idt,rows,rmax,k,cb,mega", [
+    (np.int32, 40, 24, 5000, 37, 0),       # ragged cb: the scalar tail
+    (np.uint16, 40, 24, 5000, 512, 0),     # float4 columns, uint16
+    (np.int32, 512, 256, 4096, 256, 0),    # a csrmm band, every row resident
+    (np.int32, 3, 3000, 700, 64, 2),       # mega-rows: staged in chunks
+    (np.uint16, 2, 16384, 65536, 999, 1)])  # uint16, cb 999, rmax 16384
+def test_spmm_ell_contract_kernel_matches_plain(cuda_device, alpha, idt, rows,
+                                                rmax, k, cb, mega):
+    """K2 with counts, a permuted rows into a larger out and alpha: the
+    named rows equal the plain version's, every other row keeps its
+    sentinel, and no padding slot is read."""
+    rng = np.random.default_rng(rows * rmax + cb)
+    ja, va, counts = _placed_ell(rng, rows, rmax, k, idt, cuda_device, mega)
+    b = torch.from_numpy(rng.standard_normal((k, cb), dtype=np.float32)
+                         ).to(cuda_device)
+    rows_idx, got, untouched = _sentinel_out(rng, rows, (cb,), cuda_device)
+    want = got.clone()
+    where = dict(counts=counts, rows=rows_idx, alpha=alpha)
+    before = spmm_ell.launches
+    assert spmm_ell(b, ja, va, out=got, **where) is got
+    torch.cuda.synchronize()
+    assert spmm_ell.launches == before + 1
+    spmm_ell_ref(b, ja, va, out=want, **where)
+    # fp32 sums of up to rmax terms in another order: an error that grows
+    # as sqrt(rmax) times the largest product
+    atol = 1e-5 * rmax ** 0.5 * float(va.nan_to_num().abs().max()) \
+        * float(b.abs().max()) * alpha
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=atol)
+    assert bool(torch.all(got[untouched] == -7.25))
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+@pytest.mark.parametrize("idt", [np.int32, np.uint16])
+@pytest.mark.parametrize("rows,rmax", [(1001, 16), (700, 40), (300, 128),
+                                       (257, 256), (9, 2000), (50, 7)])
+def test_spmv_ell_contract_kernel_matches_plain(cuda_device, alpha, idt,
+                                                rows, rmax):
+    """The SpMV with counts, a permuted rows and alpha, at row groups of
+    4 to 32 lanes and the scalar path (rmax 7)."""
+    rng = np.random.default_rng(rows + rmax)
+    k = 60000
+    ja, va, counts = _placed_ell(rng, rows, rmax, k, idt, cuda_device)
+    x = torch.from_numpy(rng.standard_normal(k, dtype=np.float32)
+                         ).to(cuda_device)
+    rows_idx, got, untouched = _sentinel_out(rng, rows, (), cuda_device)
+    want = got.clone()
+    where = dict(counts=counts, rows=rows_idx, alpha=alpha)
+    before = spmv_ell.launches
+    assert spmv_ell(x, ja, va, out=got, **where) is got
+    torch.cuda.synchronize()
+    assert spmv_ell.launches == before + 1
+    spmv_ell_ref(x, ja, va, out=want, **where)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=1e-4)
+    assert bool(torch.all(got[untouched] == -7.25))

@@ -492,3 +492,69 @@ def test_sparse_drivers_run_on_cpu(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         csrmm.main([pre, str(m), str(k), os.path.join(d, "B.bin"), str(n),
                     os.path.join(d, "C.bin"), "--sharded"] + common)
+
+
+# ------------------------------------------------- bands written in place
+
+def _count_downloads(monkeypatch):
+    """Count the port's device-to-host copies (ops/device.from_device)."""
+    from bof_tpu_torch.ops import device as port_dev
+    calls = []
+    real = port_dev.from_device
+
+    def counted(t):
+        calls.append(tuple(t.shape))
+        return real(t)
+    monkeypatch.setattr(port_dev, "from_device", counted)
+    return calls
+
+
+@pytest.mark.parametrize("mode", ["device", "host"])
+def test_csrmm_bands_write_in_place(tmp_path, monkeypatch, mode):
+    """The device path: each band writes its rows of the row block's
+    buffer with alpha applied, so the writer assembles nothing on the host
+    (no csrmm.assemble_s) and downloads each row block of each column
+    panel once, in contiguous row pieces; the host path still applies
+    alpha on the host.  The whole C equals bof_tpu's on the same files."""
+    from bof_tpu_torch.sparse.csr import fill_row_blocks
+    a = rand_csr(400, 150, 0.04, seed=23).tolil()
+    a[10:30, :] = 0  # empty rows: alpha * 0 from K2
+    a = a.tocsr()
+    a.eliminate_zeros()
+    import importlib
+    csrmm_mod = importlib.import_module("bof_tpu_torch.sparse.csrmm")
+    monkeypatch.setattr(csrmm_mod, "PIECE_BYTES", 40 * 32 * 4)  # 40 rows
+    calls = _count_downloads(monkeypatch)
+    METRICS.reset()
+    _check(*csrmm_both(tmp_path, a, 50, alpha=0.75, beta=0.5,
+                       max_nnzs=1024, cblk=32, sparse_compute=mode))
+    snap = METRICS.snapshot()
+    blocks = fill_row_blocks(a.indptr.astype(np.int64), 1024)
+    if mode == "device":
+        assert "csrmm.assemble_s" not in snap
+        # each row block of each of the two 32-wide panels (n 50) comes
+        # down once, in pieces of at most 40 contiguous rows
+        pieces = [(min(40, e - r - p0), 32) for r, e in blocks
+                  for p0 in range(0, e - r, 40)]
+        assert sorted(calls) == sorted(pieces * 2)
+        assert snap["csrmm.d2h_bytes"] == 400 * 32 * 2 * 4
+    else:
+        assert snap["csrmm.assemble_s"] > 0
+        assert not calls
+
+
+def test_csrgemv_bands_write_in_place(tmp_path, monkeypatch):
+    """csrgemv 'N': each band's SpMV writes its rows of the block's y in
+    place; y comes down once per row block and equals bof_tpu's."""
+    from bof_tpu_torch.sparse.csr import fill_row_blocks
+    a = rand_csr(500, 300, 0.03, seed=24).tolil()
+    a[100:140, :] = 0
+    a[7, :] = 1.0  # a long row beside short ones: several bands a block
+    a = a.tocsr()
+    a.eliminate_zeros()
+    calls = _count_downloads(monkeypatch)
+    ref, port, golden = csrgemv_both(tmp_path, a, "N", max_nnzs=600)
+    _check(ref, port, golden)
+    blocks = fill_row_blocks(a.indptr.astype(np.int64), 600)
+    assert [c for c in calls if len(c) == 1] == [(e - r,) for r, e in blocks]
+    assert not port[100:140].any()
