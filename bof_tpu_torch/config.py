@@ -47,9 +47,14 @@ class FlashConfig:
     device: str = "cuda"               # torch device: "cuda", "cuda:N", "cpu"
     hbm_budget: int = 12 << 30         # device-memory budget for tiles
     pipeline_depth: int = 3            # lookahead superblocks in flight
-    transfer_dtype: str = "float32"    # only float32 crosses the link so
-    #   far; the bf16/int8 transfer modes are ROADMAP A6
-    c_transfer_dtype: str = "float32"  # bf16 C download: ROADMAP A6
+    transfer_dtype: str = "float32"    # "bfloat16" halves the host->device
+    #   bytes of gemm's A/B tiles and of sparse ELL values (rounded to bf16
+    #   on the host; accumulators and C stay fp32); "int8" quarters them
+    #   (gemm: one max-abs scale a tile, int8 products summed exactly;
+    #   sparse: one scale an ELL row).  fp32 operands only
+    c_transfer_dtype: str = "float32"  # "bfloat16" halves the device->host
+    #   bytes of gemm's C blocks and csrmm's results (rounded once on the
+    #   device, widened exactly on the host; storage stays fp32)
 
     # ---- dense kernels (reference: GEMM_BLK_SIZE=8192) ----
     gemm_blk_size: int = 8192          # superblock edge for out-of-core gemm

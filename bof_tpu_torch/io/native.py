@@ -12,10 +12,17 @@ multi-threaded strided I/O — the role the reference's
 FlashFileHandle/IoExecutor pair plays (reference: flash_file_handle.cpp,
 io_executor.cpp).
 
-Bound: the engine and pin-cache entry points, and the two host helpers of
-the sparse planners (`ell_fill`, `counting_argsort_i32`).  The engine's
-quantize/cast/sort-merge/fold helpers join with the modules that call them
-(ROADMAP A6, A11, A13).
+Bound: the engine and pin-cache entry points, the two host helpers of
+the sparse planners (`ell_fill`, `counting_argsort_i32`) and the transfer
+modes' host prep (`quantize_i8`, `cast_bf16`, and `ell_fill`'s bf16 value
+mode).  The engine's sort-merge/fold/fp64-slicing helpers join with the
+modules that call them (ROADMAP A11, A13).
+
+bfloat16 has no numpy dtype without ml_dtypes, which the port does not
+use: a bf16 array here is its 16 bits as np.uint16, and
+`torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)` makes it a
+tensor (ops/device.py).  Each helper has a numpy fallback, for when the
+engine does not build, that gives the engine's bits.
 """
 from __future__ import annotations
 
@@ -137,6 +144,12 @@ def load_library():
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_void_p]
         lib.bof_counting_argsort_i32.restype = ctypes.c_int
+        lib.bof_quantize_i8.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_longlong]
+        lib.bof_quantize_i8.restype = ctypes.c_double
+        lib.bof_cast_bf16.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_longlong]
+        lib.bof_cast_bf16.restype = None
         _lib = lib
         return _lib
 
@@ -195,15 +208,81 @@ def counting_argsort_i32(keys: np.ndarray, k: int):
     return out if rc == 0 else None
 
 
+def quantize_i8(src: np.ndarray):
+    """(int8 array, scale): per-tile max-abs quantization for the int8
+    transfer mode (bof_tpu's `quantize_i8`): q = rint(x * (1 / scale))
+    clamped to +/-127, scale = max|x| / 127 in fp32 (NaN ignored by the
+    max; an all-zero or empty tile gets max 1).  The engine's parallel
+    kernel when it builds, else `quantize_i8_numpy`, which gives the same
+    bits."""
+    src = np.ascontiguousarray(src, np.float32)
+    lib = load_library()
+    if lib is None:
+        return quantize_i8_numpy(src)
+    dst = np.empty(src.shape, np.int8)
+    scale = lib.bof_quantize_i8(src.ctypes.data, dst.ctypes.data, src.size)
+    return dst, float(scale)
+
+
+def quantize_i8_numpy(src: np.ndarray):
+    """The engine's `bof_quantize_i8` in numpy, bit for bit: fp32 scale
+    math, round half to even, the +/-127 clamp, and what the engine's
+    lrintf makes of a NaN product (from a NaN, or an Inf times a zero
+    reciprocal): the out-of-range integer, clamped to -127.  (bof_tpu's
+    own numpy fallback casts those to 0 instead.)"""
+    src = np.ascontiguousarray(src, np.float32)
+    amax = np.float32(np.fmax.reduce(np.abs(src), axis=None, initial=0.0))
+    if amax == 0.0:
+        amax = np.float32(1.0)
+    scale = amax / np.float32(127.0)
+    inv = np.float32(1.0) / scale
+    with np.errstate(invalid="ignore"):
+        x = src * inv
+        q = np.clip(np.rint(x), -127, 127)
+    q[np.isnan(x)] = -127
+    return q.astype(np.int8), float(scale)
+
+
+def cast_bf16(src: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 bits (np.uint16), round to nearest even, a NaN
+    kept quiet: the bf16 transfer mode's host prep (bof_tpu's
+    `cast_bf16`).  The engine's parallel cast when it builds, else
+    `cast_bf16_numpy` (the same bits)."""
+    src = np.ascontiguousarray(src, np.float32)
+    lib = load_library()
+    if lib is None:
+        return cast_bf16_numpy(src)
+    dst = np.empty(src.shape, np.uint16)
+    lib.bof_cast_bf16(src.ctypes.data, dst.ctypes.data, src.size)
+    return dst
+
+
+def cast_bf16_numpy(src: np.ndarray) -> np.ndarray:
+    """The engine's `bof_cast_bf16` in numpy: add 0x7fff plus the kept
+    bit's parity and drop the low 16 bits; a NaN keeps its top bits with
+    the quiet bit set."""
+    u = np.ascontiguousarray(src, np.float32).view(np.uint32)
+    rounded = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) >> 16
+    quiet = (u >> 16) | np.uint32(0x0040)
+    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    return np.where(nan, quiet, rounded).astype(np.uint16)
+
+
+def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bfloat16 bits (np.uint16) -> float32, exactly."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(
+        np.float32)
+
+
 def ell_fill(starts: np.ndarray, counts: np.ndarray, ja_blk: np.ndarray,
              va_blk: np.ndarray, rows_pad: int, rmax: int,
              idx_dtype, val_dtype):
     """Native padded-ELL row gather (the sparse planners' host prep);
     returns (ja_ell, va_ell) or None when the engine or this dtype
     combination is unavailable (caller falls back to the numpy chain).
-    Supported: ja int64 -> int32|uint16; va f32 -> f32, f64 -> f64,
-    bit-identical to the numpy path.  The engine's bf16 value mode belongs
-    to the transfer modes (ROADMAP A6) and is not bound."""
+    Supported: ja int64 -> int32|uint16; va f32 -> f32, f32 -> bf16 bits
+    (val_dtype np.uint16: `cast_bf16`'s rounding), f64 -> f64,
+    bit-identical to the numpy path."""
     lib = load_library()
     if lib is None:
         return None
@@ -220,6 +299,8 @@ def ell_fill(starts: np.ndarray, counts: np.ndarray, ja_blk: np.ndarray,
     vd = np.dtype(val_dtype if val_dtype is not None else va_blk.dtype)
     if va_blk.dtype == np.float32 and vd == np.float32:
         vk = 0
+    elif va_blk.dtype == np.float32 and vd == np.uint16:
+        vk = 1
     elif va_blk.dtype == np.float64 and vd == np.float64:
         vk = 2
     else:

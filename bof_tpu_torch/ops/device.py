@@ -42,8 +42,27 @@ def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device, copy=True)
 
 
+def to_device_bf16(bits: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A private bfloat16 device copy of bf16 values held as their np.uint16
+    bits (io/native.py's `cast_bf16`); 2 bytes an element cross the link."""
+    bits = np.ascontiguousarray(bits, np.uint16).view(np.int16)
+    return to_device(bits, device).view(torch.bfloat16)
+
+
 def from_device(t: torch.Tensor) -> np.ndarray:
+    """A host copy of `t`; a bfloat16 tensor comes back as its np.uint16
+    bits (numpy has no bfloat16; io/native.py's `bf16_to_f32` widens
+    them)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
     return t.cpu().numpy()
+
+
+def to_bf16(t: torch.Tensor) -> torch.Tensor:
+    """Device-side cast for c_transfer_dtype='bfloat16' (bof_tpu's
+    `to_bf16`): a finished C block rounds once (to nearest even) on the
+    device, so half the bytes cross the link."""
+    return t.to(torch.bfloat16)
 
 
 def dtype_native_on_device(dt) -> bool:
@@ -105,6 +124,19 @@ def accum_step(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
     `prec` takes bof_tpu's values, each at least as precise as the TPU's
     tier: 'highest' and 'high' run K1 as 3xTF32, 'default' as one TF32
-    pass (`matmul_cuda.K1_PASSES`); an unknown value raises ValueError."""
+    pass (`matmul_cuda.K1_PASSES`); an unknown value raises ValueError.
+    bf16 tiles (transfer_dtype='bfloat16') run K1's 'bf16' variant at every
+    `prec`, with the fp32 accumulator bof_tpu keeps for them."""
     return accum_matmul(c, a, b, alpha, a_km=a_km, b_nk=b_nk, c_nm=c_nm,
                         prec=prec)
+
+
+def accum_step_q(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 scale: float, *, a_km: bool, b_nk: bool,
+                 c_nm: bool) -> torch.Tensor:
+    """The quantized step of transfer_dtype='int8' (bof_tpu's
+    `accum_step_q`): a and b are int8 tiles (per-tile max-abs
+    quantizations), their product is summed exactly in int32 and
+    c += scale * f32(sum) with scale = alpha * s_a * s_b, in place: K1's
+    's8' variant.  Input rounding is the only error."""
+    return accum_matmul(c, a, b, scale, a_km=a_km, b_nk=b_nk, c_nm=c_nm)

@@ -24,9 +24,17 @@ download after the last accumulate into its block, and makes the caching
 allocator's reuse of a dropped tile safe; overlapping uploads with
 compute on a side stream is later work (ROADMAP).
 
+Transfer modes, as in bof_tpu (FlashConfig): transfer_dtype='bfloat16'
+rounds each A/B tile to bf16 on the host (half the bytes cross the link)
+and K1 multiplies bf16 tiles into the fp32 accumulator; 'int8' quantizes
+each tile to int8 with one max-abs scale (a quarter of the bytes) and K1
+sums int8 products exactly before one rescale by alpha * s_a * s_b;
+c_transfer_dtype='bfloat16' rounds each finished C block on the device,
+downloads half the bytes and widens them exactly on the host.  The host
+rounding is bof_tpu's engine's, bit for bit.
+
 Not ported yet, and refused with NotImplementedError rather than routed
-elsewhere: float64 (ROADMAP A13), transfer_dtype bfloat16/int8 and
-c_transfer_dtype bfloat16 (ROADMAP A6).
+elsewhere: float64 (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -42,13 +50,16 @@ import numpy as np
 from ..context import get_context
 from ..core.flash_array import FlashArray
 from ..core.pipeline import queue_put, queue_put_sentinel
+from ..io.native import bf16_to_f32, cast_bf16, quantize_i8
 from ..utils import LOG, METRICS, Timer, cdiv
 from . import device as dev
 
 
 class HbmCache:
     """Budget-bounded LRU cache of device-resident tiles (new capability —
-    the reference has no device tier).  Keys match the host tile cache."""
+    the reference has no device tier).  Keys match the host tile cache; a
+    value is a tensor, or (int8 tensor, scale) in the int8 transfer mode,
+    charged the bytes it holds on the device."""
 
     def __init__(self, budget_bytes: int):
         self.budget = budget_bytes
@@ -149,23 +160,21 @@ def _load_journal(path: str, header: str) -> set:
 
 
 def _check_slice(cfg, dtype) -> None:
-    """Refuse what this port does not carry yet, naming the ROADMAP item."""
+    """Refuse what this port does not carry yet, naming the ROADMAP item,
+    and, as bof_tpu does, a transfer mode on operands that are not
+    float32."""
     if dtype == np.float64:
         raise NotImplementedError(
             "float64 gemm is not ported yet (ROADMAP A13: fp64 gemm on "
             "Hopper fp64 tensor cores)")
+    xfer = cfg.transfer_dtype
+    if xfer in ("bfloat16", "int8") and dtype != np.float32:
+        raise ValueError(f"{xfer} transfer mode needs float32 operands")
+    if cfg.c_transfer_dtype == "bfloat16" and dtype != np.float32:
+        raise ValueError("bfloat16 C transfer mode needs float32 C")
     if dtype != np.float32:
         raise NotImplementedError(f"gemm on {dtype} operands: the port "
                                   "carries float32 only")
-    xfer = cfg.transfer_dtype
-    if xfer != "float32":
-        raise NotImplementedError(
-            f"transfer_dtype={xfer!r} is not ported yet (ROADMAP A6: gemm "
-            "transfer modes, with kernel B4)")
-    if cfg.c_transfer_dtype != "float32":
-        raise NotImplementedError(
-            f"c_transfer_dtype={cfg.c_transfer_dtype!r} is not ported yet "
-            "(ROADMAP A6: gemm transfer modes)")
 
 
 def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
@@ -224,6 +233,9 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
     b_access, b_nk = _op_block_reader(b, tb)  # storage is (n,k)-major?
     c_nm = c.order == "C"
     prec = cfg.matmul_precision
+    xfer_bf16 = cfg.transfer_dtype == "bfloat16"
+    xfer_int8 = cfg.transfer_dtype == "int8"
+    c_xfer_bf16 = cfg.c_transfer_dtype == "bfloat16"
 
     cache = ctx.pin_cache()
     hbm = HbmCache(cfg.hbm_budget)
@@ -237,7 +249,10 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
     # across all i), and each A(i,l) tile is fetched once per group sweep
     # and reused for all G accumulations.  Total host->device traffic ≈
     # |B| + |A| * n_groups — the analog of the reference Prioritizer's
-    # minimum-bytes-to-fetch objective, applied at the device tier.
+    # minimum-bytes-to-fetch objective, applied at the device tier.  The
+    # tile size stays C's in the transfer modes too, as in bof_tpu, so both
+    # packages plan the same steps (and journal headers name the same
+    # problem); the device LRU charges the real bytes.
     tile_bytes = sb * sb * np.dtype(c.dtype).itemsize
     spare = max(cfg.hbm_budget * 0.6 - 2 * depth * tile_bytes, tile_bytes)
     G = int(max(1, min(nB, spare // (kB * tile_bytes + tile_bytes))))
@@ -309,11 +324,13 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
         out[:mat.shape[0], :mat.shape[1]] = mat
         return out
 
-    def upload(host: np.ndarray):
-        """Host -> device copy; with telemetry_sync the device is drained
-        inside the window so the rate sample is a transfer rate."""
+    def upload(host: np.ndarray, bf16: bool = False):
+        """Host -> device copy (`bf16`: of bf16 bits); with telemetry_sync
+        the device is drained inside the window so the rate sample is a
+        transfer rate."""
         t1 = time.perf_counter()
-        arr = dev.to_device(host, device)
+        arr = (dev.to_device_bf16(host, device) if bf16
+               else dev.to_device(host, device))
         if sync_mode:
             dev.sync(arr)
         t2 = time.perf_counter()
@@ -366,13 +383,22 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                 cache.wait_ready(pin)
                 t_disk = time.perf_counter()
                 host = cache.buf(pin).view(a.dtype).reshape(st_shape)
+                scale = None
+                if xfer_bf16:
+                    # round on the host so half the bytes cross the link
+                    host = cast_bf16(host)
+                elif xfer_int8:
+                    # per-tile max-abs int8: a quarter of the bytes; K1
+                    # sums the products exactly and rescales once
+                    host, scale = quantize_i8(host)
                 padded = pad_to(host, (sb, sb))
                 METRICS.add("gemm.disk_wait_s", t_disk - t0)
                 METRICS.add("gemm.prep_s", time.perf_counter() - t_disk)
                 # to_device returns only once the pinned buffer has been
                 # read, so the caller may unpin right after
-                arr = upload(padded)
-                return hbm.put(hkey, arr, arr.nbytes)
+                arr = upload(padded, bf16=xfer_bf16)
+                value = arr if scale is None else (arr, scale)
+                return hbm.put(hkey, value, arr.nbytes)
 
             for idx, (i, j, l) in enumerate(steps):
                 bi, bj, bl = tile_dims(i, j, l)
@@ -430,6 +456,10 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                             else _storage_shape(c, (bi, bj)))
                 # split the wait for the block's last accumulate from the
                 # download itself (stages partition the wall time)
+                if c_xfer_bf16:
+                    # round the finished block on the device so half the
+                    # bytes cross the link; the accumulation ran in fp32
+                    c_dev = dev.to_bf16(c_dev)
                 t0 = time.perf_counter()
                 dev.sync(c_dev)
                 t1 = time.perf_counter()
@@ -442,6 +472,8 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                                     c_full.nbytes / max(t2 - t1, 1e-9) / 1e9)
                 c_host = c_full[:ci_shape[0], :ci_shape[1]]
                 METRICS.add("gemm.d2h_bytes", c_host.nbytes)
+                if c_xfer_bf16:  # widen back (exactly) for fp32 storage
+                    c_host = bf16_to_f32(c_host)
                 if journal_f is None:
                     write_tickets.push(c.write_block_storage_async(
                         i * sb, j * sb, bi, bj, c_host))
@@ -494,9 +526,16 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                 c_live[j] = (dev.scale_init(c_init, beta_s)
                              if c_init is not None
                              else dev.zeros_block(c_full_storage, device))
-            c_live[j] = dev.accum_step(c_live[j], a_dev, b_dev, alpha_s,
-                                       a_km=a_km, b_nk=b_nk, c_nm=c_nm,
-                                       prec=prec)
+            if xfer_int8:
+                (a_q, sa), (b_q, sb_q) = a_dev, b_dev
+                # bof_tpu's scale, computed as it computes it
+                c_live[j] = dev.accum_step_q(
+                    c_live[j], a_q, b_q, float(np.float32(alpha * sa * sb_q)),
+                    a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+            else:
+                c_live[j] = dev.accum_step(c_live[j], a_dev, b_dev, alpha_s,
+                                           a_km=a_km, b_nk=b_nk, c_nm=c_nm,
+                                           prec=prec)
             if l == kB - 1:
                 # timeout-put so a dead writer can't deadlock the loop
                 done_c = c_live.pop(j)

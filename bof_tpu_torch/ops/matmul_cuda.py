@@ -6,13 +6,19 @@ accum_step`'s epilogue) on CUDA tensors, and runs its plain PyTorch
 version, `accum_matmul_ref`, on CPU tensors.  Nothing else chooses between
 the two: a CUDA tensor launches the kernel or raises.
 
-K1 has three variants, and `k1_variant` alone picks one:
+K1 has five variants, and `k1_variant` alone picks one.  On fp32 operands:
 - 'tf32x3' (`csrc/matmul_tf32.cu`, 3 passes): TMA + wgmma 3xTF32, for
   precision 'highest' and 'high';
 - 'tf32' (the same kernel, 1 pass): one TF32 pass, for 'default';
 - 'ffma' (`csrc/matmul.cu`): full fp32 FFMA, for operands TMA cannot
   describe (a leading dimension that is not a multiple of 4 floats, or a
   base address that is not 16-byte aligned), at every precision.
+On the transfer modes' operands (FlashConfig.transfer_dtype), C fp32:
+- 'bf16' (`csrc/matmul_lowp.cu`): bf16 A and B, mma.sync with an fp32
+  accumulator, at every precision (bof_tpu's bf16 tiles);
+- 's8' (the same file): int8 A and B summed exactly in int32, then
+  C += alpha * float(sum) in two roundings (bof_tpu's `accum_step_q`,
+  alpha = its scale); K at most `K1_S8_MAX_K`.
 
 The kernels are built at first use with the port's other kernels into one
 library (`ops/cuda_lib.py`).
@@ -26,7 +32,10 @@ from .cuda_lib import build
 # matmul precision -> tensor-core passes; each tier keeps at least the bits
 # the TPU's tier keeps ('highest': 6 bf16 passes; 'default': 1 bf16 pass)
 K1_PASSES = {"highest": 3, "high": 3, "default": 1}
-K1_VARIANTS = ("tf32x3", "tf32", "ffma")
+K1_VARIANTS = ("tf32x3", "tf32", "ffma", "bf16", "s8")
+# the int32 sum of K int8 products is exact while 127^2 * K < 2^31
+K1_S8_MAX_K = 1 << 17
+_LOWP = {torch.bfloat16: ("bf16", 0), torch.int8: ("s8", 1)}
 
 
 def _logical_dims(c, a, b, a_km, b_nk, c_nm):
@@ -51,14 +60,19 @@ def _passes(prec: str) -> int:
     return K1_PASSES[prec]
 
 
-def k1_variant(lda: int, ldb: int, prec: str, *, aligned: bool = True) -> str:
-    """The K1 variant a CUDA launch runs: 'tf32x3' for 'highest'/'high',
-    'tf32' for 'default', when TMA can describe both operands (storage
-    leading dimensions `lda`, `ldb` multiples of 4 floats, i.e. 16 bytes,
-    and both base addresses 16-byte `aligned`); 'ffma', the full-fp32 FFMA
-    kernel, otherwise.  C has no constraint (the epilogue stores floats
-    one by one).  Raises ValueError on an unknown `prec`."""
+def k1_variant(lda: int, ldb: int, prec: str, *, aligned: bool = True,
+               dtype: torch.dtype = torch.float32) -> str:
+    """The K1 variant a CUDA launch runs.  bf16 operands (`dtype`) run
+    'bf16' and int8 operands 's8', whatever their layout (those kernels
+    mask their loads).  fp32 operands run 'tf32x3' for 'highest'/'high',
+    'tf32' for 'default', when TMA can describe both (storage leading
+    dimensions `lda`, `ldb` multiples of 4 floats, i.e. 16 bytes, and both
+    base addresses 16-byte `aligned`); 'ffma', the full-fp32 FFMA kernel,
+    otherwise.  C has no constraint (the epilogue stores floats one by
+    one).  Raises ValueError on an unknown `prec`."""
     passes = _passes(prec)
+    if dtype in _LOWP:
+        return _LOWP[dtype][0]
     if not aligned or lda % 4 or ldb % 4:
         return "ffma"
     return "tf32x3" if passes == 3 else "tf32"
@@ -90,10 +104,30 @@ def accum_matmul_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                      alpha: float, *, a_km: bool, b_nk: bool,
                      c_nm: bool) -> torch.Tensor:
     """Plain PyTorch version of K1 at every precision: c += alpha *
-    op(a) @ op(b) in c's storage layout, in place; returns c."""
+    op(a) @ op(b) in c's storage layout, in place; returns c.  bf16
+    operands are promoted to fp32 first (their products are exact there);
+    int8 operands take `accum_matmul_s8_ref`."""
     _logical_dims(c, a, b, a_km, b_nk, c_nm)
+    if a.dtype == torch.int8:
+        return accum_matmul_s8_ref(c, a, b, alpha, a_km=a_km, b_nk=b_nk,
+                                   c_nm=c_nm)
+    a, b = a.to(torch.float32), b.to(torch.float32)
     out = (a.T if a_km else a) @ (b.T if b_nk else b)
     return c.add_(out.T if c_nm else out, alpha=float(alpha))
+
+
+def accum_matmul_s8_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                        scale: float, *, a_km: bool, b_nk: bool,
+                        c_nm: bool) -> torch.Tensor:
+    """Plain version of the 's8' variant, bit for bit: the int8 product
+    summed exactly (in float64, whose 53 bits hold any such sum up to
+    K1_S8_MAX_K), to int64, to fp32, then c += (that * scale), the multiply
+    and the add each rounded in fp32 (bof_tpu's accum_step_q)."""
+    _logical_dims(c, a, b, a_km, b_nk, c_nm)
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    out = ((a.T if a_km else a) @ (b.T if b_nk else b)).to(torch.int64)
+    out = out.to(torch.float32) * float(scale)
+    return c.add_(out.T if c_nm else out)
 
 
 def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
@@ -116,18 +150,24 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                  c_nm: bool, prec: str = "highest") -> torch.Tensor:
     """c += alpha * op(a) @ op(b), in place, all in storage-major layout:
     a is (M,K) or (K,M) with a_km; b is (K,N) or (N,K) with b_nk; c is
-    (M,N) or (N,M) with c_nm.  fp32, contiguous, one device.  CUDA tensors
-    launch the K1 variant `k1_variant` names on the current stream; CPU
-    tensors take the plain version, full fp32 at every `prec`."""
+    (M,N) or (N,M) with c_nm.  c fp32; a and b both fp32, both bf16 or both
+    int8 (then alpha is bof_tpu's scale alpha * s_a * s_b and K at most
+    K1_S8_MAX_K); contiguous, one device.  CUDA tensors launch the K1
+    variant `k1_variant` names on the current stream; CPU tensors take the
+    plain version, full fp32 at every `prec`."""
     m, n, k = _logical_dims(c, a, b, a_km, b_nk, c_nm)
     passes = _passes(prec)
     devs = {c.device, a.device, b.device}
     if len(devs) != 1:
         raise ValueError(f"accum_matmul operands on several devices: {devs}")
-    if c.dtype != torch.float32 or a.dtype != torch.float32 \
-            or b.dtype != torch.float32:
-        raise TypeError(f"accum_matmul is fp32 only (c {c.dtype}, "
-                        f"a {a.dtype}, b {b.dtype})")
+    if c.dtype != torch.float32 or a.dtype != b.dtype or a.dtype not in (
+            torch.float32, torch.bfloat16, torch.int8):
+        raise TypeError(f"accum_matmul takes fp32 C and fp32, bf16 or int8 "
+                        f"A and B of one type (c {c.dtype}, a {a.dtype}, "
+                        f"b {b.dtype})")
+    if a.dtype == torch.int8 and k > K1_S8_MAX_K:
+        raise ValueError(f"int8 accum_matmul with k={k} > {K1_S8_MAX_K}: "
+                         "the int32 sum could overflow")
     if not (c.is_contiguous() and a.is_contiguous() and b.is_contiguous()):
         raise ValueError("accum_matmul needs contiguous tensors")
     dev = c.device
@@ -140,11 +180,17 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return c  # nothing to add; the C entries would launch nothing
     lda, ldb = a.shape[1], b.shape[1]
     variant = k1_variant(lda, ldb, prec, aligned=(
-        a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0))
+        a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0), dtype=a.dtype)
     lib = build()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if variant == "ffma":
+        if a.dtype in _LOWP:
+            entry = "bof_accum_matmul_lowp"
+            rc = lib.bof_accum_matmul_lowp(
+                c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha), m, n,
+                k, int(a_km), int(b_nk), int(c_nm), lda, ldb, c.shape[1],
+                _LOWP[a.dtype][1], stream)
+        elif variant == "ffma":
             entry = "bof_accum_matmul_f32"
             rc = lib.bof_accum_matmul_f32(
                 c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha), m, n,

@@ -6,7 +6,9 @@ reference keeps x/y in memory, only A streams), row blocks are
 nnz-budgeted, and each 'N' block is cut into count-sorted ELL bands, each
 one launch of the ELL SpMV kernel (sparse/spmm_cuda.py:spmv_ell) against
 x uploaded once, writing its rows of the block's device y in place; y
-comes down once per block.  'T' is a scatter over columns, so it accumulates on the
+comes down once per block.  The bands' values cross the link as
+FlashConfig.transfer_dtype says, as in bof_tpu: fp32, bf16, or int8 with
+one fp32 scale an ELL row (fp32 storage only).  'T' is a scatter over columns, so it accumulates on the
 HOST, as in bof_tpu and in the reference's mutex-guarded OpenMP
 accumulation (csrgemv_task.h:169-176): one scipy CSC matvec per block
 summed into a float64 y.  fp64 values take exact per-block scipy products
@@ -86,7 +88,8 @@ def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
                 METRICS.add("csrgemv.compute_s", time.perf_counter() - t0)
             return y
         device = dev.resolve_device(cfg.device)
-        sdev.ell_val_dtype(vdt, cfg)  # the A6 transfer modes raise here
+        ell_vdt = sdev.ell_val_dtype(vdt, cfg)
+        v_quant = sdev.ell_val_quantize(vdt, cfg)
         y = np.empty(m, dtype=vdt)
         t0 = time.perf_counter()
         x_dev = dev.to_device(x, device)
@@ -110,7 +113,10 @@ def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
                 ja_ell, va_ell = sdev.to_ell_rows(blk_ia, ja_blk, va_blk,
                                                   rows_sel,
                                                   idx_dtype=ell_idt,
+                                                  val_dtype=ell_vdt,
                                                   counts=counts)
+                if v_quant:  # int8 + one scale a row
+                    va_ell = sdev.quantize_ell_i8(va_ell)
                 counts_sel = counts[rows_sel].astype(np.int32)
                 rows_sel = rows_sel.astype(np.int32)
                 t1 = time.perf_counter()
@@ -118,11 +124,16 @@ def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
                 rows_d = dev.to_device(rows_sel, device)
                 counts_d = dev.to_device(counts_sel, device)
                 ja_d = dev.to_device(ja_ell, device)
-                va_d = dev.to_device(va_ell, device)
+                va_d, scale_d, va_bytes = sdev.upload_ell_vals(va_ell,
+                                                               device)
                 t2 = time.perf_counter()
                 METRICS.add("csrgemv.h2d_s", t2 - t1)
+                METRICS.add("csrgemv.h2d_bytes",
+                            ja_ell.nbytes + va_bytes + rows_sel.nbytes
+                            + counts_sel.nbytes)
                 sdev.spmv_ell_block(x_dev, ja_d, va_d, counts=counts_d,
-                                    rows=rows_d, out=y_blk)
+                                    rows=rows_d, out=y_blk,
+                                    va_scale=scale_d)
                 METRICS.add("csrgemv.dispatch_s", time.perf_counter() - t2)
             t0 = time.perf_counter()
             y[r:e] = dev.from_device(y_blk)

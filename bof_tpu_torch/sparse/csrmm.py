@@ -24,8 +24,12 @@ stream, so every launch follows its uploads and every download follows
 its launch, as in ops/gemm.py.  Transfers are synchronous pageable
 copies.
 
-Not ported yet, and refused with NotImplementedError: the bf16/int8 ELL
-value transfers and the bf16 C download (ROADMAP A6).
+Transfer modes, as in bof_tpu (FlashConfig): transfer_dtype 'bfloat16'
+uploads each band's values as bf16 and 'int8' as int8 with one fp32 scale
+an ELL row (fp32 storage only; K2 promotes them in registers);
+c_transfer_dtype='bfloat16' rounds the band products before alpha, as
+bof_tpu does: K2 runs with alpha 1, each downloaded piece is cast to bf16
+on the device and widened on the host, where the writer applies alpha.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import torch
 from ..context import get_context
 from ..core.flash_array import FlashArray
 from ..core.pipeline import PrefetchSeq
+from ..io.native import bf16_to_f32
 from ..ops import device as dev
 from ..utils import LOG, METRICS, Timer
 from . import spmm_device as sdev
@@ -164,11 +169,6 @@ def csrmm(a: CsrFlashMatrix, b: FlashArray, c: FlashArray,
     device = None
     if not host_compute:
         device = dev.resolve_device(cfg.device)
-        sdev.ell_val_dtype(vdt, cfg)  # the A6 transfer modes raise here
-        if cfg.c_transfer_dtype != "float32":
-            raise NotImplementedError(
-                f"c_transfer_dtype={cfg.c_transfer_dtype!r} is not ported "
-                "yet (ROADMAP A6: transfer modes)")
     from ..core.pipeline import TicketWindow
     for ri, (k0, k1) in enumerate(k_ranges):
         beta_eff = beta if ri == 0 else 1.0
@@ -246,27 +246,35 @@ def _upload_b_panel(b_host, b_order, k_sub, bc, k_r_pad, cb, device):
 PIECE_BYTES = 8 << 20  # the largest piece of a row block's download
 
 
-def _download_rows(buf, bc, sync_mode):
+def _download_rows(buf, bc, sync_mode, bf16=False):
     """A row block's device buffer (rows_b, cb) down to the host in one
-    pass of contiguous row pieces of at most PIECE_BYTES: yields (first
-    row, (rows, bc) array).  Pieces this small come from host memory the
-    allocator reuses, where one fresh multi-GiB array faults in every
-    page during the copy (S3's three 8 GiB blocks took 11.2 s of device
-    time as whole downloads on an H100 host; PERF.md §6)."""
+    pass of contiguous row pieces of at most PIECE_BYTES of it: yields
+    (first row, (rows, bc) fp32 array).  Pieces this small come from host
+    memory the allocator reuses, where one fresh multi-GiB array faults in
+    every page during the copy (S3's three 8 GiB blocks took 11.2 s of
+    device time as whole downloads on an H100 host; PERF.md §6).  With
+    `bf16` each piece is cast on the device (so the cast, too, needs no
+    more than a piece of device memory), downloaded at half the bytes and
+    widened exactly on the host."""
     if sync_mode:
         t0 = time.perf_counter()
         dev.sync(buf)  # wait for the block's K2s
         METRICS.add("csrmm.accum_wait_s", time.perf_counter() - t0)
     step = max(1, PIECE_BYTES // (buf.shape[1] * buf.element_size()))
     for p0 in range(0, buf.shape[0], step):
+        piece_dev = buf[p0:p0 + step]
+        if bf16:
+            piece_dev = dev.to_bf16(piece_dev)
         t0 = time.perf_counter()
-        piece = dev.from_device(buf[p0:p0 + step])
+        piece = dev.from_device(piece_dev)
         dt = time.perf_counter() - t0
         METRICS.add("csrmm.d2h_s", dt)
         METRICS.add("csrmm.d2h_bytes", piece.nbytes)
         if sync_mode:
             METRICS.observe("csrmm.d2h_tile_gbps",
                             piece.nbytes / max(dt, 1e-9) / 1e9)
+        if bf16:
+            piece = bf16_to_f32(piece)
         yield p0, piece[:, :bc]
 
 
@@ -284,6 +292,14 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
     b_tiled = getattr(b, "tile", None) is not None
     c_tiled = getattr(c, "tile", None) is not None
     sync_mode = cfg.telemetry_sync
+    # the transfer modes (bof_tpu's csrmm): bf16 or (int8, row scale) ELL
+    # values up, and a bf16 download of the band products before alpha.
+    # Under K-splitting each range's partial rounds before the beta=1
+    # accumulate, as in bof_tpu.
+    ell_vdt = sdev.ell_val_dtype(vdt, cfg)
+    v_quant = sdev.ell_val_quantize(vdt, cfg)
+    c_bf16 = (cfg.c_transfer_dtype == "bfloat16" and vdt == np.float32
+              and not host_compute)
     for c0 in range(0, n, cb):
         bc = min(cb, n - c0)
         # B column sub-panel, shaped (k_sub, cb); pad both dims
@@ -313,8 +329,8 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
         # prepper: disk tiles -> ELL prep (CPU)
         # uploader: H2D + K2 launches (device path only — prep of block
         #   b+1 overlaps the uploads of block b)
-        # writer: D2H of the row block (alpha applied on the device path)
-        #   -> beta -> async disk write
+        # writer: D2H of the row block (alpha applied on the device path,
+        #   but on the host after a bf16 download) -> beta -> async write
         out_q: queue.Queue = queue.Queue(maxsize=max(2, cfg.pipeline_depth))
         prep_q: queue.Queue = queue.Queue(maxsize=max(2, cfg.pipeline_depth))
         errors: list = []
@@ -382,7 +398,10 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                             rows_sel = order[s0:s1]
                             ja_ell, va_ell = sdev.to_ell_rows(
                                 blk_ia, blk_ja, blk_va, rows_sel,
-                                idx_dtype=ell_idt, counts=counts)
+                                idx_dtype=ell_idt, val_dtype=ell_vdt,
+                                counts=counts)
+                            if v_quant:  # int8 + one scale a row
+                                va_ell = sdev.quantize_ell_i8(va_ell)
                             bands.append((rows_sel.astype(np.int32),
                                           counts[rows_sel].astype(np.int32),
                                           ja_ell, va_ell))
@@ -423,21 +442,25 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                         rows_d = dev.to_device(rows_sel, device)
                         counts_d = dev.to_device(counts_sel, device)
                         ja_d = dev.to_device(ja_ell, device)
-                        va_d = dev.to_device(va_ell, device)
+                        va_d, scale_d, va_bytes = sdev.upload_ell_vals(
+                            va_ell, device)
+                        nbytes = (ja_ell.nbytes + va_bytes + rows_sel.nbytes
+                                  + counts_sel.nbytes)
                         if sync_mode:
                             # in-window sync: the rate sample is a
                             # transfer rate, not an enqueue time
                             dev.sync(va_d)
                             th2 = time.perf_counter()
-                            METRICS.observe(
-                                "csrmm.h2d_tile_gbps",
-                                (ja_ell.nbytes + va_ell.nbytes
-                                 + rows_sel.nbytes + counts_sel.nbytes)
-                                / max(th2 - th, 1e-9) / 1e9)
+                            METRICS.observe("csrmm.h2d_tile_gbps",
+                                            nbytes / max(th2 - th, 1e-9)
+                                            / 1e9)
                         METRICS.add("csrmm.h2d_s", time.perf_counter() - th)
+                        METRICS.add("csrmm.h2d_bytes", nbytes)
                         sdev.spmm_ell_block_dispatch(
                             b_panel, ja_d, va_d, impl=impl, counts=counts_d,
-                            rows=rows_d, out=buf, alpha=alpha)
+                            rows=rows_d, out=buf,
+                            alpha=1.0 if c_bf16 else alpha,
+                            va_scale=scale_d)
                     METRICS.add("csrmm.dispatch_s",
                                 time.perf_counter() - t1)
                     ok = _put(out_q, (r, rows_b, buf))
@@ -453,8 +476,12 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                     pass
 
         def write_back(r0, blk):
-            """C[r0 : r0 + len(blk), c0 : c0 + bc] = blk + beta * C."""
+            """C[r0 : r0 + len(blk), c0 : c0 + bc] = blk + beta * C, and
+            blk * alpha first where it came down as bf16 (bof_tpu rounds
+            the band product, then scales it)."""
             nr = blk.shape[0]
+            if c_bf16:
+                blk *= alpha
             if beta != 0.0:
                 t0 = time.perf_counter()
                 blk += beta * c.read_block(r0, nr, c0, bc)
@@ -494,8 +521,10 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                         pieces = [(0, c_np)]
                     else:
                         # the row-block buffer the bands filled in place,
-                        # alpha applied by K2
-                        pieces = _download_rows(res, bc, sync_mode)
+                        # alpha applied by K2 (or by write_back after a
+                        # bf16 download)
+                        pieces = _download_rows(res, bc, sync_mode,
+                                                bf16=c_bf16)
                     del res
                     if c.order == "R" and not c_tiled:
                         for p0, piece in pieces:  # to disk as they come

@@ -11,13 +11,17 @@ band's row selection, so each band writes its rows of the row-block
 output in place.
 
 The host prep is bof_tpu's, unchanged, so both packages form the same
-bands from the same offsets.  Not ported yet: the bf16/int8 value
-transfer modes (ROADMAP A6), which raise NotImplementedError.
+bands from the same offsets, and so are its transfer modes' values
+(FlashConfig.transfer_dtype on fp32 storage): bf16 values (carried as
+their np.uint16 bits, io/native.py) or int8 values with one fp32 scale an
+ELL row, which the kernels promote in registers.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..io.native import cast_bf16_numpy
+from ..ops import device as dev
 from .spmm_cuda import spmm_ell, spmv_ell
 
 _IMPLS = ("xla", "pallas", "auto")
@@ -25,7 +29,7 @@ _IMPLS = ("xla", "pallas", "auto")
 
 def spmm_ell_block(b_panel, ja_ell, va_ell, **where):
     """(rows, cb) = sum_s va_ell[row, s] * B[ja_ell[row, s]] (K2); `where`
-    takes spmm_cuda's counts / rows / out / alpha."""
+    takes spmm_cuda's counts / rows / out / alpha / va_scale."""
     return spmm_ell(b_panel, ja_ell, va_ell, **where)
 
 
@@ -44,6 +48,20 @@ def spmv_ell_block(x, ja_ell, va_ell, **where):
     """y_blk[row] = sum_s va_ell[row, s] * x[ja_ell[row, s]] (csrgemv 'N');
     `where` as for spmm_ell_block."""
     return spmv_ell(x, ja_ell, va_ell, **where)
+
+
+def upload_ell_vals(va_ell, device):
+    """One band's ELL values to the device: (values, row scales or None,
+    bytes uploaded).  va_ell is fp32 (or fp64) values, bf16 bits
+    (np.uint16, from `ell_val_dtype`), or the (int8 values, fp32 row
+    scales) pair of `quantize_ell_i8`."""
+    if isinstance(va_ell, tuple):
+        q, scale = va_ell
+        return (dev.to_device(q, device), dev.to_device(scale, device),
+                q.nbytes + scale.nbytes)
+    if va_ell.dtype == np.uint16:
+        return dev.to_device_bf16(va_ell, device), None, va_ell.nbytes
+    return dev.to_device(va_ell, device), None, va_ell.nbytes
 
 
 def expand_row_ids(ia_blk: np.ndarray) -> np.ndarray:
@@ -78,16 +96,41 @@ def ell_idx_dtype(k_panel: int, narrow: bool = True):
 
 
 def ell_val_dtype(storage_dtype, cfg):
-    """Link dtype for ELL values: the storage dtype.  bof_tpu's bf16 and
-    int8 value transfers (transfer_dtype 'bfloat16'/'int8' on fp32
-    storage; its `ell_val_dtype`/`ell_val_quantize`) are ROADMAP A6 and
-    raise; fp64 storage opts out of them, as in bof_tpu."""
-    mode = cfg.transfer_dtype
-    if np.dtype(storage_dtype) == np.float32 and mode != "float32":
-        raise NotImplementedError(
-            f"transfer_dtype={mode!r} for sparse ELL values is not ported "
-            "yet (ROADMAP A6: transfer modes)")
+    """Link dtype for ELL values (bof_tpu's `ell_val_dtype`).  With
+    transfer_dtype='bfloat16' (the opt-in that halves gemm's A/B tiles)
+    fp32 values are rounded to bf16 on the host, np.uint16 here (their
+    bits), and promoted back in the kernels, halving the va half of every
+    ELL upload.  fp64 storage opts out.  'int8' fills at float32 and
+    quantizes after the ELL build (`ell_val_quantize` +
+    `quantize_ell_i8`: the scales are per row, so they need the padded
+    layout first)."""
+    if (cfg.transfer_dtype == "bfloat16"
+            and np.dtype(storage_dtype) == np.float32):
+        return np.dtype(np.uint16)
     return np.dtype(storage_dtype)
+
+
+def ell_val_quantize(storage_dtype, cfg) -> bool:
+    """True when ELL values ship int8 (transfer_dtype='int8', fp32
+    storage), with one scale a ROW (bof_tpu's `ell_val_quantize`): a
+    block-wide max would crush small rows' values to zero on power-law
+    rows, a row's own max keeps every value within 1/254 of it.  fp64
+    opts out like bf16."""
+    return (cfg.transfer_dtype == "int8"
+            and np.dtype(storage_dtype) == np.float32)
+
+
+def quantize_ell_i8(va_ell: np.ndarray):
+    """(int8 values, f32 per-row scale) for a padded ELL value block,
+    bof_tpu's `quantize_ell_i8` line for line.  Padding entries are exact
+    zeros and stay exact; an all-zero row gets scale 1.0.  NaN-ignoring
+    row amax and a +/-127 clamp, a NaN quantized to 0."""
+    amax = np.fmax.reduce(np.abs(va_ell), axis=1, initial=0.0)
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        q = np.clip(np.rint(va_ell / scale[:, None]), -127, 127)
+        q = np.nan_to_num(q, nan=0.0).astype(np.int8)
+    return q, scale
 
 
 def _ell_fill(starts: np.ndarray, counts: np.ndarray,
@@ -112,10 +155,14 @@ def _ell_fill(starts: np.ndarray, counts: np.ndarray,
     idx = np.minimum(starts[:, None] + slots, max(len(ja_blk) - 1, 0))
     mask = slots < counts[:, None]
     ja_ell = np.zeros((rows_pad, rmax), idx_dtype)
-    va_ell = np.zeros((rows_pad, rmax), val_dtype or va_blk.dtype)
+    vd = np.dtype(val_dtype or va_blk.dtype)
+    va_ell = np.zeros((rows_pad, rmax), vd)
     if len(ja_blk):
         ja_ell[:rows] = np.where(mask, ja_blk[idx], 0).astype(idx_dtype)
-        va_ell[:rows] = np.where(mask, va_blk[idx], 0)
+        vals = np.where(mask, va_blk[idx], 0)
+        # bf16 bits from fp32 values: the engine's rounding
+        va_ell[:rows] = (cast_bf16_numpy(vals) if vd == np.uint16
+                         and va_blk.dtype == np.float32 else vals)
     return ja_ell, va_ell
 
 

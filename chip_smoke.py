@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive bof_tpu_torch's out-of-core SGEMM and sparse paths once on one
-CUDA card.
+"""Drive bof_tpu_torch's out-of-core SGEMM and sparse paths, in fp32 and
+in their link-compressed transfer modes, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,12 @@ Steps, each of which raises (exit code != 0) when it fails:
    1000x777x513 that TMA cannot describe, within 2e-4 * max|plain|.  At
    8192^3 R/N/N, the median of 5 CUDA-event times of each tier, the plain
    version, `addmm_` with TF32 off (the library yardstick) and on, and the
-   FFMA variant; ptxas must report no spills for the tensor-core kernel;
+   FFMA variant; ptxas must report no spills for the tensor-core kernel.
+   Then K1's transfer-mode variants on the 8 layouts at 8192^3 and
+   1000x776x516: 'bf16' (bf16 A/B) within 2e-4 * max|plain|, 's8' (int8
+   A/B, an exact int32 sum) bit-identical to its plain version; at 8192^3
+   R/N/N each one's time beside its plain version, the library call
+   (torch.mm with an fp32 output; torch._int_mm) and the bound;
 4. kernel K2 (`spmm_ell`) and the ELL SpMV (`spmv_ell`) against their
    plain versions through the contract csrmm and csrgemv use: each
    row's real slot count (`counts`; about one row in 16 empty, padding
@@ -33,7 +38,10 @@ Steps, each of which raises (exit code != 0) when it fails:
    rows 16384, rmax 256, k 131072.  Tolerance on the named rows
    max|kernel - plain| <= 2e-4 * max|plain| + 1e-5 * sqrt(rmax) *
    max|va| * max|B| * |alpha|; every other row must keep the sentinel.
-   The SpMV runs 8 such bands, each checked.  At (a), and over the 8
+   The SpMV runs 8 such bands, each checked.  K2 at band (a) and the
+   SpMV over the 8 bands again on bf16 values and on int8 values with one
+   fp32 scale a row (the transfer modes' values), the same way.  At (a),
+   and over the 8
    SpMV bands in turn (their ja/va outgrow L2; csrgemv uploads each band
    afresh), the median of 5 samples of back-to-back calls of the kernel
    as csrmm (csrgemv) calls it, of the plain version, and of the same
@@ -55,6 +63,17 @@ Steps, each of which raises (exit code != 0) when it fails:
    262144 x 999 column-major, alpha 0.5, beta 2 on a seeded C;
 8. S5, csrgemv 'N' (the SpMV kernel) and 'T' (host) on S3's A through
    `bof_tpu_torch.drivers.csrgemv.main`;
+8b. the transfer modes, set on the drivers' FlashConfig as bof_tpu's
+   bench sets them, each on the files of the fp32 call before it: S6,
+   S1's gemm with int8 A/B and a bf16 C download; S7, S2's gemm with bf16
+   A/B; S8, S3's csrmm with int8 values and a bf16 C download; S4b, S4's
+   csrmm with bf16 values; S9, S5's csrgemv 'N' with bf16 and with int8
+   values.  Each must launch only its mode's variant, stay inside
+   bof_tpu's band against float64 (max|C - C64| / max|C64| below 2e-2
+   for bf16 inputs, 5e-2 for int8, 1e-2 for a bf16 C alone) and above
+   1e-6 (it really rounded), and move fewer bytes: gemm's A/B tiles 1/2
+   or 1/4 of the fp32 run's `gemm.h2d_bytes`, C's download half its
+   `*.d2h_bytes`, csrmm's ELL uploads fewer;
 9. after each call, 16 sampled rows and 16 sampled columns of C (the
    whole y for csrgemv) against float64 numpy/scipy with rtol 2e-4 and
    atol 1e-5 * sqrt(inner length) * max|A| * max|B| * |alpha|; each
@@ -75,13 +94,15 @@ With BOF_SMOKE_PROFILE=1 the S1, S2 and S3 calls run under torch.profiler
 and the device time by kernel (and a launch, for K1, K2 and the SpMV) and
 the device's busy share are printed.
 
-The line before the last is the kernel summary as JSON (each kernel's
-time, plain and library times, and its bound: the larger of its bytes over
-3.35 TB/s and its operations over the peak rate of their type); the last
-line is {"ok": true, "device": {...}}.
+The line before the last is the kernel summary as JSON, one entry a
+kernel variant the main paths launched (each one's time, plain and
+library times, its bound: the larger of its bytes over 3.35 TB/s and its
+operations over the peak rate of their type, and its launches in the main
+paths); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -134,6 +155,18 @@ def _median_ms(fn, reps: int = 5, inner: int = 1) -> float:
 HBM_BPS = 3.35e12      # H100 SXM device memory, bytes/s (data sheet)
 TF32_FLOPS = 495e12    # H100 SXM dense TF32 tensor cores, FLOP/s
 FP32_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores, FLOP/s
+BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
+INT8_OPS = 1979e12     # H100 SXM dense int8 tensor cores, OP/s
+# bof_tpu's bands against float64 for each transfer mode (tests/test_gemm.py
+# :112, :202, :135): max|C - C64| / max|C64| below the band (and above
+# FLOOR, so that the mode is seen to round)
+BANDS = {("bfloat16", "float32"): 2e-2, ("int8", "float32"): 5e-2,
+         ("float32", "bfloat16"): 1e-2, ("int8", "bfloat16"): 5e-2}
+FLOOR = 1e-6
+# K1's variant for each transfer_dtype at 'highest'; the ELL kernels' for
+# each value type
+K1_OF = {"float32": "tf32x3", "bfloat16": "bf16", "int8": "s8"}
+ELL_OF = {"float32": "f32", "bfloat16": "bf16", "int8": "s8"}
 
 
 def _bound(nbytes, flops, peak):
@@ -284,6 +317,109 @@ def kernel_phase(dev) -> dict:
             "bound_ms": bound, "bound_by": by, **timing}
 
 
+def _lowp_library(a, b, kind):
+    """One PyTorch call for the same product on the same operands, as the
+    yardstick: (fn, what it is).  bf16: torch.mm with an fp32 output;
+    int8: torch._int_mm (int32 out) on B stored (N, K), the K-major
+    layout K1 takes with b_nk and cuBLASLt's int8 kernels take directly
+    (with B row-major it takes a much slower path)."""
+    import torch
+    if kind == "bf16":
+        return (lambda: torch.mm(a, b, out_dtype=torch.float32),
+                "torch.mm(bf16, bf16, out_dtype=float32)")
+    b_nk = b.T.contiguous().T
+    return (lambda: torch._int_mm(a, b_nk),
+            "torch._int_mm(A, B stored (N, K))")
+
+
+def lowp_kernel_phase(dev) -> dict:
+    """K1's transfer-mode variants against their plain versions on the
+    card, every layout, at 8192^3 and a ragged 1000x776x516: 'bf16' within
+    2e-4 * max|plain| (exact products, another summation order), 's8' bit
+    for bit (an exact int32 sum, then the same two fp32 roundings); at
+    8192^3 R/N/N the median of 5 CUDA-event times of the kernel, its plain
+    version and the library call, and the bound."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from bof_tpu_torch.ops.matmul_cuda import (accum_matmul,
+                                               accum_matmul_ref, k1_variant)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    out = {}
+    for kind, dtype in (("bf16", torch.bfloat16), ("s8", torch.int8)):
+        worst, timing = 0.0, {}
+        # s8's alpha is gemm's scale alpha * s_a * s_b: max|x| / 127 each
+        alpha = 1.5 if kind == "bf16" else 1.5 * (4.5 / 127) ** 2
+        for m, n, k in ((8192, 8192, 8192), (1000, 776, 516)):
+            def operand(shape):
+                if kind == "s8":
+                    return torch.randint(-127, 128, shape, generator=gen,
+                                         device=dev, dtype=torch.int8)
+                return torch.randn(shape, generator=gen,
+                                   device=dev).to(torch.bfloat16)
+            a_log, b_log = operand((m, k)), operand((k, n))
+            c_log = torch.randn((m, n), generator=gen, device=dev)
+            for a_km, b_nk, c_nm in itertools.product((False, True),
+                                                      repeat=3):
+                a = a_log.T.contiguous() if a_km else a_log
+                b = b_log.T.contiguous() if b_nk else b_log
+                c0 = c_log.T.contiguous() if c_nm else c_log
+                flags = dict(a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+                if k1_variant(a.shape[1], b.shape[1], "highest",
+                              dtype=dtype) != kind:
+                    raise AssertionError(f"k1_variant did not choose {kind}")
+                before = accum_matmul.variant_launches[kind]
+                got = accum_matmul(c0.clone(), a, b, alpha, **flags)
+                want = accum_matmul_ref(c0.clone(), a, b, alpha, **flags)
+                torch.cuda.synchronize()
+                if accum_matmul.variant_launches[kind] != before + 1:
+                    raise AssertionError(f"the {kind} count did not move")
+                label = (f"{kind} {m}x{n}x{k} a_km={int(a_km)} "
+                         f"b_nk={int(b_nk)} c_nm={int(c_nm)}")
+                if kind == "s8":
+                    err = float((got - want).abs().max())
+                    same = bool(torch.equal(got, want))
+                    print(f"K1 {label}: bit-identical to the plain version "
+                          f"{same} (max|kernel-plain| {err:.6g}) "
+                          f"{'ok' if same else 'FAIL'}", flush=True)
+                    if not same:
+                        raise AssertionError(f"K1 {label} is not bit-"
+                                             "identical to its plain version")
+                else:
+                    err = _k1_check(label, got, want,
+                                    RTOL * float(want.abs().max()),
+                                    f"{RTOL}*max|plain|")
+                worst = max(worst, err)
+                del got, want
+                if m == 8192 and not (a_km or b_nk or c_nm):
+                    c_t = c0.clone()
+                    timing["ms"] = _median_ms(lambda: accum_matmul(
+                        c_t, a, b, alpha, **flags))
+                    timing["plain_ms"] = _median_ms(lambda: accum_matmul_ref(
+                        c_t, a, b, alpha, **flags))
+                    lib, what = _lowp_library(a, b, kind)
+                    timing["library_ms"] = _median_ms(lib)
+                    timing["library"] = what
+                    del c_t, lib
+            del a_log, b_log, c_log, a, b, c0
+            torch.cuda.empty_cache()
+        n3 = 8192 ** 2
+        elem = 2 if kind == "bf16" else 1
+        bound, by = _bound(2 * n3 * elem + 2 * n3 * 4, 2.0 * 8192 ** 3,
+                           BF16_FLOPS if kind == "bf16" else INT8_OPS)
+        print(f"K1 {kind} 8192^3 canonical, median of 5 CUDA-event times: "
+              f"kernel {timing['ms']:.3f} ms, plain {timing['plain_ms']:.3f} "
+              f"ms, library ({timing['library']}) {timing['library_ms']:.3f} "
+              f"ms; bound {bound:.3f} ms ({by}), the kernel at "
+              f"{100 * bound / timing['ms']:.1f} % of it", flush=True)
+        out[f"accum_matmul[{kind}]"] = {"max_abs_err": worst,
+                                        "bound_ms": bound, "bound_by": by,
+                                        **timing}
+    return out
+
+
 def _write_operand(ctx, path, shape, order, rng):
     """Create `path` through the port's map_array and fill it with
     standard normals, one chunk of storage lines at a time; returns
@@ -352,22 +488,43 @@ def _write_operands(dev, scratch, specs, rng) -> list:
 
 
 def _reset_launch_counts():
-    from bof_tpu_torch.ops.matmul_cuda import reset_launch_counts
-    from bof_tpu_torch.sparse.spmm_cuda import spmm_ell, spmv_ell
-    reset_launch_counts()
-    spmm_ell.launches = spmv_ell.launches = 0
+    from bof_tpu_torch.ops import matmul_cuda
+    from bof_tpu_torch.sparse import spmm_cuda
+    matmul_cuda.reset_launch_counts()
+    spmm_cuda.reset_launch_counts()
 
 
 def _launch_counts() -> dict:
-    """Every kernel's launch count, and K1's by variant as
-    'accum_matmul[<variant>]'."""
+    """Every kernel's launch count, and each one's by variant as
+    '<kernel>[<variant>]'."""
     from bof_tpu_torch.ops.matmul_cuda import accum_matmul
     from bof_tpu_torch.sparse.spmm_cuda import spmm_ell, spmv_ell
-    counts = {"accum_matmul": accum_matmul.launches,
-              "spmm_ell": spmm_ell.launches, "spmv_ell": spmv_ell.launches}
-    counts.update((f"accum_matmul[{v}]", n)
-                  for v, n in accum_matmul.variant_launches.items())
+    counts = {}
+    for name, fn in (("accum_matmul", accum_matmul), ("spmm_ell", spmm_ell),
+                     ("spmv_ell", spmv_ell)):
+        counts[name] = fn.launches
+        counts.update((f"{name}[{v}]", n)
+                      for v, n in fn.variant_launches.items())
     return counts
+
+
+@contextlib.contextmanager
+def _transfer_modes(driver, xfer, c_xfer):
+    """The driver's runs with FlashConfig.transfer_dtype and
+    c_transfer_dtype set on its context, as bof_tpu's bench sets them
+    (bench.py:2281-2282; the drivers have no flag for them)."""
+    make = driver.make_context
+
+    def with_modes(args):
+        ctx = make(args)
+        ctx.config.transfer_dtype = xfer
+        ctx.config.c_transfer_dtype = c_xfer
+        return ctx
+    driver.make_context = with_modes
+    try:
+        yield
+    finally:
+        driver.make_context = make
 
 
 def _drive(dev, fn, argv, profile=False):
@@ -413,7 +570,8 @@ def _profiled(fn, argv) -> float:
     for us, count, key in rows[:8]:
         print(f"[profile] {us / 1e6:9.3f} s  {count:6d}x  {key[:90]}",
               flush=True)
-    for name in ("accum_tf32_kernel", "spmm_ell_kernel", "spmv_ell_kernel"):
+    for name in ("accum_tf32_kernel", "accum_lowp_kernel", "spmm_ell_kernel",
+                 "spmv_ell_kernel"):
         hits = [(us, count) for us, count, key in rows if name in key]
         if hits:
             us = sum(h[0] for h in hits)
@@ -444,6 +602,25 @@ def _verify(label, pairs, atol, atol_desc) -> float:
     return max_err
 
 
+def _verify_band(label, pairs, band) -> float:
+    """A transfer mode's run against float64: max|got - want| over
+    max|want| (all pairs) inside bof_tpu's band and above FLOOR (the mode
+    really rounded); returns that relative error."""
+    import numpy as np
+    for got, _ in pairs:
+        if not np.isfinite(got).all():
+            raise AssertionError(f"[{label}] non-finite values in the output")
+    err = max(float(np.abs(got - want).max()) for got, want in pairs)
+    rel = err / max(float(np.abs(want).max()) for _, want in pairs)
+    ok = FLOOR < rel < band
+    print(f"[{label}] max|C - C64| / max|C64| {rel:.6g} (bof_tpu's band "
+          f"{band}; above {FLOOR}: the inputs or C really rounded) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"[{label}] outside the transfer mode's band")
+    return rel
+
+
 def _check_launches(label, launches, want):
     """Each kernel ran exactly as often as the planner says (0 for the
     kernels this path does not use)."""
@@ -461,16 +638,22 @@ def _stages(label, snap, prefix, keys):
         flush=True)
 
 
-def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta) -> dict:
+def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta,
+               modes) -> list:
+    """One gemm shape through the driver, once for each (label,
+    transfer_dtype, c_transfer_dtype) of `modes` on the same A and B
+    files and the same starting C, the first in fp32.  Returns each run's
+    launches."""
     import numpy as np
     import bof_tpu_torch as bt
     from bof_tpu_torch.drivers import gemm as gemm_driver
     from bof_tpu_torch.utils import cdiv
 
-    label = f"gemm {m}x{n}x{k} order={order} ta={ta} tb={tb} " \
+    shape = f"gemm {m}x{n}x{k} order={order} ta={ta} tb={tb} " \
             f"alpha={alpha} beta={beta}"
     rng = np.random.default_rng([SEED, m, n, k])
     paths = {x: os.path.join(scratch, f"{x}_{m}_{n}_{k}.bin") for x in "ABC"}
+    c0_path = paths["C"] + ".0"
     a_shape = (k, m) if ta == "T" else (m, k)
     b_shape = (n, k) if tb == "T" else (k, n)
     t0 = time.perf_counter()
@@ -486,50 +669,85 @@ def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta) -> dict:
         c0_rows = np.asarray(c0[rows, :], np.float64)
         c0_cols = np.asarray(c0[:, cols], np.float64)
         del c0
-    print(f"[{label}] operands written in {time.perf_counter() - t0:.1f} s",
+        shutil.copyfile(paths["C"], c0_path)  # each mode starts from C0
+    print(f"[{shape}] operands written in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    argv = [paths["A"], paths["B"], paths["C"], str(m), str(n), str(k),
-            "--order", order, "--ta", ta, "--tb", tb,
-            "--alpha", repr(alpha), "--beta", repr(beta), "--o-direct",
-            "--io-backend", "native", "--device", str(dev),
-            "--scratch", scratch]
-    if beta == 0.0:
-        argv.append("--create-c")
-    wall, launches, stages, peak = _drive(
-        dev, gemm_driver.main, argv,
-        profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
     blk = bt.FlashConfig().gemm_blk_size
-    steps = cdiv(m, blk) * cdiv(n, blk) * cdiv(k, blk)
-    # every step on the tensor cores: the superblocks are zero-padded to blk
-    _check_launches(label, launches, {"accum_matmul": steps,
-                                      "accum_matmul[tf32x3]": steps})
-    flop = 2.0 * m * n * k
-    print(f"[{label}] wall {wall:.3f} s, {flop / wall / 1e9:.1f} GFLOP/s, "
-          f"K1 launches {launches['accum_matmul']} (= mB*nB*kB, all "
-          f"tf32x3), peak "
-          f"device memory {peak / 2**30:.2f} GiB", flush=True)
-    _stages(label, stages, "gemm.",
-            ("disk_wait_s", "prep_s", "h2d_s", "c_read_s", "tile_wait_s",
-             "accum_wait_s", "d2h_s", "write_wait_s"))
-
-    op_a = _logical(paths["A"], a_shape, order)
-    op_b = _logical(paths["B"], b_shape, order)
-    op_a = op_a.T if ta == "T" else op_a
-    op_b = op_b.T if tb == "T" else op_b
-    want_rows, want_cols = _sampled_reference(op_a, op_b, rows, cols)
-    c_out = _logical(paths["C"], (m, n), order)
-    pairs = [(np.asarray(c_out[rows, :], np.float64),
-              alpha * want_rows + beta * c0_rows),
-             (np.asarray(c_out[:, cols], np.float64),
-              alpha * want_cols + beta * c0_cols)]
-    del op_a, op_b, c_out
-    _verify(label, pairs, ATOL_SCALE * np.sqrt(k) * a_max * b_max
-            * abs(alpha), f"{ATOL_SCALE}*sqrt(k)*max|A|*max|B|*|alpha|")
-    for p in paths.values():
+    mB, nB = cdiv(m, blk), cdiv(n, blk)
+    steps = mB * nB * cdiv(k, blk)
+    # the beta read of C uploads fp32 C blocks in every mode
+    c_up = mB * nB * blk * blk * 4 if beta != 0.0 else 0
+    runs, want, base = [], None, None
+    for tag, xfer, c_xfer in modes:
+        label = f"{tag} {shape} transfer={xfer} c_transfer={c_xfer}"
+        if beta != 0.0 and base is not None:
+            shutil.copyfile(c0_path, paths["C"])
+        argv = [paths["A"], paths["B"], paths["C"], str(m), str(n), str(k),
+                "--order", order, "--ta", ta, "--tb", tb,
+                "--alpha", repr(alpha), "--beta", repr(beta), "--o-direct",
+                "--io-backend", "native", "--device", str(dev),
+                "--scratch", scratch]
+        if beta == 0.0:
+            argv.append("--create-c")
+        with _transfer_modes(gemm_driver, xfer, c_xfer):
+            wall, launches, stages, peak = _drive(
+                dev, gemm_driver.main, argv,
+                profile=(bool(os.environ.get("BOF_SMOKE_PROFILE"))
+                         and base is None))
+        # every step on the mode's K1 variant: the superblocks are
+        # zero-padded to blk
+        variant = K1_OF[xfer]
+        _check_launches(label, launches, {
+            "accum_matmul": steps, f"accum_matmul[{variant}]": steps})
+        flop = 2.0 * m * n * k
+        h2d, d2h = stages["gemm.h2d_bytes"], stages["gemm.d2h_bytes"]
+        print(f"[{label}] wall {wall:.3f} s, {flop / wall / 1e9:.1f} GFLOP/s, "
+              f"K1 launches {launches['accum_matmul']} (= mB*nB*kB, all "
+              f"{variant}), peak device memory {peak / 2**30:.2f} GiB, h2d "
+              f"{h2d / 2**30:.3f} GiB, d2h {d2h / 2**30:.3f} GiB", flush=True)
+        _stages(label, stages, "gemm.",
+                ("disk_wait_s", "prep_s", "h2d_s", "c_read_s", "tile_wait_s",
+                 "accum_wait_s", "d2h_s", "write_wait_s"))
+        if base is None:
+            base = (h2d, d2h)
+        else:
+            # the A/B tiles' link bytes shrink with the element, C's with
+            # the bf16 download; the same tiles cross as in fp32
+            size = {"float32": 4, "bfloat16": 2, "int8": 1}[xfer]
+            want_h2d = (base[0] - c_up) * size // 4 + c_up
+            want_d2h = base[1] // (2 if c_xfer == "bfloat16" else 1)
+            if (h2d, d2h) != (want_h2d, want_d2h):
+                raise AssertionError(
+                    f"[{label}] link bytes h2d {h2d}, d2h {d2h}; expected "
+                    f"{want_h2d}, {want_d2h} from the fp32 run's {base}")
+            print(f"[{label}] link bytes: A/B tiles {size}/4 of the fp32 "
+                  f"run's, C {'1/2' if c_xfer == 'bfloat16' else 'all'} of "
+                  "its download: as expected", flush=True)
+        if want is None:
+            op_a = _logical(paths["A"], a_shape, order)
+            op_b = _logical(paths["B"], b_shape, order)
+            op_a = op_a.T if ta == "T" else op_a
+            op_b = op_b.T if tb == "T" else op_b
+            want_rows, want_cols = _sampled_reference(op_a, op_b, rows, cols)
+            want = (alpha * want_rows + beta * c0_rows,
+                    alpha * want_cols + beta * c0_cols)
+            del op_a, op_b
+        c_out = _logical(paths["C"], (m, n), order)
+        pairs = [(np.asarray(c_out[rows, :], np.float64), want[0]),
+                 (np.asarray(c_out[:, cols], np.float64), want[1])]
+        del c_out
+        if xfer == c_xfer == "float32":
+            _verify(label, pairs, ATOL_SCALE * np.sqrt(k) * a_max * b_max
+                    * abs(alpha),
+                    f"{ATOL_SCALE}*sqrt(k)*max|A|*max|B|*|alpha|")
+        else:
+            _verify_band(label, pairs, BANDS[(xfer, c_xfer)])
+        runs.append(launches)
+    for p in list(paths.values()) + [c0_path]:
         if os.path.exists(p):
             os.unlink(p)
-    return launches
+    return runs
 
 
 # ------------------------------------------------------------ sparse path
@@ -595,26 +813,48 @@ def _check_placed(label, got, want, untouched, idx, limit) -> float:
     return err
 
 
-def _ell_yardsticks(ja, va, counts, dense):
+def _ell_yardsticks(ja, va, counts, dense, va_scale=None):
     """The bound of an ELL product over `dense` (B, or x) and the same
-    band as a torch CSR matrix for the library call.  Bytes: the real
-    slots' ja and va once, counts and rows once, the rows of `dense` that
-    real slots reference once, the output once; operations: 2 per real
-    slot and column, on the fp32 cores."""
+    band as a torch CSR matrix (of the values promoted to fp32) for the
+    library call.  Bytes: the real slots' ja and va once (4, 2 or 1 bytes
+    a value), counts and rows once (and int8's row scales), the rows of
+    `dense` that real slots reference once, the output once; operations:
+    2 per real slot and column, on the fp32 cores."""
     import torch
+    from bof_tpu_torch.sparse.spmm_cuda import promote_vals
     real = (torch.arange(ja.shape[1], device=ja.device)[None, :]
             < counts[:, None])
     width = dense.shape[1] if dense.dim() == 2 else 1
     nnz = int(real.sum())
     used = int(torch.unique(ja[real].to(torch.int64)).numel())
-    nbytes = (nnz * (ja.element_size() + 4) + ja.shape[0] * 8
+    nbytes = (nnz * (ja.element_size() + va.element_size())
+              + ja.shape[0] * (8 if va_scale is None else 12)
               + (used + ja.shape[0]) * width * 4)
     bound, by = _bound(nbytes, 2.0 * nnz * width, FP32_FLOPS)
     rows = torch.arange(ja.shape[0], device=va.device)[:, None].expand_as(ja)
     coo = torch.sparse_coo_tensor(
-        torch.stack([rows[real], ja[real].to(torch.int64)]), va[real],
-        size=(ja.shape[0], dense.shape[0]))
+        torch.stack([rows[real], ja[real].to(torch.int64)]),
+        promote_vals(va, va_scale)[real], size=(ja.shape[0], dense.shape[0]))
     return bound, by, coo.coalesce().to_sparse_csr()  # sorted, summed
+
+
+def _lowp_values(va, kind):
+    """An ELL block's fp32 values (NaN in padding) in a transfer mode's
+    value type: (values, row scales or None, max|promoted real value|).
+    bf16 keeps the NaN padding; int8 quantizes each row as
+    quantize_ell_i8 does (NaN ignored by the row max, quantized 0)."""
+    import numpy as np
+    import torch
+    from bof_tpu_torch.sparse.spmm_cuda import promote_vals
+    from bof_tpu_torch.sparse.spmm_device import quantize_ell_i8
+    if kind == "bf16":
+        out, scale = va.to(torch.bfloat16), None
+    else:
+        q, sc = quantize_ell_i8(va.cpu().numpy())
+        out = torch.from_numpy(q).to(va.device)
+        scale = torch.from_numpy(sc).to(va.device)
+    vmax = float(promote_vals(out, scale).nan_to_num(0.0).abs().max())
+    return out, scale, vmax
 
 
 def _in_turn(fn, bands):
@@ -680,6 +920,50 @@ def ell_kernel_phase(dev) -> dict:
         torch.cuda.empty_cache()
     out["spmm_ell"]["max_abs_err"] = worst
 
+    # K2 on the transfer modes' values as csrmm calls it: band (a) (S8's
+    # int32 indices and float4 columns, timed) and band (b) (S4b's uint16
+    # indices and cb 999, the scalar column path)
+    for tag, rows, rmax, k, cb, idt in (
+            ("a", 512, 256, 131072, 4096, np.int32),
+            ("b", 24, 64, 65536, 999, np.uint16)):
+        ja, va32, counts, _ = _random_ell(rng, rows, rmax, k, idt, 0.5, dev)
+        b = torch.randn((k, cb), generator=gen, device=dev)
+        b_max = float(b.abs().max())
+        for kind in ("bf16", "s8"):
+            va, scale, va_max = _lowp_values(va32, kind)
+            idx, got, want, untouched = _placement(rng, rows, (cb,), dev)
+            where = dict(counts=counts, rows=idx, alpha=0.5, va_scale=scale)
+            before = spmm_ell.variant_launches[kind]
+            spmm_ell(b, ja, va, out=got, **where)
+            torch.cuda.synchronize()
+            if spmm_ell.variant_launches[kind] != before + 1:
+                raise AssertionError(f"the K2 {kind} count did not move")
+            spmm_ell_ref(b, ja, va, out=want, **where)
+            err = _check_placed(
+                f"K2 {kind} ({tag}) rows {rows} rmax {rmax} k {k} cb {cb} "
+                f"{np.dtype(idt).name} alpha 0.5", got, want, untouched, idx,
+                _ell_tolerance(want[idx.long()], rmax, va_max, b_max, 0.5))
+            entry = out.setdefault(f"spmm_ell[{kind}]", {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if tag == "a":
+                bound, by, csr = _ell_yardsticks(ja, va, counts, b, scale)
+                ms = _median_ms(lambda: spmm_ell(b, ja, va, out=got,
+                                                 **where), inner=K2_INNER)
+                plain_ms = _median_ms(lambda: spmm_ell_ref(
+                    b, ja, va, out=want, **where))
+                library_ms = _median_ms(lambda: csr @ b, inner=K2_INNER)
+                print(f"K2 {kind} (a): kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, library (torch CSR of the "
+                      f"promoted values @ B) {library_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms ({by}; the kernel at "
+                      f"{100 * bound / ms:.1f} % of it)", flush=True)
+                entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bound, bound_by=by)
+                del csr
+            del got, want, va, scale
+        del b, ja, va32
+        torch.cuda.empty_cache()
+
     rows, rmax, k = 16384, 256, 131072
     x = torch.randn((k,), generator=gen, device=dev)
     x_max = float(x.abs().max())
@@ -720,6 +1004,49 @@ def ell_kernel_phase(dev) -> dict:
     out["spmv_ell"] = {"ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound,
                        "bound_by": by, "max_abs_err": worst}
+
+    # the SpMV on the transfer modes' values: the same 8 bands
+    for kind in ("bf16", "s8"):
+        lbands, bounds, worst = [], [], 0.0
+        for i, (ja, va32, counts, idx, got, _) in enumerate(bands):
+            va, scale, va_max = _lowp_values(va32, kind)
+            want = got.clone()
+            where = dict(counts=counts, rows=idx, va_scale=scale)
+            before = spmv_ell.variant_launches[kind]
+            spmv_ell(x, ja, va, out=got, **where)
+            torch.cuda.synchronize()
+            if spmv_ell.variant_launches[kind] != before + 1:
+                raise AssertionError(f"the SpMV {kind} count did not move")
+            spmv_ell_ref(x, ja, va, out=want, **where)
+            untouched = torch.from_numpy(np.setdiff1d(
+                np.arange(got.shape[0]), idx.cpu().numpy())).to(dev)
+            worst = max(worst, _check_placed(
+                f"SpMV {kind} band {i}", got, want, untouched, idx,
+                _ell_tolerance(want[idx.long()], rmax, va_max, x_max)))
+            bound, by, csr = _ell_yardsticks(ja, va, counts, x, scale)
+            bounds.append(bound)
+            lbands.append((ja, va, scale, counts, idx, got, csr))
+        ms = _median_ms(_in_turn(
+            lambda ja, va, scale, counts, idx, got, csr: spmv_ell(
+                x, ja, va, counts=counts, rows=idx, out=got, va_scale=scale),
+            lbands), inner=SPMV_INNER)
+        plain_ms = _median_ms(_in_turn(
+            lambda ja, va, scale, counts, idx, got, csr: spmv_ell_ref(
+                x, ja, va, counts=counts, rows=idx, out=got, va_scale=scale),
+            lbands), inner=SPMV_INNER)
+        library_ms = _median_ms(_in_turn(
+            lambda ja, va, scale, counts, idx, got, csr: csr @ x, lbands),
+            inner=SPMV_INNER)
+        bound = statistics.mean(bounds)
+        print(f"SpMV {kind}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library (torch CSR of the promoted values @ x) "
+              f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}; the kernel "
+              f"at {100 * bound / ms:.1f} % of it), over the same "
+              f"{SPMV_BANDS} bands in turn", flush=True)
+        out[f"spmv_ell[{kind}]"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": worst}
+        del lbands
     del bands
     torch.cuda.empty_cache()
     return out
@@ -767,11 +1094,12 @@ def _driver_args(dev, scratch):
 
 
 def _report_csrmm(label, wall, a_nnz, b_rows, c_rows, n, launches, stages,
-                  peak):
+                  peak, c_elem=4):
     """Print the call's throughput and stages; raise unless the writer
     took the device path's shape: no host assembly (the bands wrote their
-    rows in place, alpha applied by K2) and each row block and column
-    panel downloaded once (c_rows * cb * npanels floats in all)."""
+    rows in place) and each row block and column panel downloaded once
+    (c_rows * cb * npanels elements of c_elem bytes in all: 2 under the
+    bf16 C download)."""
     import importlib
     import bof_tpu_torch as bt
     from bof_tpu_torch.utils import cdiv
@@ -780,7 +1108,7 @@ def _report_csrmm(label, wall, a_nnz, b_rows, c_rows, n, launches, stages,
                              "host")
     cb = importlib.import_module("bof_tpu_torch.sparse.csrmm") \
         ._col_block_width(n, b_rows, bt.FlashConfig())
-    want_d2h = c_rows * cb * cdiv(n, cb) * 4
+    want_d2h = c_rows * cb * cdiv(n, cb) * c_elem
     if stages.get("csrmm.d2h_bytes") != want_d2h:
         raise AssertionError(f"[{label}] downloaded "
                              f"{stages.get('csrmm.d2h_bytes')} bytes, not "
@@ -789,7 +1117,8 @@ def _report_csrmm(label, wall, a_nnz, b_rows, c_rows, n, launches, stages,
     print(f"[{label}] wall {wall:.3f} s, {2.0 * a_nnz * n / wall / 1e9:.1f} "
           f"GFLOP/s, {gbytes / wall / 1e9:.2f} GB/s (the driver's bytes: "
           f"nnz*12 + (B + C)*4), K2 launches {launches['spmm_ell']} (= ELL "
-          f"bands), peak device memory {peak / 2**30:.2f} GiB", flush=True)
+          f"bands), peak device memory {peak / 2**30:.2f} GiB, ELL uploads "
+          f"{stages.get('csrmm.h2d_bytes', 0) / 2**30:.3f} GiB", flush=True)
     _stages(label, stages, "csrmm.",
             ("disk_wait_s", "prep_s", "h2d_s", "dispatch_s", "d2h_s",
              "c_read_s", "write_wait_s"))
@@ -809,72 +1138,103 @@ def _sample_cols(c_out, cols):
     return got
 
 
-def csrmm_fig6_phase(dev, scratch, prefix, a_sp, n=1 << 12) -> dict:
-    """S3: csrmm 'N' at the paper's Fig. 6 shape, s = 1e-3."""
+def csrmm_fig6_phase(dev, scratch, prefix, a_sp, modes, n=1 << 12) -> list:
+    """S3 (and S8): csrmm 'N' at the paper's Fig. 6 shape, s = 1e-3, once
+    for each (label, transfer_dtype, c_transfer_dtype) of `modes` on the
+    same B, the first in fp32.  Returns each run's launches."""
     import numpy as np
     from bof_tpu_torch.drivers import csrmm as csrmm_driver
     m, k = a_sp.shape
-    label = f"S3 csrmm N {m}x{k}x{n} nnz={a_sp.nnz}"
+    shape = f"csrmm N {m}x{k}x{n} nnz={a_sp.nnz}"
     rng = np.random.default_rng([SEED, 3])
     b_path = os.path.join(scratch, "B_fig6.bin")
     c_path = os.path.join(scratch, "C_fig6.bin")
     t0 = time.perf_counter()
     b_max, = _write_operands(dev, scratch, [(b_path, (k, n), "R")], rng)
-    print(f"[{label}] B written in {time.perf_counter() - t0:.1f} s",
+    print(f"[S3 {shape}] B written in {time.perf_counter() - t0:.1f} s",
           flush=True)
     t0 = time.perf_counter()
     want_bands = _csrmm_bands(a_sp.indptr, k, n)
-    print(f"[{label}] planner forms {want_bands} ELL bands (recomputed in "
-          f"{time.perf_counter() - t0:.1f} s)", flush=True)
-
-    argv = [prefix, str(m), str(k), b_path, str(n), c_path, "--create-c",
-            *_driver_args(dev, scratch)]
-    wall, launches, stages, peak = _drive(
-        dev, csrmm_driver.main, argv,
-        profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
-    _check_launches(label, launches, {"spmm_ell": want_bands})
-    _report_csrmm(label, wall, a_sp.nnz, k, m, n, launches, stages, peak)
-
-    t0 = time.perf_counter()
+    print(f"[S3 {shape}] planner forms {want_bands} ELL bands (recomputed "
+          f"in {time.perf_counter() - t0:.1f} s)", flush=True)
     rows = np.sort(rng.choice(m, N_SAMPLES, replace=False))
     cols = np.sort(rng.choice(n, N_SAMPLES, replace=False))
-    b = _logical(b_path, (k, n), "R")
-    sub = a_sp[rows]
-    used = np.unique(sub.indices)
-    want_rows = sub[:, used].astype(np.float64) @ np.asarray(b[used],
-                                                             np.float64)
-    want_cols = a_sp.astype(np.float64) @ np.asarray(b[:, cols], np.float64)
-    c_out = _logical(c_path, (m, n), "R")
-    pairs = [(np.asarray(c_out[rows], np.float64), want_rows),
-             (_sample_cols(c_out, cols), want_cols)]
-    del b, c_out
     row_max = int(np.diff(a_sp.indptr).max())
     atol = ATOL_SCALE * row_max ** 0.5 * float(np.abs(a_sp.data).max()) \
         * b_max
-    print(f"[{label}] reference computed in {time.perf_counter() - t0:.1f} "
-          "s", flush=True)
-    _verify(label, pairs, atol, "1e-5*sqrt(max nnz/row)*max|A|*max|B|")
+    runs, want, base_h2d = [], None, None
+    for tag, xfer, c_xfer in modes:
+        label = f"{tag} {shape} transfer={xfer} c_transfer={c_xfer}"
+        argv = [prefix, str(m), str(k), b_path, str(n), c_path,
+                "--create-c", *_driver_args(dev, scratch)]
+        with _transfer_modes(csrmm_driver, xfer, c_xfer):
+            wall, launches, stages, peak = _drive(
+                dev, csrmm_driver.main, argv,
+                profile=(bool(os.environ.get("BOF_SMOKE_PROFILE"))
+                         and base_h2d is None))
+        vkind = ELL_OF[xfer]
+        _check_launches(label, launches, {"spmm_ell": want_bands,
+                                          f"spmm_ell[{vkind}]": want_bands})
+        _report_csrmm(label, wall, a_sp.nnz, k, m, n, launches, stages, peak,
+                      c_elem=2 if c_xfer == "bfloat16" else 4)
+        h2d = stages["csrmm.h2d_bytes"]
+        if base_h2d is None:
+            base_h2d = h2d
+        elif not h2d < base_h2d:
+            raise AssertionError(f"[{label}] ELL uploads {h2d} bytes, not "
+                                 f"fewer than the fp32 run's {base_h2d}")
+        else:
+            print(f"[{label}] ELL uploads {h2d / base_h2d:.3f} of the fp32 "
+                  "run's bytes", flush=True)
+
+        if want is None:
+            t0 = time.perf_counter()
+            b = _logical(b_path, (k, n), "R")
+            sub_a = a_sp[rows]
+            used = np.unique(sub_a.indices)
+            want = (sub_a[:, used].astype(np.float64)
+                    @ np.asarray(b[used], np.float64),
+                    a_sp.astype(np.float64) @ np.asarray(b[:, cols],
+                                                         np.float64))
+            del b
+            print(f"[{label}] reference computed in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        c_out = _logical(c_path, (m, n), "R")
+        pairs = [(np.asarray(c_out[rows], np.float64), want[0]),
+                 (_sample_cols(c_out, cols), want[1])]
+        del c_out
+        if xfer == c_xfer == "float32":
+            _verify(label, pairs, atol,
+                    "1e-5*sqrt(max nnz/row)*max|A|*max|B|")
+        else:
+            _verify_band(label, pairs, BANDS[(xfer, c_xfer)])
+        runs.append(launches)
     for p in (b_path, c_path):
         os.unlink(p)
-    return launches
+    return runs
 
 
-def csrmm_trans_phase(dev, scratch, m=65536, k=262144, n=999,
-                      per_row=64.0) -> dict:
-    """S4: csrmm 'T' through csrcsc scratch and the 'N' recursion (uint16
-    indices, cb 999), alpha 0.5, beta 2 on a seeded column-major C."""
+def csrmm_trans_phase(dev, scratch, modes, m=65536, k=262144, n=999,
+                      per_row=64.0) -> list:
+    """S4 (and S4b): csrmm 'T' through csrcsc scratch and the 'N' recursion
+    (uint16 indices, cb 999), alpha 0.5, beta 2 on a seeded column-major
+    C, once for each (label, transfer_dtype, c_transfer_dtype) of `modes`
+    on the same files, each from the same starting C, the first in fp32.
+    Returns each run's launches."""
     import numpy as np
     from bof_tpu_torch.drivers import csrmm as csrmm_driver
     alpha, beta = 0.5, 2.0
     prefix = os.path.join(scratch, "A2")
     t0 = time.perf_counter()
     a_sp = _sparse_create(prefix, m, k, per_row, SEED + 4)
-    label = f"S4 csrmm T {m}x{k}x{n} nnz={a_sp.nnz} order C"
+    shape = f"csrmm T {m}x{k}x{n} nnz={a_sp.nnz} order C"
     rng = np.random.default_rng([SEED, 4])
     b_path = os.path.join(scratch, "B2.bin")
     c_path = os.path.join(scratch, "C2.bin")
+    c0_path = c_path + ".0"
     b_max, _ = _write_operands(dev, scratch, [(b_path, (m, n), "C"),
                                               (c_path, (k, n), "C")], rng)
+    shutil.copyfile(c_path, c0_path)
     at = a_sp.T.tocsr()
     want_bands = _csrmm_bands(at.indptr.astype(np.int64), m, n)
     rows = np.sort(rng.choice(k, N_SAMPLES, replace=False))
@@ -883,41 +1243,55 @@ def csrmm_trans_phase(dev, scratch, m=65536, k=262144, n=999,
     c0_rows = np.asarray(c0[rows], np.float64)
     c0_cols = np.asarray(c0[:, cols], np.float64)
     del c0
-    print(f"[{label}] operands written in {time.perf_counter() - t0:.1f} s; "
-          f"planner forms {want_bands} ELL bands", flush=True)
-
-    argv = [prefix, str(m), str(k), b_path, str(n), c_path, "--ta", "T",
-            "--order-b", "C", "--alpha", repr(alpha), "--beta", repr(beta),
-            *_driver_args(dev, scratch)]
-    wall, launches, stages, peak = _drive(dev, csrmm_driver.main, argv)
-    _check_launches(label, launches, {"spmm_ell": want_bands})
-    _report_csrmm(label, wall, a_sp.nnz, m, k, n, launches, stages, peak)
-
+    print(f"[S4 {shape}] operands written in {time.perf_counter() - t0:.1f} "
+          f"s; planner forms {want_bands} ELL bands", flush=True)
     b64 = np.asarray(_logical(b_path, (m, n), "C"), np.float64)
-    c_out = _logical(c_path, (k, n), "C")
-    pairs = [(np.asarray(c_out[rows], np.float64),
-              alpha * (at[rows] @ b64) + beta * c0_rows),
-             (np.asarray(c_out[:, cols], np.float64),
-              alpha * (at.astype(np.float64) @ b64[:, cols])
-              + beta * c0_cols)]
-    del c_out
+    want = (alpha * (at[rows] @ b64) + beta * c0_rows,
+            alpha * (at.astype(np.float64) @ b64[:, cols]) + beta * c0_cols)
+    del b64
     row_max = int(np.diff(at.indptr).max())
     atol = ATOL_SCALE * row_max ** 0.5 * float(np.abs(a_sp.data).max()) \
         * b_max * abs(alpha)
-    _verify(label, pairs, atol,
-            "1e-5*sqrt(max nnz/row of A^T)*max|A|*max|B|*|alpha|")
-    for p in (b_path, c_path) + tuple(prefix + x
-                                      for x in (".off", ".col", ".csr")):
+    runs = []
+    for i, (tag, xfer, c_xfer) in enumerate(modes):
+        label = f"{tag} {shape} transfer={xfer} c_transfer={c_xfer}"
+        if i:
+            shutil.copyfile(c0_path, c_path)
+        argv = [prefix, str(m), str(k), b_path, str(n), c_path, "--ta", "T",
+                "--order-b", "C", "--alpha", repr(alpha), "--beta",
+                repr(beta), *_driver_args(dev, scratch)]
+        with _transfer_modes(csrmm_driver, xfer, c_xfer):
+            wall, launches, stages, peak = _drive(dev, csrmm_driver.main,
+                                                  argv)
+        vkind = ELL_OF[xfer]
+        _check_launches(label, launches, {"spmm_ell": want_bands,
+                                          f"spmm_ell[{vkind}]": want_bands})
+        _report_csrmm(label, wall, a_sp.nnz, m, k, n, launches, stages, peak,
+                      c_elem=2 if c_xfer == "bfloat16" else 4)
+        c_out = _logical(c_path, (k, n), "C")
+        pairs = [(np.asarray(c_out[rows], np.float64), want[0]),
+                 (np.asarray(c_out[:, cols], np.float64), want[1])]
+        del c_out
+        if xfer == c_xfer == "float32":
+            _verify(label, pairs, atol,
+                    "1e-5*sqrt(max nnz/row of A^T)*max|A|*max|B|*|alpha|")
+        else:
+            _verify_band(label, pairs, BANDS[(xfer, c_xfer)])
+        runs.append(launches)
+    for p in (b_path, c_path, c0_path) + tuple(
+            prefix + x for x in (".off", ".col", ".csr")):
         os.unlink(p)
-    return launches
+    return runs
 
 
-def csrgemv_phase(dev, scratch, prefix, a_sp, trans) -> dict:
-    """S5: csrgemv on S3's A; the whole y against float64 scipy."""
+def csrgemv_phase(dev, scratch, prefix, a_sp, trans, tag="S5",
+                  xfer="float32") -> dict:
+    """S5 (and S9): csrgemv on S3's A, its values crossing the link as
+    `xfer` says; the whole y against float64 scipy."""
     import numpy as np
     from bof_tpu_torch.drivers import csrgemv as csrgemv_driver
     m, k = a_sp.shape
-    label = f"S5 csrgemv {trans} {m}x{k} nnz={a_sp.nnz}"
+    label = f"{tag} csrgemv {trans} {m}x{k} nnz={a_sp.nnz} transfer={xfer}"
     rng = np.random.default_rng([SEED, 5, trans == "T"])
     x = rng.standard_normal(m if trans == "T" else k, dtype=np.float32)
     x_path = os.path.join(scratch, "x.bin")
@@ -929,16 +1303,21 @@ def csrgemv_phase(dev, scratch, prefix, a_sp, trans) -> dict:
         want_bands = _bands(a_sp.indptr, 1 << 22, bt.FlashConfig().max_nnzs)
     argv = [prefix, str(m), str(k), x_path, y_path, "--trans", trans,
             *_driver_args(dev, scratch)]
-    wall, launches, stages, peak = _drive(dev, csrgemv_driver.main, argv)
+    with _transfer_modes(csrgemv_driver, xfer, "float32"):
+        wall, launches, stages, peak = _drive(dev, csrgemv_driver.main,
+                                              argv)
     if trans == "N":
-        _check_launches(label, launches, {"spmv_ell": want_bands})
+        _check_launches(label, launches, {
+            "spmv_ell": want_bands, f"spmv_ell[{ELL_OF[xfer]}]": want_bands})
     elif any(launches.values()):
         raise AssertionError(f"[{label}] 'T' runs on the host, but "
                              f"launched {launches}")
     print(f"[{label}] wall {wall:.3f} s, {2.0 * a_sp.nnz / wall / 1e9:.2f} "
           f"GFLOP/s, {a_sp.nnz * 12.0 / wall / 1e9:.2f} GB/s (the driver's "
           f"bytes: nnz*12), SpMV launches {launches['spmv_ell']}, peak "
-          f"device memory {peak / 2**30:.2f} GiB", flush=True)
+          f"device memory {peak / 2**30:.2f} GiB, ELL uploads "
+          f"{stages.get('csrgemv.h2d_bytes', 0) / 2**30:.3f} GiB",
+          flush=True)
     _stages(label, stages, "csrgemv.", ("disk_wait_s", "prep_s", "h2d_s",
                                         "dispatch_s", "d2h_s", "compute_s"))
     y = np.fromfile(y_path, np.float32).astype(np.float64)
@@ -947,8 +1326,11 @@ def csrgemv_phase(dev, scratch, prefix, a_sp, trans) -> dict:
     inner = int(np.diff(op.tocsr().indptr).max())
     atol = ATOL_SCALE * inner ** 0.5 * float(np.abs(a_sp.data).max()) \
         * float(np.abs(x).max())
-    _verify(label, [(y, want)], atol,
-            "1e-5*sqrt(max nnz/row of op(A))*max|A|*max|x|")
+    if xfer == "float32":
+        _verify(label, [(y, want)], atol,
+                "1e-5*sqrt(max nnz/row of op(A))*max|A|*max|x|")
+    else:
+        _verify_band(label, [(y, want)], BANDS[(xfer, "float32")])
     for p in (x_path, y_path):
         os.unlink(p)
     return launches
@@ -1006,7 +1388,8 @@ def main() -> int:
           f"{t2 - t1:.1f} s ({cuda_lib.BUILD_INFO['path']})")
     _ptxas_report(cuda_lib.BUILD_INFO.get("ptxas", ""))
 
-    summary = {"accum_matmul": kernel_phase(dev), **ell_kernel_phase(dev)}
+    summary = {"accum_matmul": kernel_phase(dev), **lowp_kernel_phase(dev),
+               **ell_kernel_phase(dev)}
 
     scratch = os.environ.get("BOF_SCRATCH") or os.path.join(
         HERE, "build", "chip_smoke")
@@ -1025,26 +1408,38 @@ def main() -> int:
                            "at a larger disk")
 
     # the main paths: each call zeroes every count just before it and
-    # reads them just after (_drive); the totals go to the summary
-    runs = [gemm_phase(dev, scratch, 32768, 32768, 32768, "R", "N", "N",
-                       1.0, 0.0),
-            gemm_phase(dev, scratch, 12288, 12288, 12288, "C", "T", "N",
-                       0.5, 2.0)]
+    # reads them just after (_drive); the totals go to the summary.  The
+    # transfer modes run on the operands of the fp32 call before them.
+    f32 = ("float32", "float32")
+    runs = gemm_phase(dev, scratch, 32768, 32768, 32768, "R", "N", "N",
+                      1.0, 0.0, (("S1", *f32), ("S6", "int8", "bfloat16")))
+    runs += gemm_phase(dev, scratch, 12288, 12288, 12288, "C", "T", "N",
+                       0.5, 2.0, (("S2", *f32),
+                                  ("S7", "bfloat16", "float32")))
     prefix = os.path.join(scratch, "A_fig6")
     t0 = time.perf_counter()
     a_sp = _sparse_create(prefix, 1 << 20, 1 << 17, 131.072, SEED + 3)
     print(f"[S3] A written by drivers.sparse_create in "
           f"{time.perf_counter() - t0:.1f} s: {a_sp.shape[0]}x{a_sp.shape[1]}"
           f", nnz {a_sp.nnz}", flush=True)
-    runs.append(csrmm_fig6_phase(dev, scratch, prefix, a_sp))
-    runs.append(csrmm_trans_phase(dev, scratch))
-    for trans in ("N", "T"):
-        runs.append(csrgemv_phase(dev, scratch, prefix, a_sp, trans))
+    runs += csrmm_fig6_phase(dev, scratch, prefix, a_sp,
+                             (("S3", *f32), ("S8", "int8", "bfloat16")))
+    runs += csrmm_trans_phase(dev, scratch,
+                              (("S4", *f32), ("S4b", "bfloat16", "float32")))
+    for tag, trans, xfer in (("S5", "N", "float32"), ("S5", "T", "float32"),
+                             ("S9", "N", "bfloat16"), ("S9", "N", "int8")):
+        runs.append(csrgemv_phase(dev, scratch, prefix, a_sp, trans, tag,
+                                  xfer))
     for ext in (".off", ".col", ".csr"):
         os.unlink(prefix + ext)
     del a_sp
+    # each entry counts its own variant's launches: the fp32 kernels as
+    # the fp32 calls ran them, the others as the transfer modes did
+    counted = {"accum_matmul": "accum_matmul[tf32x3]",
+               "spmm_ell": "spmm_ell[f32]", "spmv_ell": "spmv_ell[f32]"}
     for name in summary:
-        summary[name]["launches"] = sum(r[name] for r in runs)
+        summary[name]["launches"] = sum(r[counted.get(name, name)]
+                                        for r in runs)
         if summary[name]["launches"] == 0:
             raise AssertionError(f"the main paths never launched {name}")
     print(f"chip_smoke: all phases passed in "
@@ -1053,10 +1448,22 @@ def main() -> int:
     meta = {
         "accum_matmul": ("bof_tpu_torch/csrc/matmul_tf32.cu",
                          "bof_tpu/ops/matmul_pallas.py:65"),
+        "accum_matmul[bf16]": ("bof_tpu_torch/csrc/matmul_lowp.cu",
+                               "bof_tpu/ops/matmul_pallas.py:65"),
+        "accum_matmul[s8]": ("bof_tpu_torch/csrc/matmul_lowp.cu",
+                             "bof_tpu/ops/device.py:136"),
         "spmm_ell": ("bof_tpu_torch/csrc/spmm_ell.cu",
                      "bof_tpu/sparse/spmm_pallas.py:64"),
+        "spmm_ell[bf16]": ("bof_tpu_torch/csrc/spmm_ell.cu",
+                           "bof_tpu/sparse/spmm_pallas.py:64"),
+        "spmm_ell[s8]": ("bof_tpu_torch/csrc/spmm_ell.cu",
+                         "bof_tpu/sparse/spmm_device.py:22"),
         "spmv_ell": ("bof_tpu_torch/csrc/spmm_ell.cu",
                      "bof_tpu/sparse/spmm_device.py:89"),
+        "spmv_ell[bf16]": ("bof_tpu_torch/csrc/spmm_ell.cu",
+                           "bof_tpu/sparse/spmm_device.py:89"),
+        "spmv_ell[s8]": ("bof_tpu_torch/csrc/spmm_ell.cu",
+                         "bof_tpu/sparse/spmm_device.py:89"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -1,7 +1,8 @@
-"""bof_tpu_torch on a CUDA card: kernel K1 (its FFMA and tensor-core
-variants), K2 (ELL SpMM) and the ELL SpMV against their plain versions,
-and the out-of-core gemm, csrmm and csrgemv through them against the same
-calls on the CPU.
+"""bof_tpu_torch on a CUDA card: kernel K1 (its FFMA, tensor-core, bf16
+and s8 variants), K2 (ELL SpMM) and the ELL SpMV (on fp32, bf16 and int8
+values) against their plain versions, and the out-of-core gemm, csrmm and
+csrgemv through them, in every transfer mode, against the same calls on
+the CPU.
 
 These need the card (a CUDA kernel has no CPU mode): they carry the
 `cuda` marker and skip where torch.cuda.is_available() is False.  This
@@ -21,10 +22,12 @@ import pytest
 import torch
 
 import bof_tpu_torch
-from bof_tpu_torch.ops.matmul_cuda import (accum_matmul, accum_matmul_ref,
+from bof_tpu_torch.ops.matmul_cuda import (K1_VARIANTS, accum_matmul,
+                                           accum_matmul_ref,
                                            accum_matmul_tf32_ref, k1_variant,
                                            tf32_truncate)
-from bof_tpu_torch.sparse.spmm_cuda import (spmm_ell, spmm_ell_ref, spmv_ell,
+from bof_tpu_torch.sparse.spmm_cuda import (promote_vals, spmm_ell,
+                                            spmm_ell_ref, spmv_ell,
                                             spmv_ell_ref)
 
 pytestmark = pytest.mark.cuda
@@ -134,7 +137,56 @@ def test_variant_launch_counters(cuda_device):
     torch.cuda.synchronize()
     assert accum_matmul.launches == before[0] + 3
     assert {v: accum_matmul.variant_launches[v] - before[1][v]
-            for v in before[1]} == {"tf32x3": 1, "tf32": 1, "ffma": 1}
+            for v in before[1]} == {"tf32x3": 1, "tf32": 1, "ffma": 1,
+                                    "bf16": 0, "s8": 0}
+    assert tuple(before[1]) == K1_VARIANTS
+
+
+def _lowp_operands(rng, m, n, k, a_km, b_nk, c_nm, dtype, device):
+    """Storage-major bf16 (rounded from normals) or int8 (uniform in
+    [-127, 127]) A and B, and an fp32 C."""
+    def op(shape, t):
+        if dtype == torch.int8:
+            x = rng.integers(-127, 128, shape).astype(np.int8)
+            x = torch.from_numpy(x)
+        else:
+            x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                 ).to(torch.bfloat16)
+        return (x.T.contiguous() if t else x).to(device)
+    c = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32))
+    return (op((m, k), a_km), op((k, n), b_nk),
+            (c.T.contiguous() if c_nm else c).to(device))
+
+
+@pytest.mark.parametrize("shape", [(300, 211, 147), (1000, 776, 516),
+                                   (129, 5, 1027)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
+def test_lowp_variant_matches_plain(cuda_device, shape, dtype, a_km, b_nk,
+                                    c_nm):
+    """K1 'bf16' and 's8' on every layout, at ragged shapes whose leading
+    dimensions are not multiples of 16 bytes (masked loads) and at one
+    whose are: 'bf16' within the fp32 tolerance of the plain version
+    (exact products, another summation order), 's8' bit for bit (an exact
+    int32 sum, then the same two fp32 roundings)."""
+    rng = np.random.default_rng(sum(shape) + a_km + 2 * b_nk + 4 * c_nm)
+    m, n, k = shape
+    a, b, got = _lowp_operands(rng, m, n, k, a_km, b_nk, c_nm, dtype,
+                               cuda_device)
+    alpha = 1.5 if dtype == torch.bfloat16 else 3.0517578125e-05 * 1.37
+    flags = dict(a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+    variant = k1_variant(a.shape[1], b.shape[1], "highest", dtype=dtype)
+    assert variant == ("bf16" if dtype == torch.bfloat16 else "s8")
+    want = accum_matmul_ref(got.clone(), a, b, alpha, **flags)
+    before = accum_matmul.variant_launches[variant]
+    accum_matmul(got, a, b, alpha, **flags)
+    torch.cuda.synchronize()
+    assert accum_matmul.variant_launches[variant] == before + 1
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        err = float((got - want).abs().max())
+        assert err <= 2e-4 * float(want.abs().max()), err
 
 
 @pytest.mark.parametrize("order,ta,tb", [("R", "N", "N"), ("C", "T", "N")])
@@ -297,6 +349,20 @@ def test_csrgemv_on_card_matches_cpu(cuda_device, tmp_path):
                                atol=1e-4)
 
 
+def _lowp_values(va, vdt):
+    """va (fp32, NaN in padding) in the transfer modes' value types:
+    (va, None) for fp32, bf16 (NaN kept), or int8 with its row scales
+    (padding 0: the kernel must not read it either way)."""
+    if vdt == "f32":
+        return va, None
+    if vdt == "bf16":
+        return va.to(torch.bfloat16), None
+    fin = va.nan_to_num()
+    scale = (fin.abs().amax(1) / 127).clamp_min(1e-30)
+    q = torch.round(fin / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.contiguous()
+
+
 def _placed_ell(rng, rows, rmax, k, idt, device, mega=0):
     """An ELL band under the kernels' contract: counts with empty rows
     (and `mega` rows at the full rmax), padding slots past each count
@@ -379,3 +445,169 @@ def test_spmv_ell_contract_kernel_matches_plain(cuda_device, alpha, idt,
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-4, atol=1e-4)
     assert bool(torch.all(got[untouched] == -7.25))
+
+
+@pytest.mark.parametrize("vdt", ["bf16", "s8"])
+@pytest.mark.parametrize("idt,rows,rmax,k,cb,mega", [
+    (np.int32, 40, 24, 5000, 37, 0),
+    (np.uint16, 40, 24, 5000, 512, 0),
+    (np.uint16, 24, 64, 65536, 999, 0),
+    (np.int32, 512, 256, 4096, 256, 0),
+    (np.int32, 3, 3000, 700, 64, 2)])
+def test_spmm_ell_lowp_values_match_plain(cuda_device, vdt, idt, rows, rmax,
+                                          k, cb, mega):
+    """K2 on bf16 and on (int8, row scale) values through the contract
+    (counts, permuted rows into a sentinel-filled out, alpha 0.5); cb 37
+    and 999 take the scalar column path, uint16 with cb 999 and k 65536
+    as csrmm 'T' through csrcsc calls it."""
+    rng = np.random.default_rng(rows * rmax + cb + 1)
+    ja, va, counts = _placed_ell(rng, rows, rmax, k, idt, cuda_device, mega)
+    va, scale = _lowp_values(va, vdt)
+    b = torch.from_numpy(rng.standard_normal((k, cb), dtype=np.float32)
+                         ).to(cuda_device)
+    rows_idx, got, untouched = _sentinel_out(rng, rows, (cb,), cuda_device)
+    want = got.clone()
+    where = dict(counts=counts, rows=rows_idx, alpha=0.5, va_scale=scale)
+    before = dict(spmm_ell.variant_launches)
+    spmm_ell(b, ja, va, out=got, **where)
+    torch.cuda.synchronize()
+    assert spmm_ell.variant_launches[vdt] == before[vdt] + 1
+    spmm_ell_ref(b, ja, va, out=want, **where)
+    vmax = float(promote_vals(va, scale).nan_to_num().abs().max())
+    atol = 1e-5 * rmax ** 0.5 * vmax * float(b.abs().max()) * 0.5
+    assert torch.isfinite(got[rows_idx.long()]).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=atol)
+    assert bool(torch.all(got[untouched] == -7.25))
+
+
+@pytest.mark.parametrize("vdt", ["bf16", "s8"])
+@pytest.mark.parametrize("idt", [np.int32, np.uint16])
+@pytest.mark.parametrize("rows,rmax", [(1001, 16), (300, 128), (257, 256),
+                                       (50, 7)])
+def test_spmv_ell_lowp_values_match_plain(cuda_device, vdt, idt, rows, rmax):
+    """The SpMV on bf16 and (int8, row scale) values: vector loads of 4
+    values (8 or 4 bytes) and the scalar path (rmax 7)."""
+    rng = np.random.default_rng(rows + rmax + 1)
+    k = 60000
+    ja, va, counts = _placed_ell(rng, rows, rmax, k, idt, cuda_device)
+    va, scale = _lowp_values(va, vdt)
+    x = torch.from_numpy(rng.standard_normal(k, dtype=np.float32)
+                         ).to(cuda_device)
+    rows_idx, got, untouched = _sentinel_out(rng, rows, (), cuda_device)
+    want = got.clone()
+    where = dict(counts=counts, rows=rows_idx, alpha=0.5, va_scale=scale)
+    before = dict(spmv_ell.variant_launches)
+    spmv_ell(x, ja, va, out=got, **where)
+    torch.cuda.synchronize()
+    assert spmv_ell.variant_launches[vdt] == before[vdt] + 1
+    spmv_ell_ref(x, ja, va, out=want, **where)
+    assert torch.isfinite(got[rows_idx.long()]).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-4, atol=1e-4)
+    assert bool(torch.all(got[untouched] == -7.25))
+
+
+def _bf16_ulp(x):
+    _, e = np.frexp(np.abs(np.asarray(x, np.float64)))
+    return np.ldexp(1.0, e - 8)
+
+
+@pytest.mark.parametrize("xfer,c_xfer", [("bfloat16", "float32"),
+                                         ("int8", "float32"),
+                                         ("float32", "bfloat16"),
+                                         ("int8", "bfloat16")])
+def test_gemm_transfer_modes_on_card_match_cpu(cuda_device, tmp_path, xfer,
+                                               c_xfer):
+    """The pipeline in each transfer mode through K1 'bf16' or 's8'
+    against the same files on the CPU (order C, T/N, beta != 0, ragged
+    superblocks).  int8 matches bit for bit (the same host rounding, an
+    exact int32 sum, the same fp32 roundings); bf16 tiles within the fp32
+    tolerance (summation order); a bf16 C download within one bf16 ulp."""
+    rng = np.random.default_rng(18)
+    m, n, k, blk = 300, 260, 280, 128
+    data = {"A": rng.standard_normal((k, m), dtype=np.float32),
+            "B": rng.standard_normal((k, n), dtype=np.float32),
+            "C": rng.standard_normal((m, n), dtype=np.float32)}
+    shapes = {"A": (k, m), "B": (k, n), "C": (m, n)}
+    out = {}
+    variant = "s8" if xfer == "int8" else "bf16" if xfer == "bfloat16" \
+        else "tf32x3"
+    for device in ("cpu", "cuda"):
+        d = tmp_path / device
+        d.mkdir()
+        ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+            device=device, scratch_dir=str(d / "s"), transfer_dtype=xfer,
+            c_transfer_dtype=c_xfer))
+        try:
+            arrs = []
+            for name in "ABC":
+                arr = bof_tpu_torch.map_array(
+                    os.path.join(d, name), shapes[name], np.float32, "C",
+                    create=True, ctx=ctx)
+                arr.write_all(data[name])
+                arrs.append(arr)
+            before = accum_matmul.variant_launches[variant]
+            bof_tpu_torch.gemm(*arrs, alpha=0.5, beta=2.0, transa="T",
+                               blk=blk, ctx=ctx)
+            launched = accum_matmul.variant_launches[variant] - before
+            out[device] = arrs[2].read_all()
+        finally:
+            ctx.destroy()
+        assert launched == (0 if device == "cpu" else 3 * 3 * 3)
+    if xfer == "int8":
+        np.testing.assert_array_equal(out["cuda"], out["cpu"])
+    elif c_xfer == "bfloat16":
+        assert (np.abs(out["cuda"].astype(np.float64) - out["cpu"])
+                <= _bf16_ulp(np.maximum(np.abs(out["cuda"]),
+                                        np.abs(out["cpu"])))).all()
+    else:
+        np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
+                                   atol=2e-4 * np.abs(out["cpu"]).max())
+
+
+@pytest.mark.parametrize("xfer,c_xfer", [("bfloat16", "float32"),
+                                         ("int8", "float32"),
+                                         ("float32", "bfloat16"),
+                                         ("int8", "bfloat16")])
+def test_sparse_transfer_modes_on_card_match_cpu(cuda_device, tmp_path,
+                                                 xfer, c_xfer):
+    """csrmm 'N' (K2 on bf16 or int8 values, the bf16 download) and, for
+    the value modes, csrgemv 'N' against the same calls on the CPU."""
+    import scipy.sparse as sps
+    rng = np.random.default_rng(19)
+    m, k, n = 700, 500, 90
+    a_sp = sps.random(m, k, density=0.02, format="csr", dtype=np.float32,
+                      random_state=np.random.RandomState(19))
+    b = rng.standard_normal((k, n), dtype=np.float32)
+    x = rng.standard_normal(k, dtype=np.float32)
+    vkind = {"float32": "f32", "bfloat16": "bf16", "int8": "s8"}[xfer]
+    out, y = {}, {}
+    for device in ("cpu", "cuda"):
+        ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+            device=device, scratch_dir=str(tmp_path / device),
+            sparse_compute="device", max_nnzs=2048, csrmm_cblk_size=36,
+            transfer_dtype=xfer, c_transfer_dtype=c_xfer))
+        try:
+            A = bof_tpu_torch.CsrFlashMatrix.from_scipy(a_sp, ctx=ctx)
+            B = bof_tpu_torch.mem_array((k, n), np.float32, data=b, ctx=ctx)
+            C = bof_tpu_torch.mem_array((m, n), np.float32, ctx=ctx)
+            before = (spmm_ell.variant_launches[vkind],
+                      spmv_ell.variant_launches[vkind])
+            bof_tpu_torch.csrmm(A, B, C, alpha=0.5, ctx=ctx)
+            out[device] = C.read_all()
+            y[device] = bof_tpu_torch.csrgemv(A, x, ctx=ctx)
+            launched = (spmm_ell.variant_launches[vkind] - before[0],
+                        spmv_ell.variant_launches[vkind] - before[1])
+        finally:
+            ctx.destroy()
+        assert (min(launched) > 0) == (device == "cuda")
+    if c_xfer == "bfloat16":
+        prod = np.abs(out["cpu"].astype(np.float64)) / 0.5 * (1 + 2.0 ** -7)
+        assert (np.abs(out["cuda"].astype(np.float64) - out["cpu"])
+                <= 0.5 * _bf16_ulp(prod)).all()
+    else:
+        np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0,
+                                   atol=2e-4 * np.abs(out["cpu"]).max())
+    np.testing.assert_allclose(y["cuda"], y["cpu"], rtol=0,
+                               atol=2e-4 * np.abs(y["cpu"]).max())

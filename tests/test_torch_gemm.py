@@ -5,7 +5,11 @@ generator, runs `bof_tpu.gemm` and `bof_tpu_torch.gemm` (device "cpu",
 the plain version of K1) over them under one configuration carried across
 by `config_from_reference`, and compares the two C files at the repo's
 fp32 tolerance (rtol 2e-4, atol 1e-4, as tests/test_gemm.py), plus the
-float64 golden.  Tiny superblocks make every case multi-block: padding,
+float64 golden.  The transfer modes (bf16/int8 A and B, a bf16 C
+download) round the same inputs the same way in both packages, so they are
+held to the fp32 invariant as well (2e-4 of max|C|), or to one bf16 ulp an
+element where C comes down as bf16, and to bof_tpu's bands against
+float64.  Tiny superblocks make every case multi-block: padding,
 accumulate chains, the group schedule and write-back all run.
 """
 import dataclasses
@@ -180,21 +184,105 @@ def test_resume_journal_is_the_reference_format_and_byte_identical(
     np.testing.assert_array_equal(np.fromfile(resumed, F32), want)
 
 
+# bof_tpu's bands for each mode against float64 (tests/test_gemm.py):
+# bf16 inputs 2e-2 of max|C|, int8 inputs 5e-2, a bf16 C download 1e-2
+BANDS = {("bfloat16", "float32"): 2e-2, ("int8", "float32"): 5e-2,
+         ("float32", "bfloat16"): 1e-2, ("int8", "bfloat16"): 5e-2}
+MODES = list(BANDS)
+
+
+def bf16_ulp(x):
+    """One bf16 unit in the last place at |x| (8 significant bits)."""
+    _, e = np.frexp(np.abs(np.asarray(x, np.float64)))
+    return np.ldexp(1.0, e - 8)
+
+
+def check_mode(ref, port, golden, xfer, c_xfer):
+    """The port against bof_tpu in a transfer mode: the fp32 invariant
+    (2e-4 of max|C|), or one bf16 ulp an element where C came down as
+    bf16 (a different fp32 summation order may round to the neighbouring
+    bf16 value); and both inside bof_tpu's band against float64, yet off
+    it: the mode really rounded."""
+    if c_xfer == "bfloat16":
+        ulp = bf16_ulp(np.maximum(np.abs(ref), np.abs(port)))
+        assert (np.abs(port.astype(np.float64) - ref) <= ulp).all()
+    else:
+        np.testing.assert_allclose(port, ref, rtol=0,
+                                   atol=2e-4 * np.abs(ref).max())
+    for got in (ref, port):
+        rel = np.abs(got.astype(np.float64) - golden).max() \
+            / np.abs(golden).max()
+        assert 1e-6 < rel < BANDS[(xfer, c_xfer)], rel
+
+
 @pytest.mark.parametrize("field,value", [
     ("transfer_dtype", "bfloat16"), ("transfer_dtype", "int8"),
     ("c_transfer_dtype", "bfloat16")])
 def test_unported_transfer_modes_raise(tmp_path, field, value):
-    cfg = bof_tpu_torch.FlashConfig(device="cpu",
-                                    scratch_dir=str(tmp_path / "s"),
-                                    **{field: value})
-    ctx = bof_tpu_torch.FlashContext(cfg)
-    try:
-        a = bof_tpu_torch.mem_array((8, 8), F32, ctx=ctx)
-        c = bof_tpu_torch.mem_array((8, 8), F32, ctx=ctx)
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            bof_tpu_torch.gemm(a, a, c, blk=4, ctx=ctx)
-    finally:
-        ctx.destroy()
+    """Each transfer mode that was refused before it was ported now runs,
+    and matches bof_tpu on the same files (beta != 0, ragged blocks).
+    The name dates from the refusal and is kept so the cases' history
+    reads on."""
+    modes = {"transfer_dtype": "float32", "c_transfer_dtype": "float32",
+             field: value}
+    ref, port, golden = run_both(tmp_path, "R", "T", "N", beta=0.5,
+                                 **modes)
+    check_mode(ref, port, golden, modes["transfer_dtype"],
+               modes["c_transfer_dtype"])
+
+
+@pytest.mark.parametrize("xfer,c_xfer", MODES)
+@pytest.mark.parametrize("order,ta,tb",
+                         list(itertools.product("RC", "NT", "NT")))
+def test_transfer_modes_all_eight_configs(tmp_path, order, ta, tb, xfer,
+                                          c_xfer):
+    """Every mode, and int8 with a bf16 C download (bof_tpu's bench mode),
+    on all 8 layouts with a ragged blk, alpha != 1 and beta != 0."""
+    ref, port, golden = run_both(tmp_path, order, ta, tb, m=45, n=31, k=38,
+                                 blk=12, alpha=0.75, beta=0.5,
+                                 transfer_dtype=xfer, c_transfer_dtype=c_xfer)
+    check_mode(ref, port, golden, xfer, c_xfer)
+
+
+def test_transfer_modes_cross_the_link_in_fewer_bytes(tmp_path):
+    """gemm.h2d_bytes of the A/B tiles is 1/2 (bf16) or 1/4 (int8) of the
+    fp32 run's (beta 0: no C upload), and gemm.d2h_bytes is halved by the
+    bf16 C download; the step plan is the fp32 one in every mode."""
+    seen = {}
+    for xfer, c_xfer in (("float32", "float32"),) + tuple(MODES):
+        METRICS.reset()
+        d = tmp_path / f"{xfer}_{c_xfer}"
+        d.mkdir()
+        run_both(d, "R", "N", "N", m=40, n=36,
+                 k=44, blk=16, transfer_dtype=xfer, c_transfer_dtype=c_xfer)
+        seen[(xfer, c_xfer)] = (METRICS.get("gemm.h2d_bytes"),
+                                METRICS.get("gemm.d2h_bytes"),
+                                METRICS.get("hbm.miss"))
+    h2d, d2h, miss = seen[("float32", "float32")]
+    assert d2h == 40 * 36 * 4
+    for (xfer, c_xfer), got in seen.items():
+        size = {"float32": 4, "bfloat16": 2, "int8": 1}[xfer]
+        assert got[0] * 4 == h2d * size, (xfer, got)
+        assert got[1] == d2h // (2 if c_xfer == "bfloat16" else 1)
+        assert got[2] == miss
+
+
+def test_transfer_mode_needs_float32_operands(tmp_path):
+    """bof_tpu's ValueErrors for a transfer mode on other operands; fp64
+    is refused first, as not ported (ROADMAP A13)."""
+    for field in ("transfer_dtype", "c_transfer_dtype"):
+        value = "int8" if field == "transfer_dtype" else "bfloat16"
+        ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+            device="cpu", scratch_dir=str(tmp_path / "s"), **{field: value}))
+        try:
+            for dt, err in ((np.float16, ValueError),
+                            (np.float64, NotImplementedError)):
+                a = bof_tpu_torch.mem_array((8, 8), dt, ctx=ctx)
+                c = bof_tpu_torch.mem_array((8, 8), dt, ctx=ctx)
+                with pytest.raises(err):
+                    bof_tpu_torch.gemm(a, a, c, blk=4, ctx=ctx)
+        finally:
+            ctx.destroy()
 
 
 def test_float64_raises(tmp_path):

@@ -9,6 +9,7 @@ plain version there.
 """
 import itertools
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -16,7 +17,9 @@ import torch
 from bof_tpu.ops import device as ref_device
 from bof_tpu.ops.matmul_pallas import matmul as pallas_matmul
 from bof_tpu_torch.ops import device as port_device
-from bof_tpu_torch.ops.matmul_cuda import (K1_PASSES, accum_matmul,
+from bof_tpu_torch.io.native import cast_bf16, quantize_i8
+from bof_tpu_torch.ops.matmul_cuda import (K1_PASSES, K1_S8_MAX_K,
+                                           K1_VARIANTS, accum_matmul,
                                            accum_matmul_ref,
                                            accum_matmul_tf32_ref, k1_ldw,
                                            k1_variant, k1_workspace,
@@ -184,3 +187,112 @@ def test_tf32_truncation_and_one_pass_emulation(rng):
     lo = a_t - tf32_truncate(a_t)
     assert float(lo.abs().max()) <= 2.0 ** -10 * float(a_t.abs().max())
     assert torch.equal(tf32_truncate(tf32_truncate(a_t)), tf32_truncate(a_t))
+
+
+def _lowp_storage(rng, m, n, k, a_km, b_nk, c_nm, kind):
+    """Storage-major A/B in a transfer mode's type, as the gemm producer
+    makes them, for both packages: bf16 (the port's tensor, bof_tpu's
+    ml_dtypes array; then the fp32 A/B they were rounded from) or int8
+    (then the two tile scales); and an fp32 C."""
+    a, b, c = _storage(rng, m, n, k, a_km, b_nk, c_nm)
+    if kind == "bf16":
+        bits = [cast_bf16(x) for x in (a, b)]
+        port = [torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+                for x in bits]
+        ref = [x.view(ml_dtypes.bfloat16) for x in bits]
+        return port, ref, (a, b), c
+    q = [quantize_i8(x) for x in (a, b)]
+    return ([torch.from_numpy(x) for x, _ in q], [x for x, _ in q],
+            (q[0][1], q[1][1]), c)
+
+
+@pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
+def test_bf16_plain_matches_reference_accum_step(rng, a_km, b_nk, c_nm):
+    """K1 'bf16''s plain version (the port's accum_step on bf16 tiles)
+    against bof_tpu's XLA step on the same bf16 tiles (fp32 accumulator),
+    alpha != 1, a non-zero C, in place."""
+    m, n, k = 40, 24, 56
+    (a, b), (ra, rb), fp32, c = _lowp_storage(rng, m, n, k, a_km, b_nk,
+                                              c_nm, "bf16")
+    want = np.asarray(ref_device.accum_step(
+        c.copy(), ra, rb, np.float32(1.75), a_km=a_km, b_nk=b_nk, c_nm=c_nm,
+        prec="highest", impl="xla"))
+    c_t = torch.from_numpy(c.copy())
+    got = port_device.accum_step(c_t, a, b, 1.75, a_km=a_km, b_nk=b_nk,
+                                 c_nm=c_nm, prec="default")
+    assert got.data_ptr() == c_t.data_ptr()
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-4)
+    # it really ran on rounded operands: the fp32 ones give another answer
+    unrounded = accum_matmul_ref(torch.from_numpy(c.copy()),
+                                 *map(torch.from_numpy, fp32), 1.75,
+                                 a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+    assert not np.allclose(got.numpy(), unrounded.numpy(), rtol=1e-3)
+
+
+@pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
+def test_bf16_plain_matches_pallas_interpret(rng, a_km, b_nk, c_nm):
+    """bof_tpu's Pallas K1 on bf16 tiles with out_dtype fp32 (what its
+    accum_step runs on a TPU) against the plain 'bf16' version."""
+    m, n, k = 256, 128, 128
+    (a, b), (ra, rb), _, _ = _lowp_storage(rng, m, n, k, a_km, b_nk, c_nm,
+                                           "bf16")
+    want = np.asarray(pallas_matmul(ra, rb, bm=128, bn=128, bk=64,
+                                    out_dtype=np.float32, a_km=a_km,
+                                    b_nk=b_nk, c_nm=c_nm, interpret=True))
+    c = torch.zeros((n, m) if c_nm else (m, n))
+    got = accum_matmul(c, a, b, 1.0, a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+    assert want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
+def test_s8_plain_matches_reference_accum_step_q(rng, a_km, b_nk, c_nm):
+    """K1 's8''s plain version (the port's accum_step_q) against bof_tpu's:
+    int8 tiles with their scales, scale = alpha * s_a * s_b as gemm
+    computes it, a non-zero C."""
+    m, n, k = 40, 24, 56
+    (a, b), (ra, rb), (sa, sb), c = _lowp_storage(rng, m, n, k, a_km, b_nk,
+                                                  c_nm, "s8")
+    scale = np.float32(0.75 * sa * sb)
+    want = np.asarray(ref_device.accum_step_q(
+        c.copy(), ra, rb, scale, a_km=a_km, b_nk=b_nk, c_nm=c_nm))
+    c_t = torch.from_numpy(c.copy())
+    got = port_device.accum_step_q(c_t, a, b, float(scale), a_km=a_km,
+                                   b_nk=b_nk, c_nm=c_nm)
+    assert got.data_ptr() == c_t.data_ptr()
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-5)
+    # the plain version's arithmetic, written out: an exact integer
+    # product, to fp32, times the scale, plus C, each rounded in fp32
+    lhs = (ra.T if a_km else ra).astype(np.int64)
+    rhs = (rb.T if b_nk else rb).astype(np.int64)
+    exact = (lhs @ rhs).astype(np.float32) * scale
+    np.testing.assert_array_equal(got.numpy(),
+                                  c + (exact.T if c_nm else exact))
+
+
+def test_s8_refuses_a_k_whose_int32_sum_could_overflow():
+    """2^17, the power of two below 2^31 / 127^2 (133,143)."""
+    k = K1_S8_MAX_K + 1
+    assert 127 ** 2 * K1_S8_MAX_K < 2 ** 31 <= 127 ** 2 * 2 * K1_S8_MAX_K
+    a = torch.zeros((1, k), dtype=torch.int8)
+    with pytest.raises(ValueError, match="overflow"):
+        accum_matmul(torch.zeros(1, 1), a, a.T.contiguous(), 1.0,
+                     a_km=False, b_nk=False, c_nm=False)
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "bf16"),
+                                        (torch.int8, "s8"),
+                                        (torch.float32, "ffma")])
+@pytest.mark.parametrize("prec", ["highest", "default"])
+def test_k1_variant_by_operand_type(dtype, want, prec):
+    """The transfer modes' operands pick their variants at every precision
+    and any leading dimension (those kernels mask their loads)."""
+    assert k1_variant(513, 777, prec, dtype=dtype) == want
+    assert "bf16" in K1_VARIANTS and "s8" in K1_VARIANTS
+
+
+def test_mixed_operand_types_raise():
+    with pytest.raises(TypeError):
+        accum_matmul(torch.zeros(2, 2), torch.zeros(2, 2, dtype=torch.int8),
+                     torch.zeros(2, 2, dtype=torch.bfloat16), 1.0,
+                     a_km=False, b_nk=False, c_nm=False)

@@ -244,26 +244,111 @@ def test_device_placement_helpers():
     assert port_dev.link_gbps_estimate(torch.device("cpu")) == np.inf
 
 
+# bof_tpu's bands against float64 (tests/test_gemm.py): bf16 inputs 2e-2
+# of max|C|, int8 inputs 5e-2, a bf16 C download 1e-2
+BANDS = {("bfloat16", "float32"): 2e-2, ("int8", "float32"): 5e-2,
+         ("float32", "bfloat16"): 1e-2, ("int8", "bfloat16"): 5e-2}
+
+
+def bf16_ulp(x):
+    """One bf16 unit in the last place at |x| (8 significant bits)."""
+    _, e = np.frexp(np.abs(np.asarray(x, np.float64)))
+    return np.ldexp(1.0, e - 8)
+
+
+def check_mode(ref, port, golden, xfer, c_xfer, alpha=1.0):
+    """The port against bof_tpu in a transfer mode: 2e-4 of max|C| (both
+    round the same inputs the same way; the sums' order differs), or, with
+    a bf16 C download (beta 0 here), one bf16 ulp of the band product an
+    element, times alpha (bof_tpu rounds the product, then scales it); and
+    both inside bof_tpu's band against float64 but off it: the mode really
+    rounded."""
+    if c_xfer == "bfloat16":
+        prod = np.abs(golden) / abs(alpha) * (1 + 2.0 ** -7)
+        assert (np.abs(port.astype(np.float64) - ref)
+                <= abs(alpha) * bf16_ulp(prod)).all()
+    else:
+        np.testing.assert_allclose(port, ref, rtol=0,
+                                   atol=2e-4 * np.abs(ref).max())
+    for got in (ref, port):
+        rel = np.abs(got.astype(np.float64) - golden).max() \
+            / np.abs(golden).max()
+        assert 1e-6 < rel < BANDS[(xfer, c_xfer)], rel
+
+
 @pytest.mark.parametrize("field,value", [
     ("transfer_dtype", "bfloat16"), ("transfer_dtype", "int8"),
     ("c_transfer_dtype", "bfloat16")])
 def test_unported_transfer_modes_raise(tmp_path, field, value):
-    cfg = bof_tpu_torch.FlashConfig(device="cpu", sparse_compute="device",
-                                    scratch_dir=str(tmp_path / "s"),
-                                    **{field: value})
-    ctx = bof_tpu_torch.FlashContext(cfg)
-    try:
-        A = bof_tpu_torch.CsrFlashMatrix.from_scipy(rand_csr(20, 10, 0.2),
-                                                    ctx=ctx)
-        B = bof_tpu_torch.mem_array((10, 4), F32, ctx=ctx)
-        C = bof_tpu_torch.mem_array((20, 4), F32, ctx=ctx)
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            bof_tpu_torch.csrmm(A, B, C, ctx=ctx)
-        if field == "transfer_dtype":
-            with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-                bof_tpu_torch.csrgemv(A, np.ones(10, F32), ctx=ctx)
-    finally:
-        ctx.destroy()
+    """Each transfer mode that was refused before it was ported now runs
+    through csrmm (and, for the value modes, csrgemv 'N') and matches
+    bof_tpu on the same files.  The name dates from the refusal and is
+    kept so the cases' history reads on."""
+    modes = {"transfer_dtype": "float32", "c_transfer_dtype": "float32",
+             field: value}
+    a_sp = rand_csr(200, 150, 0.05)
+    beta = 0.0 if modes["c_transfer_dtype"] == "bfloat16" else 0.5
+    for sub in ("mm", "mv"):
+        (tmp_path / sub).mkdir()
+    ref, port, golden = csrmm_both(tmp_path / "mm", a_sp, 40, alpha=0.75,
+                                   beta=beta, sparse_compute="device",
+                                   **modes)
+    check_mode(ref, port, golden, modes["transfer_dtype"],
+               modes["c_transfer_dtype"], alpha=0.75)
+    if field == "transfer_dtype":
+        ref, port, golden = csrgemv_both(tmp_path / "mv", a_sp, "N",
+                                         max_nnzs=512, **modes)
+        check_mode(ref, port, golden, value, "float32")
+
+
+@pytest.mark.parametrize("xfer,c_xfer", list(BANDS))
+@pytest.mark.parametrize("transa", ["N", "T"])
+def test_csrmm_transfer_modes(tmp_path, transa, xfer, c_xfer):
+    """csrmm 'N' and 'T' (csrcsc, then 'N' on the device path) in every
+    mode, and int8 values with a bf16 C download, over several row blocks,
+    ELL bands and column panels (a ragged last one)."""
+    beta = 0.0 if c_xfer == "bfloat16" else 2.0
+    ref, port, golden = csrmm_both(
+        tmp_path, rand_csr(300, 200, 0.05), 70, alpha=0.5, beta=beta,
+        transa=transa, sparse_compute="device", transfer_dtype=xfer,
+        c_transfer_dtype=c_xfer)
+    check_mode(ref, port, golden, xfer, c_xfer, alpha=0.5)
+
+
+@pytest.mark.parametrize("xfer", ["bfloat16", "int8"])
+def test_csrgemv_transfer_modes(tmp_path, xfer):
+    ref, port, golden = csrgemv_both(tmp_path, rand_csr(400, 250, 0.02), "N",
+                                     max_nnzs=512, transfer_dtype=xfer)
+    check_mode(ref, port, golden, xfer, "float32")
+
+
+def test_sparse_transfer_modes_cross_the_link_in_fewer_bytes(tmp_path):
+    """The ELL uploads shrink with the value type (int8 values plus a
+    scale a row below bf16 below fp32, the indices unchanged), csrmm's
+    downloads halve under the bf16 C download, and the kernels launch as
+    often in every mode."""
+    a_sp = rand_csr(300, 200, 0.05)
+    seen = {}
+    for xfer, c_xfer in (("float32", "float32"),) + tuple(BANDS):
+        d = tmp_path / f"{xfer}_{c_xfer}"
+        d.mkdir()
+        METRICS.reset()
+        csrmm_both(d, a_sp, 70, beta=0.0, sparse_compute="device",
+                   transfer_dtype=xfer, c_transfer_dtype=c_xfer)
+        csrgemv_both(d, a_sp, "N", max_nnzs=512, transfer_dtype=xfer,
+                     c_transfer_dtype=c_xfer)
+        seen[(xfer, c_xfer)] = {key: METRICS.get(key) for key in (
+            "csrmm.h2d_bytes", "csrmm.d2h_bytes", "csrgemv.h2d_bytes")}
+    base = seen[("float32", "float32")]
+    assert base["csrmm.d2h_bytes"] == 300 * 96 * 4  # 3 panels of cb 32
+    for (xfer, c_xfer), got in seen.items():
+        assert got["csrmm.d2h_bytes"] == base["csrmm.d2h_bytes"] // (
+            2 if c_xfer == "bfloat16" else 1)
+    for key in ("csrmm.h2d_bytes", "csrgemv.h2d_bytes"):
+        f32, bf16, i8 = (seen[(x, "float32")][key]
+                         for x in ("float32", "bfloat16", "int8"))
+        assert i8 < bf16 < f32, (key, f32, bf16, i8)
+        assert seen[("int8", "bfloat16")][key] == i8
 
 
 # ---------------------------------------------------------------- csrgemv
@@ -414,13 +499,23 @@ def test_native_ell_fill_matches_numpy_chain(idt, vdt):
 
 
 def test_native_ell_fill_leaves_unbound_modes_to_numpy():
+    """Indices that are not int64 still go to the numpy chain; the bf16
+    value mode (np.uint16 bits, the port's bfloat16) is bound now and
+    rounds as ml_dtypes does; a value type the engine lacks is left to
+    numpy."""
     import ml_dtypes
     from bof_tpu_torch.io.native import ell_fill
     one = np.ones(1, np.int64)
     assert ell_fill(np.zeros(1, np.int64), one, np.zeros(1, np.int32),
                     np.zeros(1, F32), 8, 8, np.int32, None) is None
-    assert ell_fill(np.zeros(1, np.int64), one, one, np.zeros(1, F32), 8, 8,
-                    np.int32, np.dtype(ml_dtypes.bfloat16)) is None
+    val = np.array([1.00390625], F32)  # a tie: rounds to even, 1.0
+    got = ell_fill(np.zeros(1, np.int64), one, one, val, 8, 8, np.int32,
+                   np.uint16)
+    assert got is not None and got[1].dtype == np.uint16
+    assert got[1][0, 0] == val.astype(ml_dtypes.bfloat16).view(np.uint16)[0]
+    assert not got[1][1:].any() and not got[1][0, 1:].any()
+    assert ell_fill(np.zeros(1, np.int64), one, one, val, 8, 8, np.int32,
+                    np.dtype(ml_dtypes.bfloat16)) is None
 
 
 def test_counting_argsort_matches_stable_argsort():
