@@ -61,7 +61,11 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 128;          // block tile rows: 2 consumer warpgroups x 64
 constexpr int BN = 256;          // block tile columns: wgmma n256
@@ -75,8 +79,6 @@ constexpr int WG = 128;          // threads in a warpgroup
 constexpr int THREADS = 2 * WG;
 constexpr int TILE_P = BM * BK * 4;  // bytes of one P (rows of C) tile
 constexpr int TILE_Q = BN * BK * 4;  // bytes of one Q (columns of C) tile
-constexpr uint64_t SWIZZLE_64B = 2;  // wgmma descriptor layout type
-constexpr int ATOM_BYTES = 8 * BK * 4;  // 8 rows of the 64-byte swizzle atom
 
 static_assert(BK * 4 == 64, "the 64-byte swizzle needs 64-byte tile rows");
 
@@ -89,81 +91,9 @@ struct Ring {
   static constexpr int SMEM = STAGES * STAGE_BYTES + STAGES * 12 + 1024;
 };
 
-// ------------------------------------------------------------------ PTX
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// Spins until the barrier's phase `parity` has completed.  A wait that
-// outlasts about a minute of SM clocks traps, so a pipeline fault ends the
-// launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done;
-  do {
-    if (clock64() - t0 > (1LL << 37)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// One box of a 2-D tensor map into shared memory; completion is reported to
-// `bar` as transferred bytes.  c0 is the inner (K) coordinate.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma matrix descriptor of a K-major tile with 64-byte swizzled rows at
-// shared address `saddr`: start address, LBO (unused when K-major and
-// swizzled), SBO = one 8-row swizzle atom, layout type.
+// wgmma descriptor of a K-major tile with 64-byte swizzled rows.
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(ATOM_BYTES >> 4) << 32) | (SWIZZLE_64B << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving the accumulators while a wgmma owns them.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  return smem_desc<BK * 4>(saddr);
 }
 
 // d += A(64x8, K-major, desc a) * B(8x256, K-major, desc b), tf32 in, fp32
@@ -456,33 +386,6 @@ accum_tf32_kernel(const __grid_constant__ CUtensorMap p_x,
 }
 
 // ------------------------------------------------------------------ host
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the
-// library needs no -lcuda; null when the driver does not have it.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                             cudaEnableDefault, &q);
-#endif
-    return (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // Tensor map of a K-major (rows x K) fp32 operand with leading dimension ld,
 // cut into boxes of box_rows x BK with the 64-byte swizzle; out-of-bounds

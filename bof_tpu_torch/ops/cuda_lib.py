@@ -38,7 +38,7 @@ _ENTRIES = {
     "bof_accum_matmul_tf32": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                               _LL, _LL, _LL, _I, _P, _P, _P, _P, _LL, _P],
     "bof_accum_matmul_lowp": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
-                              _LL, _LL, _LL, _I, _P],
+                              _LL, _LL, _LL, _I, _P, _P, _LL, _P],
     "bof_spmm_ell": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F, _LL, _LL, _LL,
                      _I, _P],
     "bof_spmv_ell": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F, _LL, _LL, _I,

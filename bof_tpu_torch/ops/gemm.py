@@ -585,17 +585,31 @@ def gemm_in_mem(a_np: np.ndarray, b_np: np.ndarray,
                 c_np: Optional[np.ndarray] = None,
                 alpha: float = 1.0, beta: float = 0.0,
                 transa: str = "N", transb: str = "N",
-                device: str = "cpu") -> np.ndarray:
+                prec: str = "highest", *, device: str = "cuda") -> np.ndarray:
     """In-memory golden twin (reference: drivers/in_mem_gemm.cpp — the MKL
     twin every out-of-core kernel is differentially tested against): one
-    torch matmul on `device`, full fp32 unless the caller switched TF32
-    on (torch.backends.cuda.matmul.allow_tf32, off by default)."""
+    torch matmul on `device`, the card unless the caller asks for the CPU
+    (without a usable card, 'cuda' raises).  `prec` takes bof_tpu's values
+    (an unknown one raises ValueError): 'highest' and 'high' are full fp32;
+    'default' on the card is one TF32 pass (the operands truncated to TF32,
+    their products summed in fp32); on the CPU every tier is full fp32.
+    The process's TF32 switch (torch.backends.cuda.matmul.allow_tf32, which
+    every thread shares) is read, never set: with it on, a full-fp32 tier
+    multiplies in float64 on the card instead."""
     import torch
+
+    from .matmul_cuda import _passes, tf32_truncate
+    passes = _passes(prec)
     dvc = dev.resolve_device(device)
     a = torch.from_numpy(np.ascontiguousarray(a_np)).to(dvc)
     b = torch.from_numpy(np.ascontiguousarray(b_np)).to(dvc)
     opa = a.T if transa.upper() == "T" else a
     opb = b.T if transb.upper() == "T" else b
+    if dvc.type == "cuda" and a.dtype == torch.float32:
+        if passes == 1:
+            opa, opb = tf32_truncate(opa), tf32_truncate(opb)
+        elif torch.backends.cuda.matmul.allow_tf32:
+            opa, opb = opa.double(), opb.double()
     out = alpha * (opa @ opb)
     if beta != 0.0 and c_np is not None:
         out = out + beta * torch.from_numpy(

@@ -14,11 +14,13 @@ K1 has five variants, and `k1_variant` alone picks one.  On fp32 operands:
   describe (a leading dimension that is not a multiple of 4 floats, or a
   base address that is not 16-byte aligned), at every precision.
 On the transfer modes' operands (FlashConfig.transfer_dtype), C fp32:
-- 'bf16' (`csrc/matmul_lowp.cu`): bf16 A and B, mma.sync with an fp32
+- 'bf16' (`csrc/matmul_lowp.cu`): bf16 A and B, TMA + wgmma with an fp32
   accumulator, at every precision (bof_tpu's bf16 tiles);
-- 's8' (the same file): int8 A and B summed exactly in int32, then
+- 's8' (the same kernel body): int8 A and B summed exactly in int32, then
   C += alpha * float(sum) in two roundings (bof_tpu's `accum_step_q`,
   alpha = its scale); K at most `K1_S8_MAX_K`.
+Both read K-major operands only: a pack pass in the same file first
+writes a K-major copy of each operand `lowp_packs` names.
 
 The kernels are built at first use with the port's other kernels into one
 library (`ops/cuda_lib.py`).
@@ -63,9 +65,10 @@ def _passes(prec: str) -> int:
 def k1_variant(lda: int, ldb: int, prec: str, *, aligned: bool = True,
                dtype: torch.dtype = torch.float32) -> str:
     """The K1 variant a CUDA launch runs.  bf16 operands (`dtype`) run
-    'bf16' and int8 operands 's8', whatever their layout (those kernels
-    mask their loads).  fp32 operands run 'tf32x3' for 'highest'/'high',
-    'tf32' for 'default', when TMA can describe both (storage leading
+    'bf16' and int8 operands 's8', whatever their layout (their pack pass
+    makes a K-major copy where TMA cannot read one, `lowp_packs`).  fp32
+    operands run 'tf32x3' for 'highest'/'high', 'tf32' for 'default',
+    when TMA can describe both (storage leading
     dimensions `lda`, `ldb` multiples of 4 floats, i.e. 16 bytes, and both
     base addresses 16-byte `aligned`); 'ffma', the full-fp32 FFMA kernel,
     otherwise.  C has no constraint (the epilogue stores floats one by
@@ -95,9 +98,41 @@ def k1_workspace(m: int, n: int, k: int, *, a_km: bool, b_nk: bool,
     return rows
 
 
-def k1_ldw(k: int) -> int:
-    """Leading dimension of the workspaces: k rounded up to 4 floats."""
-    return -(-k // 4) * 4
+def k1_ldw(k: int, itemsize: int = 4) -> int:
+    """Leading dimension of the workspaces, in elements of `itemsize`
+    bytes: k rounded up to 16 bytes (4 floats, 8 bf16, 16 int8)."""
+    step = 16 // itemsize
+    return -(-k // step) * step
+
+
+def lowp_packs(a_km: bool, b_nk: bool, lda: int, ldb: int,
+               dtype: torch.dtype, aligned: tuple = (True, True)) -> tuple:
+    """Which operands, (A, B), the 'bf16' and 's8' variants' pack pass
+    rewrites K-major (into a workspace of `k1_ldw(k, itemsize)` columns)
+    before the product: one whose storage is not K-major (a_km, or B
+    stored (K,N)), or that TMA cannot read where it lies: its storage
+    leading dimension (lda, ldb elements of `dtype`) not a multiple of 16
+    bytes, or its base not 16-byte aligned (`aligned`, for A and B)."""
+    a_ok, b_ok = aligned
+    size = dtype.itemsize
+    return (bool(a_km or not a_ok or lda * size % 16),
+            bool(not b_nk or not b_ok or ldb * size % 16))
+
+
+def pack_kmajor_ref(x: torch.Tensor, *, mn_major: bool,
+                    ld: int) -> torch.Tensor:
+    """Plain version of the low-precision variants' pack pass: the K-major
+    copy of a stored operand (`x` (rows, K), or (K, rows) when `mn_major`)
+    as a (rows, ld) tensor, ld >= K, whose columns past K are zero (the
+    kernel's workspace leaves them unwritten and never reads them).  For
+    tests and chip_smoke.py only: the CPU path needs no packing."""
+    src = x.T if mn_major else x
+    rows, k = src.shape
+    if ld < k:
+        raise ValueError(f"pack_kmajor_ref: ld {ld} < K {k}")
+    out = x.new_zeros((rows, ld))
+    out[:, :k] = src
+    return out
 
 
 def accum_matmul_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -179,17 +214,23 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if min(m, n, k) == 0:
         return c  # nothing to add; the C entries would launch nothing
     lda, ldb = a.shape[1], b.shape[1]
-    variant = k1_variant(lda, ldb, prec, aligned=(
-        a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0), dtype=a.dtype)
+    aligned = (a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
+    variant = k1_variant(lda, ldb, prec, aligned=all(aligned), dtype=a.dtype)
     lib = build()
+    packs = (False, False)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if a.dtype in _LOWP:
             entry = "bof_accum_matmul_lowp"
+            packs = lowp_packs(a_km, b_nk, lda, ldb, a.dtype, aligned)
+            ldw = k1_ldw(k, a.element_size())
+            ws = [torch.empty((rows, ldw), dtype=a.dtype, device=dev)
+                  if pack else None for pack, rows in zip(packs, (m, n))]
             rc = lib.bof_accum_matmul_lowp(
                 c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha), m, n,
                 k, int(a_km), int(b_nk), int(c_nm), lda, ldb, c.shape[1],
-                _LOWP[a.dtype][1], stream)
+                _LOWP[a.dtype][1], *(None if w is None else w.data_ptr()
+                                     for w in ws), ldw, stream)
         elif variant == "ffma":
             entry = "bof_accum_matmul_f32"
             rc = lib.bof_accum_matmul_f32(
@@ -215,13 +256,16 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     accum_matmul.launches += 1
     accum_matmul.variant_launches[variant] += 1
+    accum_matmul.lowp_packs += sum(packs)
     return c
 
 
 def reset_launch_counts() -> None:
-    """Set K1's launch count and its per-variant counts to 0."""
+    """Set K1's launch count, its per-variant counts and the count of
+    operands the low-precision pack pass rewrote (`lowp_packs`) to 0."""
     accum_matmul.launches = 0
     accum_matmul.variant_launches = dict.fromkeys(K1_VARIANTS, 0)
+    accum_matmul.lowp_packs = 0
 
 
 reset_launch_counts()

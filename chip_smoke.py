@@ -22,11 +22,15 @@ Steps, each of which raises (exit code != 0) when it fails:
    8192^3 R/N/N, the median of 5 CUDA-event times of each tier, the plain
    version, `addmm_` with TF32 off (the library yardstick) and on, and the
    FFMA variant; ptxas must report no spills for the tensor-core kernel.
-   Then K1's transfer-mode variants on the 8 layouts at 8192^3 and
-   1000x776x516: 'bf16' (bf16 A/B) within 2e-4 * max|plain|, 's8' (int8
-   A/B, an exact int32 sum) bit-identical to its plain version; at 8192^3
-   R/N/N each one's time beside its plain version, the library call
-   (torch.mm with an fp32 output; torch._int_mm) and the bound;
+   Then K1's transfer-mode variants (one TMA + wgmma kernel body and its
+   pack pass) on the 8 layouts at 8192^3 and 1000x776x516 (which packs
+   every operand): 'bf16' (bf16 A/B) within 2e-4 * max|plain|, 's8' (int8
+   A/B, an exact int32 sum) bit-identical to its plain version, the pack
+   count moving by the operands that are MN-major or not 16-byte rows; at
+   8192^3 R/N/N each one's time (B packed) beside its time on B packed by
+   the plain pack (b_nk, nothing packed: the same bits required), its
+   plain version, the library call (torch.mm with an fp32 output;
+   torch._int_mm) and the bound; ptxas must report no spills for it;
 4. kernel K2 (`spmm_ell`) and the ELL SpMV (`spmv_ell`) against their
    plain versions through the contract csrmm and csrgemv use: each
    row's real slot count (`counts`; about one row in 16 empty, padding
@@ -78,7 +82,8 @@ Steps, each of which raises (exit code != 0) when it fails:
    whole y for csrgemv) against float64 numpy/scipy with rtol 2e-4 and
    atol 1e-5 * sqrt(inner length) * max|A| * max|B| * |alpha|; each
    kernel's launch count against what the planner forms (K1: mB*nB*kB,
-   every one on the 3xTF32 variant;
+   every one on the mode's variant, and in S6 one operand (B) packed a
+   launch, in S7 none;
    K2 and the SpMV: the ELL bands, recomputed here from the offsets with
    fill_row_blocks + ell_row_ranges); for csrmm, that the writer did no
    host assembly (no `csrmm.assemble_s`) and downloaded each row block
@@ -336,15 +341,20 @@ def lowp_kernel_phase(dev) -> dict:
     """K1's transfer-mode variants against their plain versions on the
     card, every layout, at 8192^3 and a ragged 1000x776x516: 'bf16' within
     2e-4 * max|plain| (exact products, another summation order), 's8' bit
-    for bit (an exact int32 sum, then the same two fp32 roundings); at
-    8192^3 R/N/N the median of 5 CUDA-event times of the kernel, its plain
-    version and the library call, and the bound."""
+    for bit (an exact int32 sum, then the same two fp32 roundings), and
+    the pack count moving by the operands that are MN-major or whose rows
+    are not 16-byte multiples.  At 8192^3 R/N/N the median of 5
+    CUDA-event times of the kernel (B packed: S6's layout), of the kernel
+    on B packed by `pack_kmajor_ref` (b_nk, nothing packed: the library
+    call's layout; the same bits required), of its plain version and of
+    the library call, and the bound."""
     import itertools
 
     import numpy as np
     import torch
     from bof_tpu_torch.ops.matmul_cuda import (accum_matmul,
-                                               accum_matmul_ref, k1_variant)
+                                               accum_matmul_ref, k1_variant,
+                                               pack_kmajor_ref)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 6)
     out = {}
@@ -371,13 +381,25 @@ def lowp_kernel_phase(dev) -> dict:
                               dtype=dtype) != kind:
                     raise AssertionError(f"k1_variant did not choose {kind}")
                 before = accum_matmul.variant_launches[kind]
+                packs = accum_matmul.lowp_packs
                 got = accum_matmul(c0.clone(), a, b, alpha, **flags)
                 want = accum_matmul_ref(c0.clone(), a, b, alpha, **flags)
                 torch.cuda.synchronize()
                 if accum_matmul.variant_launches[kind] != before + 1:
                     raise AssertionError(f"the {kind} count did not move")
+                # an operand is packed when MN-major or its rows are not a
+                # multiple of 16 bytes apart (1000x776x516: all of them)
+                elem = a.element_size()
+                want_packs = int(a_km or a.shape[1] * elem % 16 != 0) \
+                    + int(not b_nk or b.shape[1] * elem % 16 != 0)
+                if accum_matmul.lowp_packs - packs != want_packs:
+                    raise AssertionError(
+                        f"{kind} {m}x{n}x{k} {flags}: packed "
+                        f"{accum_matmul.lowp_packs - packs} operands, "
+                        f"expected {want_packs}")
                 label = (f"{kind} {m}x{n}x{k} a_km={int(a_km)} "
-                         f"b_nk={int(b_nk)} c_nm={int(c_nm)}")
+                         f"b_nk={int(b_nk)} c_nm={int(c_nm)} "
+                         f"({want_packs} packed)")
                 if kind == "s8":
                     err = float((got - want).abs().max())
                     same = bool(torch.equal(got, want))
@@ -402,7 +424,24 @@ def lowp_kernel_phase(dev) -> dict:
                     lib, what = _lowp_library(a, b, kind)
                     timing["library_ms"] = _median_ms(lib)
                     timing["library"] = what
-                    del c_t, lib
+                    # B packed K-major by the plain pack: the product reads
+                    # it in place (nothing packed) and must give the bits
+                    # the kernel's own pack pass gave
+                    b_k = pack_kmajor_ref(b, mn_major=True, ld=k)
+                    packs = accum_matmul.lowp_packs
+                    got = accum_matmul(c0.clone(), a, b, alpha, **flags)
+                    got_k = accum_matmul(c0.clone(), a, b_k, alpha,
+                                         a_km=False, b_nk=True, c_nm=False)
+                    torch.cuda.synchronize()
+                    if accum_matmul.lowp_packs - packs != 1 or \
+                            not torch.equal(got, got_k):
+                        raise AssertionError(
+                            f"K1 {kind}: the pack pass is not its plain "
+                            "version (or packed where it should not)")
+                    timing["ms_b_nk"] = _median_ms(lambda: accum_matmul(
+                        c_t, a, b_k, alpha, a_km=False, b_nk=True,
+                        c_nm=False))
+                    del c_t, lib, b_k, got, got_k
             del a_log, b_log, c_log, a, b, c0
             torch.cuda.empty_cache()
         n3 = 8192 ** 2
@@ -410,10 +449,14 @@ def lowp_kernel_phase(dev) -> dict:
         bound, by = _bound(2 * n3 * elem + 2 * n3 * 4, 2.0 * 8192 ** 3,
                            BF16_FLOPS if kind == "bf16" else INT8_OPS)
         print(f"K1 {kind} 8192^3 canonical, median of 5 CUDA-event times: "
-              f"kernel {timing['ms']:.3f} ms, plain {timing['plain_ms']:.3f} "
-              f"ms, library ({timing['library']}) {timing['library_ms']:.3f} "
-              f"ms; bound {bound:.3f} ms ({by}), the kernel at "
-              f"{100 * bound / timing['ms']:.1f} % of it", flush=True)
+              f"kernel {timing['ms']:.3f} ms (B packed; on B stored (N, K), "
+              f"nothing packed: {timing['ms_b_nk']:.3f} ms, the pack pass "
+              f"{timing['ms'] - timing['ms_b_nk']:.3f} ms of it), plain "
+              f"{timing['plain_ms']:.3f} ms, library ({timing['library']}) "
+              f"{timing['library_ms']:.3f} ms; bound {bound:.3f} ms ({by}), "
+              f"the kernel at {100 * bound / timing['ms']:.1f} % of it, "
+              f"{100 * bound / timing['ms_b_nk']:.1f} % without the pack",
+              flush=True)
         out[f"accum_matmul[{kind}]"] = {"max_abs_err": worst,
                                         "bound_ms": bound, "bound_by": by,
                                         **timing}
@@ -495,11 +538,12 @@ def _reset_launch_counts():
 
 
 def _launch_counts() -> dict:
-    """Every kernel's launch count, and each one's by variant as
-    '<kernel>[<variant>]'."""
+    """Every kernel's launch count, each one's by variant as
+    '<kernel>[<variant>]', and the operands K1's low-precision pack pass
+    rewrote as 'accum_matmul.lowp_packs'."""
     from bof_tpu_torch.ops.matmul_cuda import accum_matmul
     from bof_tpu_torch.sparse.spmm_cuda import spmm_ell, spmv_ell
-    counts = {}
+    counts = {"accum_matmul.lowp_packs": accum_matmul.lowp_packs}
     for name, fn in (("accum_matmul", accum_matmul), ("spmm_ell", spmm_ell),
                      ("spmv_ell", spmv_ell)):
         counts[name] = fn.launches
@@ -570,8 +614,8 @@ def _profiled(fn, argv) -> float:
     for us, count, key in rows[:8]:
         print(f"[profile] {us / 1e6:9.3f} s  {count:6d}x  {key[:90]}",
               flush=True)
-    for name in ("accum_tf32_kernel", "accum_lowp_kernel", "spmm_ell_kernel",
-                 "spmv_ell_kernel"):
+    for name in ("accum_tf32_kernel", "accum_lowp_kernel", "pack_kernel",
+                 "spmm_ell_kernel", "spmv_ell_kernel"):
         hits = [(us, count) for us, count, key in rows if name in key]
         if hits:
             us = sum(h[0] for h in hits)
@@ -678,6 +722,11 @@ def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta,
     steps = mB * nB * cdiv(k, blk)
     # the beta read of C uploads fp32 C blocks in every mode
     c_up = mB * nB * blk * blk * 4 if beta != 0.0 else 0
+    # the pipeline's storage layouts (ops/gemm.py:_op_block_reader): the
+    # low-precision variants pack an MN-major operand each launch (the
+    # tiles' rows, blk elements, are 16-byte multiples)
+    a_km = (order == "C") != (ta == "T")
+    b_nk = (order == "C") != (tb == "T")
     runs, want, base = [], None, None
     for tag, xfer, c_xfer in modes:
         label = f"{tag} {shape} transfer={xfer} c_transfer={c_xfer}"
@@ -698,14 +747,18 @@ def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta,
         # every step on the mode's K1 variant: the superblocks are
         # zero-padded to blk
         variant = K1_OF[xfer]
+        packs = steps * (int(a_km) + int(not b_nk)) \
+            if variant in ("bf16", "s8") else 0
         _check_launches(label, launches, {
-            "accum_matmul": steps, f"accum_matmul[{variant}]": steps})
+            "accum_matmul": steps, f"accum_matmul[{variant}]": steps,
+            "accum_matmul.lowp_packs": packs})
         flop = 2.0 * m * n * k
         h2d, d2h = stages["gemm.h2d_bytes"], stages["gemm.d2h_bytes"]
         print(f"[{label}] wall {wall:.3f} s, {flop / wall / 1e9:.1f} GFLOP/s, "
               f"K1 launches {launches['accum_matmul']} (= mB*nB*kB, all "
-              f"{variant}), peak device memory {peak / 2**30:.2f} GiB, h2d "
-              f"{h2d / 2**30:.3f} GiB, d2h {d2h / 2**30:.3f} GiB", flush=True)
+              f"{variant}, {packs} operands packed), peak device memory "
+              f"{peak / 2**30:.2f} GiB, h2d {h2d / 2**30:.3f} GiB, d2h "
+              f"{d2h / 2**30:.3f} GiB", flush=True)
         _stages(label, stages, "gemm.",
                 ("disk_wait_s", "prep_s", "h2d_s", "c_read_s", "tile_wait_s",
                  "accum_wait_s", "d2h_s", "write_wait_s"))
@@ -1337,16 +1390,17 @@ def csrgemv_phase(dev, scratch, prefix, a_sp, trans, tag="S5",
 
 
 def _ptxas_report(log: str) -> None:
-    """Print what ptxas says of each kernel; raise if the tensor-core
-    kernel spills."""
+    """Print what ptxas says of each kernel; raise if a tensor-core
+    kernel (K1's fp32 or low-precision wgmma kernel) spills."""
     entry = ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         if any(w in line for w in ("Compiling entry", "registers", "spill",
-                                   "warning")):
+                                   "warning", "C75")):
             print("ptxas:", line.strip())
-        if "spill stores" in line and "accum_tf32_kernel" in entry \
+        if "spill stores" in line and ("accum_tf32_kernel" in entry
+                                       or "accum_lowp_kernel" in entry) \
                 and "0 bytes spill stores, 0 bytes spill loads" not in line:
             raise AssertionError(f"{entry} spills: {line.strip()}")
     sys.stdout.flush()

@@ -22,9 +22,11 @@ import pytest
 import torch
 
 import bof_tpu_torch
-from bof_tpu_torch.ops.matmul_cuda import (K1_VARIANTS, accum_matmul,
-                                           accum_matmul_ref,
-                                           accum_matmul_tf32_ref, k1_variant,
+from bof_tpu_torch.ops.cuda_lib import build
+from bof_tpu_torch.ops.matmul_cuda import (K1_S8_MAX_K, K1_VARIANTS,
+                                           accum_matmul, accum_matmul_ref,
+                                           accum_matmul_tf32_ref, k1_ldw,
+                                           k1_variant, pack_kmajor_ref,
                                            tf32_truncate)
 from bof_tpu_torch.sparse.spmm_cuda import (promote_vals, spmm_ell,
                                             spmm_ell_ref, spmv_ell,
@@ -159,16 +161,18 @@ def _lowp_operands(rng, m, n, k, a_km, b_nk, c_nm, dtype, device):
 
 
 @pytest.mark.parametrize("shape", [(300, 211, 147), (1000, 776, 516),
-                                   (129, 5, 1027)])
+                                   (129, 5, 1027), (512, 384, 1024)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
 def test_lowp_variant_matches_plain(cuda_device, shape, dtype, a_km, b_nk,
                                     c_nm):
     """K1 'bf16' and 's8' on every layout, at ragged shapes whose leading
-    dimensions are not multiples of 16 bytes (masked loads) and at one
-    whose are: 'bf16' within the fp32 tolerance of the plain version
-    (exact products, another summation order), 's8' bit for bit (an exact
-    int32 sum, then the same two fp32 roundings)."""
+    dimensions are not multiples of 16 bytes (every operand packed) and at
+    16-byte aligned ones (read in place by TMA where K-major: nothing
+    packed at a_km=0, b_nk=1): 'bf16' within the fp32 tolerance of the
+    plain version (exact products, another summation order), 's8' bit for
+    bit (an exact int32 sum, then the same two fp32 roundings).  The pack
+    count moves by the operands that are MN-major or not 16-byte rows."""
     rng = np.random.default_rng(sum(shape) + a_km + 2 * b_nk + 4 * c_nm)
     m, n, k = shape
     a, b, got = _lowp_operands(rng, m, n, k, a_km, b_nk, c_nm, dtype,
@@ -179,14 +183,61 @@ def test_lowp_variant_matches_plain(cuda_device, shape, dtype, a_km, b_nk,
     assert variant == ("bf16" if dtype == torch.bfloat16 else "s8")
     want = accum_matmul_ref(got.clone(), a, b, alpha, **flags)
     before = accum_matmul.variant_launches[variant]
+    packs = accum_matmul.lowp_packs
     accum_matmul(got, a, b, alpha, **flags)
     torch.cuda.synchronize()
     assert accum_matmul.variant_launches[variant] == before + 1
+    rows_ok = (a.shape[1] * a.element_size() % 16 == 0,
+               b.shape[1] * b.element_size() % 16 == 0)
+    assert accum_matmul.lowp_packs - packs == int(a_km or not rows_ok[0]) \
+        + int(not b_nk or not rows_ok[1])
     if dtype == torch.int8:
         assert torch.equal(got, want)
     else:
         err = float((got - want).abs().max())
         assert err <= 2e-4 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("a_km,b_nk", list(itertools.product([False, True],
+                                                             repeat=2)))
+def test_lowp_pack_pass_is_its_plain_version(cuda_device, dtype, a_km, b_nk):
+    """The kernel on operands it packs itself gives the same bits as on
+    K-major copies made by pack_kmajor_ref (read in place, nothing
+    packed): the same products summed in the same order."""
+    rng = np.random.default_rng(17 + a_km + 2 * b_nk)
+    m, n, k = 384, 272, 1008  # 16-byte rows in both types
+    a, b, c = _lowp_operands(rng, m, n, k, a_km, b_nk, False, dtype,
+                             cuda_device)
+    alpha = 0.75
+    got = accum_matmul(c.clone(), a, b, alpha, a_km=a_km, b_nk=b_nk,
+                       c_nm=False)
+    a_k = pack_kmajor_ref(a, mn_major=a_km, ld=k)
+    b_k = pack_kmajor_ref(b, mn_major=not b_nk, ld=k)
+    packs = accum_matmul.lowp_packs
+    want = accum_matmul(c.clone(), a_k, b_k, alpha, a_km=False, b_nk=True,
+                        c_nm=False)
+    torch.cuda.synchronize()
+    assert accum_matmul.lowp_packs == packs
+    assert torch.equal(got, want)
+
+
+def test_s8_refuses_a_large_k_on_the_card(cuda_device):
+    """K above 2^17 could overflow the int32 sum: the wrapper raises, and
+    the entry point itself refuses it without launching."""
+    k = K1_S8_MAX_K + 16
+    a = torch.ones((16, k), dtype=torch.int8, device=cuda_device)
+    b = torch.ones((16, k), dtype=torch.int8, device=cuda_device)
+    c = torch.zeros((16, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="overflow"):
+        accum_matmul(c, a, b, 1.0, a_km=False, b_nk=True, c_nm=False)
+    rc = build().bof_accum_matmul_lowp(
+        c.data_ptr(), a.data_ptr(), b.data_ptr(), 1.0, 16, 16, k, 0, 1, 0,
+        k, k, 16, 1, None, None, k1_ldw(k, 1),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc != 0
+    assert not c.any()
 
 
 @pytest.mark.parametrize("order,ta,tb", [("R", "N", "N"), ("C", "T", "N")])

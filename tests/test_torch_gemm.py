@@ -136,8 +136,48 @@ def test_gemm_in_mem_twin_matches_reference():
     c = rng.standard_normal((33, 19)).astype(F32)
     want = bof_tpu.gemm_in_mem(a, b, c, alpha=1.25, beta=0.5, transb="T")
     got = bof_tpu_torch.gemm_in_mem(a, b, c, alpha=1.25, beta=0.5,
-                                    transb="T")
+                                    transb="T", device="cpu")
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("prec", ["highest", "high", "default"])
+@pytest.mark.parametrize("transa,transb", [("N", "N"), ("T", "N"),
+                                           ("N", "T"), ("T", "T")])
+def test_gemm_in_mem_every_precision_matches_reference(prec, transa, transb):
+    """bof_tpu's signature, `prec` passed by position as its in-memory
+    drivers pass it: full fp32 on the CPU at every tier, as bof_tpu's dot
+    is on a CPU (rtol 2e-4, the repo's fp32 invariant)."""
+    rng = np.random.default_rng(6)
+    m, n, k = 45, 27, 38
+    a = rng.standard_normal((k, m) if transa == "T" else (m, k)).astype(F32)
+    b = rng.standard_normal((n, k) if transb == "T" else (k, n)).astype(F32)
+    c = rng.standard_normal((m, n)).astype(F32)
+    want = bof_tpu.gemm_in_mem(a, b, c, 0.75, -1.5, transa, transb, prec)
+    got = bof_tpu_torch.gemm_in_mem(a, b, c, 0.75, -1.5, transa, transb,
+                                    prec, device="cpu")
+    assert got.dtype == want.dtype == F32
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4)
+
+
+def test_gemm_in_mem_unknown_precision_raises():
+    a = np.ones((4, 4), F32)
+    with pytest.raises(ValueError, match="precision"):
+        bof_tpu_torch.gemm_in_mem(a, a, prec="fastest", device="cpu")
+
+
+def test_gemm_in_mem_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """`device` is keyword-only and defaults to the card: without one the
+    call raises instead of running on the CPU."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = np.ones((4, 4), F32)
+    with pytest.raises(RuntimeError, match="is_available"):
+        bof_tpu_torch.gemm_in_mem(a, a)
+    with pytest.raises(TypeError):
+        bof_tpu_torch.gemm_in_mem(a, a, None, 1.0, 0.0, "N", "N", "highest",
+                                  "cpu")
+    np.testing.assert_allclose(bof_tpu_torch.gemm_in_mem(a, a, device="cpu"),
+                               np.full((4, 4), 4.0, F32))
 
 
 def test_resume_journal_is_the_reference_format_and_byte_identical(

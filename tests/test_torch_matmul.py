@@ -23,6 +23,8 @@ from bof_tpu_torch.ops.matmul_cuda import (K1_PASSES, K1_S8_MAX_K,
                                            accum_matmul_ref,
                                            accum_matmul_tf32_ref, k1_ldw,
                                            k1_variant, k1_workspace,
+                                           lowp_packs, pack_kmajor_ref,
+                                           reset_launch_counts,
                                            tf32_truncate)
 
 LAYOUTS = list(itertools.product([False, True], repeat=3))
@@ -286,7 +288,8 @@ def test_s8_refuses_a_k_whose_int32_sum_could_overflow():
 @pytest.mark.parametrize("prec", ["highest", "default"])
 def test_k1_variant_by_operand_type(dtype, want, prec):
     """The transfer modes' operands pick their variants at every precision
-    and any leading dimension (those kernels mask their loads)."""
+    and any leading dimension (their pack pass rewrites what TMA cannot
+    read in place)."""
     assert k1_variant(513, 777, prec, dtype=dtype) == want
     assert "bf16" in K1_VARIANTS and "s8" in K1_VARIANTS
 
@@ -296,3 +299,101 @@ def test_mixed_operand_types_raise():
         accum_matmul(torch.zeros(2, 2), torch.zeros(2, 2, dtype=torch.int8),
                      torch.zeros(2, 2, dtype=torch.bfloat16), 1.0,
                      a_km=False, b_nk=False, c_nm=False)
+
+
+@pytest.mark.parametrize("ld_extra", [0, 11])
+@pytest.mark.parametrize("mn_major", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_pack_kmajor_ref_is_a_transpose_and_pad(rng, dtype, mn_major,
+                                                ld_extra):
+    """The pack pass's plain version against numpy: the K-major copy of
+    the stored operand, rows ld apart, zero past K; bit for bit."""
+    rows, k = 19, 37
+    shape = (k, rows) if mn_major else (rows, k)
+    if dtype == torch.int8:
+        bits = rng.integers(-127, 128, shape).astype(np.int8)
+        x = torch.from_numpy(bits)
+    else:
+        bits = cast_bf16(rng.standard_normal(shape).astype(np.float32))
+        x = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+        bits = bits.view(np.int16)
+    ld = k + ld_extra
+    got = pack_kmajor_ref(x, mn_major=mn_major, ld=ld)
+    want = np.zeros((rows, ld), bits.dtype)
+    want[:, :k] = bits.T if mn_major else bits
+    assert got.dtype == dtype and got.is_contiguous()
+    got_bits = got.view(torch.int16) if dtype == torch.bfloat16 else got
+    np.testing.assert_array_equal(got_bits.numpy(), want)
+    with pytest.raises(ValueError):
+        pack_kmajor_ref(x, mn_major=mn_major, ld=k - 1)
+
+
+def test_lowp_workspace_rows_are_16_bytes():
+    """The pack pass's workspace rows: K rounded up to 16 bytes."""
+    assert [k1_ldw(k, 2) for k in (1, 8, 516, 1027)] == [8, 8, 520, 1032]
+    assert [k1_ldw(k, 1) for k in (1, 16, 516, 8192)] == [16, 16, 528, 8192]
+    assert k1_ldw(513) == k1_ldw(513, 4) == 516
+
+
+@pytest.mark.parametrize("dtype,ld,rows_ok", [
+    (torch.bfloat16, 8192, True), (torch.bfloat16, 1024, True),
+    (torch.bfloat16, 516, False), (torch.bfloat16, 1027, False),
+    (torch.int8, 8192, True), (torch.int8, 1024, True),
+    (torch.int8, 516, False), (torch.int8, 1032, False)])
+@pytest.mark.parametrize("a_km,b_nk", list(itertools.product([False, True],
+                                                             repeat=2)))
+def test_lowp_pack_rule(a_km, b_nk, dtype, ld, rows_ok):
+    """Which operands the 'bf16'/'s8' wrapper packs: an MN-major one (A
+    stored (K,M), B stored (K,N)), or one whose rows are not a multiple of
+    16 bytes apart or whose base is not 16-byte aligned."""
+    want = (a_km or not rows_ok, not b_nk or not rows_ok)
+    assert lowp_packs(a_km, b_nk, ld, ld, dtype) == want
+    assert lowp_packs(a_km, b_nk, ld, ld, dtype, (True, True)) == want
+    assert lowp_packs(a_km, b_nk, ld, ld, dtype,
+                      aligned=(False, True)) == (True, want[1])
+    assert lowp_packs(a_km, b_nk, ld, ld, dtype,
+                      aligned=(True, False)) == (want[0], True)
+    assert lowp_packs(a_km, b_nk, ld, ld, dtype,
+                      aligned=(False, False)) == (True, True)
+
+
+def test_lowp_pack_rule_on_the_main_paths():
+    """S6 (int8, R/N/N at blk 8192: A (M,K), B (K,N)) packs B alone; S7
+    (bf16, C/T/N: a_km False, b_nk True) packs nothing."""
+    assert lowp_packs(False, False, 8192, 8192, torch.int8) == (False, True)
+    assert lowp_packs(False, True, 8192, 8192, torch.bfloat16) == (False,
+                                                                   False)
+
+
+def test_lowp_pack_count_is_reset_and_left_alone_on_the_cpu(rng):
+    """reset_launch_counts zeroes the pack count; the CPU path (the plain
+    versions) packs nothing and launches nothing."""
+    accum_matmul.lowp_packs = 5
+    reset_launch_counts()
+    assert accum_matmul.lowp_packs == 0 and accum_matmul.launches == 0
+    a = torch.zeros((8, 6), dtype=torch.int8)
+    accum_matmul(torch.zeros(6, 5), a, torch.zeros((8, 5), dtype=torch.int8),
+                 1.0, a_km=True, b_nk=False, c_nm=False)
+    assert accum_matmul.lowp_packs == 0 and accum_matmul.launches == 0
+
+
+def test_lowp_variant_tool_edits_apply_to_the_committed_kernel():
+    """tools/torch_k1_lowp_variants.py times textual variants of
+    csrc/matmul_lowp.cu (the measurements PERF.md cites): each edit must
+    still find its text in the committed source, once."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "k1_lowp_variants",
+        os.path.join(root, "tools", "torch_k1_lowp_variants.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(os.path.join(tool.CSRC, "matmul_lowp.cu")) as f:
+        src = f.read()
+    variants = tool._variants(src)
+    assert variants["committed"] == src
+    assert set(variants) == {"committed", "no_c_store", "serial_epilogue",
+                             "epi_chunks_16", "wait_without_watchdog"}
+    assert all(v != src for name, v in variants.items()
+               if name != "committed")
