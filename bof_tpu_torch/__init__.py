@@ -12,15 +12,22 @@ What is ported so far:
   CUDA kernel K1 (ops/matmul_cuda.py);
 - the sparse slice: flash-resident CSR (`CsrFlashMatrix`), `csrmm` whose
   device block product is the CUDA ELL SpMM kernel K2, `csrgemv` on the
-  CUDA ELL SpMV, and the host transpose `csrcsc` (sparse/).
+  CUDA ELL SpMV, and the host transpose `csrcsc` (sparse/);
+- float64 gemm on K1's DMMA variant, also as `gemm64` (bof_tpu's name);
+  tile-major files (`repack`, `unpack`); out-of-core k-means
+  (`kmeans_fit`, `lloyds_iter`) whose Lloyd block step is the CUDA kernel
+  pair B7 (ops/kmeans.py); and the dense and k-means CLI drivers.
 ROADMAP.md lists what follows.
 """
 from .config import DEFAULT_CONFIG, FlashConfig, config_from_reference
 from .context import FlashContext, flash_destroy, flash_setup, get_context
 from .core import (FlashArray, TiledFlashArray, flash_empty, flash_free,
                    map_array, map_tiled_array, mem_array)
+from .core.tiled_array import repack, unpack
 from .io import MemStore, StrideInfo
 from .ops import gemm, gemm_in_mem
+from .ops.gemm64 import gemm64
+from .ops.kmeans import kmeans_fit, lloyds_iter
 from .sparse import CsrFlashMatrix, csrcsc, csrgemv, csrmm
 
 __version__ = "0.1.0"
@@ -30,5 +37,6 @@ __all__ = [
     "FlashContext", "flash_destroy", "flash_setup", "get_context",
     "FlashArray", "TiledFlashArray", "flash_empty", "flash_free",
     "map_array", "map_tiled_array", "mem_array", "MemStore", "StrideInfo",
-    "gemm", "gemm_in_mem", "CsrFlashMatrix", "csrcsc", "csrgemv", "csrmm",
+    "repack", "unpack", "gemm", "gemm64", "gemm_in_mem", "kmeans_fit",
+    "lloyds_iter", "CsrFlashMatrix", "csrcsc", "csrgemv", "csrmm",
 ]

@@ -40,6 +40,11 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                         "csrgemv): device = the ELL kernels on the card, "
                         "host = scipy on the pinned tile (the reference's "
                         "MKL-on-host model), auto = by measured link rate")
+    p.add_argument("--fp64-device", default="auto",
+                   choices=["auto", "sliced", "native"],
+                   help="accepted for bof_tpu's command lines and ignored: "
+                        "float64 runs natively on the card's fp64 tensor "
+                        "cores (K1 'f64')")
     p.add_argument("--device", default="cuda",
                    help="torch device to compute on (cuda, cuda:N, cpu); "
                         "never auto-detected")

@@ -40,8 +40,8 @@ def main(argv=None) -> float:
     p.add_argument("--create-c", action="store_true")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"],
-                   help="float64 is not ported yet and raises "
-                        "NotImplementedError (ROADMAP A13)")
+                   help="float64 runs K1's 'f64' variant (DMMA) on the "
+                        "card (FP_DOUBLE_PRECISION parity)")
     p.add_argument("--resume-journal", default=None,
                    help="journal file for superblock-granular "
                         "kill-and-resume; requires beta=0; removed on "

@@ -7,7 +7,7 @@ plain C entry points loaded with ctypes, no PyTorch headers), keyed by a
 digest of the flags and of every `csrc/*.cu` and `*.cuh`, and serialized
 by a flock.  Nothing is linked beyond nvcc's defaults: the TMA tensor
 maps' encoder is fetched from the driver at run time.  A failed
-build raises.  The kernel wrappers (`ops/matmul_cuda.py`,
+build raises.  The kernel wrappers (`ops/matmul_cuda.py`, `ops/kmeans.py`,
 `sparse/spmm_cuda.py`) take their entry points from `build()`.
 """
 from __future__ import annotations
@@ -29,8 +29,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_P, _I, _LL, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float, ctypes.c_double
 # entry point -> argtypes (every one returns cudaGetLastError() as an int)
 _ENTRIES = {
     "bof_accum_matmul_f32": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
@@ -39,6 +39,10 @@ _ENTRIES = {
                               _LL, _LL, _LL, _I, _P, _P, _P, _P, _LL, _P],
     "bof_accum_matmul_lowp": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                               _LL, _LL, _LL, _I, _P, _P, _LL, _P],
+    "bof_accum_matmul_f64": [_P, _P, _P, _D, _I, _I, _I, _I, _I, _I,
+                             _LL, _LL, _LL, _P],
+    "bof_lloyd_assign": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "bof_lloyd_accumulate": [_P, _P, _P, _P, _I, _I, _I, _P],
     "bof_spmm_ell": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F, _LL, _LL, _LL,
                      _I, _P],
     "bof_spmv_ell": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F, _LL, _LL, _I,

@@ -102,8 +102,11 @@ def sync(t: torch.Tensor) -> None:
         torch.cuda.current_stream(t.device).synchronize()
 
 
-def zeros_block(shape, device: torch.device) -> torch.Tensor:
-    return torch.zeros(shape, dtype=torch.float32, device=device)
+def zeros_block(shape, device: torch.device,
+                dtype=np.float32) -> torch.Tensor:
+    """A fresh C accumulator (beta == 0), in C's numpy `dtype`."""
+    tdt = torch.from_numpy(np.zeros(0, dtype)).dtype
+    return torch.zeros(shape, dtype=tdt, device=device)
 
 
 def scale_init(c: torch.Tensor, beta: float) -> torch.Tensor:
@@ -126,7 +129,8 @@ def accum_step(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     tier: 'highest' and 'high' run K1 as 3xTF32, 'default' as one TF32
     pass (`matmul_cuda.K1_PASSES`); an unknown value raises ValueError.
     bf16 tiles (transfer_dtype='bfloat16') run K1's 'bf16' variant at every
-    `prec`, with the fp32 accumulator bof_tpu keeps for them."""
+    `prec`, with the fp32 accumulator bof_tpu keeps for them; float64
+    tiles run K1's 'f64' variant (DMMA) at every `prec`."""
     return accum_matmul(c, a, b, alpha, a_km=a_km, b_nk=b_nk, c_nm=c_nm,
                         prec=prec)
 

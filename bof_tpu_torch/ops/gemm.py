@@ -33,8 +33,12 @@ c_transfer_dtype='bfloat16' rounds each finished C block on the device,
 downloads half the bytes and widens them exactly on the host.  The host
 rounding is bof_tpu's engine's, bit for bit.
 
-Not ported yet, and refused with NotImplementedError rather than routed
-elsewhere: float64 (ROADMAP A13).
+float64 (the reference's FP_DOUBLE_PRECISION build, bof_types.h:24-42)
+runs the same pipeline with float64 tiles and accumulators, and K1's
+'f64' variant (DMMA on the fp64 tensor cores) as the accumulate step;
+`ops/gemm64.py:gemm64` is the same call under bof_tpu's name.  With
+`FlashConfig.debug_checks` a float64 call first reads every A and B tile
+once and rejects a non-finite value, as bof_tpu's `gemm64` does.
 """
 from __future__ import annotations
 
@@ -160,21 +164,42 @@ def _load_journal(path: str, header: str) -> set:
 
 
 def _check_slice(cfg, dtype) -> None:
-    """Refuse what this port does not carry yet, naming the ROADMAP item,
-    and, as bof_tpu does, a transfer mode on operands that are not
-    float32."""
-    if dtype == np.float64:
-        raise NotImplementedError(
-            "float64 gemm is not ported yet (ROADMAP A13: fp64 gemm on "
-            "Hopper fp64 tensor cores)")
+    """Refuse, as bof_tpu does, a transfer mode on operands that are not
+    float32, and what this port does not carry: operands other than float32
+    and float64."""
     xfer = cfg.transfer_dtype
     if xfer in ("bfloat16", "int8") and dtype != np.float32:
         raise ValueError(f"{xfer} transfer mode needs float32 operands")
     if cfg.c_transfer_dtype == "bfloat16" and dtype != np.float32:
         raise ValueError("bfloat16 C transfer mode needs float32 C")
-    if dtype != np.float32:
+    if dtype not in (np.float32, np.float64):
         raise NotImplementedError(f"gemm on {dtype} operands: the port "
-                                  "carries float32 only")
+                                  "carries float32 and float64")
+
+
+def _check_finite(arr: FlashArray, access, outer: int, inner: int, sb: int,
+                  cache) -> None:
+    """debug_checks on float64: one read of every superblock of op(arr)
+    ((outer, inner) its logical shape, `access` `_op_block_reader`'s)
+    through the pin cache, raising ValueError at the first non-finite
+    value, before anything is computed (bof_tpu's gemm64 checks in its
+    amax pre-pass, ops/gemm64.py:244-252).  The pin is released on every
+    path, so a retry after fixing the operand reads it afresh."""
+    for o in range(cdiv(outer, sb)):
+        bo = min(sb, outer - o * sb)
+        for q in range(cdiv(inner, sb)):
+            bq = min(sb, inner - q * sb)
+            (off, sinfo), st_shape = access(o * sb, q * sb, bo, bq)
+            pin = cache.pin_read(arr.store, off, sinfo)
+            try:
+                cache.wait_ready(pin)
+                tile = cache.buf(pin).view(arr.dtype).reshape(st_shape)
+                if not np.isfinite(tile).all():
+                    raise ValueError(
+                        f"gemm: non-finite value in operand block "
+                        f"({o * sb},{q * sb}) with debug_checks on")
+            finally:
+                cache.unpin(pin)
 
 
 def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
@@ -186,7 +211,8 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
 
     a: logical (m,k) if transa=='N' else (k,m)
     b: logical (k,n) if transb=='N' else (n,k)
-    c: logical (m,n).  Layouts may mix freely.
+    c: logical (m,n).  Layouts may mix freely.  float32 or float64 (K1's
+    'f64' variant), all three of one dtype.
 
     `resume_journal` makes the kernel restartable at C-SUPERBLOCK
     granularity (beyond the reference, which restarts only at kernel
@@ -238,6 +264,9 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
     c_xfer_bf16 = cfg.c_transfer_dtype == "bfloat16"
 
     cache = ctx.pin_cache()
+    if cfg.debug_checks and c.dtype == np.float64:
+        _check_finite(a, a_access, m, k, sb, cache)
+        _check_finite(b, b_access, k, n, sb, cache)
     hbm = HbmCache(cfg.hbm_budget)
     depth = max(1, cfg.pipeline_depth)
     sync_mode = cfg.telemetry_sync
@@ -504,8 +533,9 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
     writ_t.start()
 
     c_live: dict = {}  # j -> device accumulator for the current i sweep
-    alpha_s = float(np.float32(alpha))
-    beta_s = float(np.float32(beta))
+    # alpha and beta in C's dtype, as bof_tpu passes them
+    alpha_s = float(np.dtype(c.dtype).type(alpha))
+    beta_s = float(np.dtype(c.dtype).type(beta))
     try:
         for idx, (i, j, l) in enumerate(steps):
             item = None
@@ -525,7 +555,8 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
             if l == 0:
                 c_live[j] = (dev.scale_init(c_init, beta_s)
                              if c_init is not None
-                             else dev.zeros_block(c_full_storage, device))
+                             else dev.zeros_block(c_full_storage, device,
+                                                  c.dtype))
             if xfer_int8:
                 (a_q, sa), (b_q, sb_q) = a_dev, b_dev
                 # bof_tpu's scale, computed as it computes it

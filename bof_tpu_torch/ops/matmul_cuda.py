@@ -21,6 +21,11 @@ On the transfer modes' operands (FlashConfig.transfer_dtype), C fp32:
   alpha = its scale); K at most `K1_S8_MAX_K`.
 Both read K-major operands only: a pack pass in the same file first
 writes a K-major copy of each operand `lowp_packs` names.
+On float64 C, A and B (bof_tpu's FP_DOUBLE_PRECISION gemm):
+- 'f64' (`csrc/matmul_f64.cu`): DMMA on the fp64 tensor cores, every
+  layout and leading dimension, at every precision (bof_tpu's Ozaki
+  emulation, `ops/gemm64.py:_slice_accum`, exists only because a TPU has
+  no fp64 unit).
 
 The kernels are built at first use with the port's other kernels into one
 library (`ops/cuda_lib.py`).
@@ -34,7 +39,7 @@ from .cuda_lib import build
 # matmul precision -> tensor-core passes; each tier keeps at least the bits
 # the TPU's tier keeps ('highest': 6 bf16 passes; 'default': 1 bf16 pass)
 K1_PASSES = {"highest": 3, "high": 3, "default": 1}
-K1_VARIANTS = ("tf32x3", "tf32", "ffma", "bf16", "s8")
+K1_VARIANTS = ("tf32x3", "tf32", "ffma", "bf16", "s8", "f64")
 # the int32 sum of K int8 products is exact while 127^2 * K < 2^31
 K1_S8_MAX_K = 1 << 17
 _LOWP = {torch.bfloat16: ("bf16", 0), torch.int8: ("s8", 1)}
@@ -64,9 +69,10 @@ def _passes(prec: str) -> int:
 
 def k1_variant(lda: int, ldb: int, prec: str, *, aligned: bool = True,
                dtype: torch.dtype = torch.float32) -> str:
-    """The K1 variant a CUDA launch runs.  bf16 operands (`dtype`) run
-    'bf16' and int8 operands 's8', whatever their layout (their pack pass
-    makes a K-major copy where TMA cannot read one, `lowp_packs`).  fp32
+    """The K1 variant a CUDA launch runs.  float64 operands (`dtype`) run
+    'f64', bf16 operands 'bf16' and int8 operands 's8', whatever their
+    layout (the low-precision pack pass makes a K-major copy where TMA
+    cannot read one, `lowp_packs`).  fp32
     operands run 'tf32x3' for 'highest'/'high', 'tf32' for 'default',
     when TMA can describe both (storage leading
     dimensions `lda`, `ldb` multiples of 4 floats, i.e. 16 bytes, and both
@@ -74,6 +80,8 @@ def k1_variant(lda: int, ldb: int, prec: str, *, aligned: bool = True,
     otherwise.  C has no constraint (the epilogue stores floats one by
     one).  Raises ValueError on an unknown `prec`."""
     passes = _passes(prec)
+    if dtype == torch.float64:
+        return "f64"
     if dtype in _LOWP:
         return _LOWP[dtype][0]
     if not aligned or lda % 4 or ldb % 4:
@@ -139,14 +147,15 @@ def accum_matmul_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                      alpha: float, *, a_km: bool, b_nk: bool,
                      c_nm: bool) -> torch.Tensor:
     """Plain PyTorch version of K1 at every precision: c += alpha *
-    op(a) @ op(b) in c's storage layout, in place; returns c.  bf16
-    operands are promoted to fp32 first (their products are exact there);
-    int8 operands take `accum_matmul_s8_ref`."""
+    op(a) @ op(b) in c's storage layout, in place; returns c.  float64
+    stays float64 throughout; bf16 operands are promoted to fp32 first
+    (their products are exact there); int8 operands take
+    `accum_matmul_s8_ref`."""
     _logical_dims(c, a, b, a_km, b_nk, c_nm)
     if a.dtype == torch.int8:
         return accum_matmul_s8_ref(c, a, b, alpha, a_km=a_km, b_nk=b_nk,
                                    c_nm=c_nm)
-    a, b = a.to(torch.float32), b.to(torch.float32)
+    a, b = a.to(c.dtype), b.to(c.dtype)
     out = (a.T if a_km else a) @ (b.T if b_nk else b)
     return c.add_(out.T if c_nm else out, alpha=float(alpha))
 
@@ -185,21 +194,24 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                  c_nm: bool, prec: str = "highest") -> torch.Tensor:
     """c += alpha * op(a) @ op(b), in place, all in storage-major layout:
     a is (M,K) or (K,M) with a_km; b is (K,N) or (N,K) with b_nk; c is
-    (M,N) or (N,M) with c_nm.  c fp32; a and b both fp32, both bf16 or both
-    int8 (then alpha is bof_tpu's scale alpha * s_a * s_b and K at most
-    K1_S8_MAX_K); contiguous, one device.  CUDA tensors launch the K1
-    variant `k1_variant` names on the current stream; CPU tensors take the
-    plain version, full fp32 at every `prec`."""
+    (M,N) or (N,M) with c_nm.  c fp32 with a and b both fp32, both bf16 or
+    both int8 (then alpha is bof_tpu's scale alpha * s_a * s_b and K at
+    most K1_S8_MAX_K); or all three float64.  Contiguous, one device.  CUDA
+    tensors launch the K1 variant `k1_variant` names on the current stream;
+    CPU tensors take the plain version, full fp32 (or fp64) at every
+    `prec`."""
     m, n, k = _logical_dims(c, a, b, a_km, b_nk, c_nm)
     passes = _passes(prec)
     devs = {c.device, a.device, b.device}
     if len(devs) != 1:
         raise ValueError(f"accum_matmul operands on several devices: {devs}")
-    if c.dtype != torch.float32 or a.dtype != b.dtype or a.dtype not in (
-            torch.float32, torch.bfloat16, torch.int8):
+    f64 = c.dtype == a.dtype == b.dtype == torch.float64
+    if not f64 and (c.dtype != torch.float32 or a.dtype != b.dtype
+                    or a.dtype not in (torch.float32, torch.bfloat16,
+                                       torch.int8)):
         raise TypeError(f"accum_matmul takes fp32 C and fp32, bf16 or int8 "
-                        f"A and B of one type (c {c.dtype}, a {a.dtype}, "
-                        f"b {b.dtype})")
+                        f"A and B of one type, or float64 C, A and B (c "
+                        f"{c.dtype}, a {a.dtype}, b {b.dtype})")
     if a.dtype == torch.int8 and k > K1_S8_MAX_K:
         raise ValueError(f"int8 accum_matmul with k={k} > {K1_S8_MAX_K}: "
                          "the int32 sum could overflow")
@@ -231,6 +243,12 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 k, int(a_km), int(b_nk), int(c_nm), lda, ldb, c.shape[1],
                 _LOWP[a.dtype][1], *(None if w is None else w.data_ptr()
                                      for w in ws), ldw, stream)
+        elif variant == "f64":
+            entry = "bof_accum_matmul_f64"
+            rc = lib.bof_accum_matmul_f64(
+                c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha), m, n,
+                k, int(a_km), int(b_nk), int(c_nm), lda, ldb, c.shape[1],
+                stream)
         elif variant == "ffma":
             entry = "bof_accum_matmul_f32"
             rc = lib.bof_accum_matmul_f32(

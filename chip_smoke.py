@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive bof_tpu_torch's out-of-core SGEMM and sparse paths, in fp32 and
-in their link-compressed transfer modes, once on one CUDA card.
+in their link-compressed transfer modes, then its float64 gemm and its
+out-of-core k-means, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -90,14 +91,43 @@ Steps, each of which raises (exit code != 0) when it fails:
    and column panel once (`csrmm.d2h_bytes`); the wall time, GFLOP/s,
    the driver's GB/s, stage seconds and peak device memory.
 
+10. K1 'f64' (DMMA) against its float64 plain version on the 8 layouts
+   at 8192^3 and 1000x776x516, each element within bof_tpu's scaled bound
+   1e-12 * k * max|A row| * max|B col| * |alpha|; B7 (`lloyd_assign`,
+   `lloyd_accumulate`) against its plain version at S11's block (bn
+   131072, d 128, k 1024) and at 1000x33x7 (labels equal but at float64
+   near-ties, mind, counts, sums; accumulate bit-identical run to run);
+   each timed beside its plain version, its library call(s) and its
+   bound; ptxas must report no spills for either;
+11. S10, gemm 16384^3 float64 order R N/T, alpha -1.5, beta 0.5, through
+   `drivers.gemm --dtype float64`: 8 K1 launches, all 'f64'; 16 rows and
+   16 columns against float64 numpy within 1e-12 * (k * max|A row| *
+   max|B col| * |alpha| + |beta| * |C0|);
+12. S11, `drivers.kmeans` on 2^24 seeded blob points (d 128, k 1024, fp32,
+   8 GiB, 3 iterations, --labels-out) streamed through the pin cache:
+   B7 launched 128 * 4 times; the labels of 65536 seeded points against
+   the float64 argmin to the returned centers (near-ties allowed), the
+   inertia against float64 (rtol 1e-4), and one more Lloyd step from the
+   returned centers (outside the counted run): the same labels bit for
+   bit, exact counts, centers the float64 mean under those labels;
+13. S11b, `kmeans_fit` on 2^21 such points resident on the card (one
+   upload) and streamed (a host budget below the panel): the same centers
+   and labels, 1 and 4 panels over the link;
+14. `drivers.gemm_run` on the card for float32 and float64 with
+   --ld-pad 5: ALL PASS, every K1 launch on the dtype's variant.
+
 Operands are written from seeded generators under `$BOF_SCRATCH`
 (default `build/chip_smoke` in this checkout), which must be a real
-filesystem (O_DIRECT) with about 24 GiB free; every file is deleted after
-its check.  TF32 is switched off, so every torch matmul here is full fp32
-(but for the one timing that asks for it).
-With BOF_SMOKE_PROFILE=1 the S1, S2 and S3 calls run under torch.profiler
-and the device time by kernel (and a launch, for K1, K2 and the SpMV) and
-the device's busy share are printed.
+filesystem (O_DIRECT) with about 40 GiB free.  A phase's big files
+become spares when it ends, and the phases after S9 write their files
+over a spare's blocks: the card's machine charges every block a run ever
+writes (a deleted file's blocks are not given back) against a 45 GiB
+disk image, and S1-S9 alone use about 36 GiB of it.  The spares are
+deleted at the end.  TF32 is switched off, so every torch matmul here is
+full fp32 (but for the one timing that asks for it).
+With BOF_SMOKE_PROFILE=1 the S1, S2, S3, S10 and S11 calls run under
+torch.profiler and the device time by kernel (and a launch, for K1, K2,
+the SpMV and B7) and the device's busy share are printed.
 
 The line before the last is the kernel summary as JSON, one entry a
 kernel variant the main paths launched (each one's time, plain and
@@ -122,7 +152,9 @@ RTOL = 2e-4            # the repo's fp32 tolerance (accumulation order)
 ATOL_SCALE = 1e-5      # atol = ATOL_SCALE * sqrt(k) * max|op(A)| * max|op(B)| * |alpha|
 N_SAMPLES = 16
 CHUNK = 2048           # rows per chunk when streaming operands from disk
-MIN_FREE = 24 << 30    # S3 holds A (1.65 GB), B (2 GiB) and C (16 GiB)
+MIN_FREE = 40 << 30    # the peak: S3's A (1.65 GB), B (2 GiB) and C
+#   (16 GiB) beside the spares of S1 (12 GiB) and S2 (2.25 GiB); S10 and
+#   S11 then write over spares (`_retire`, `_reuse`)
 
 
 def _run(cmd) -> str:
@@ -162,6 +194,7 @@ TF32_FLOPS = 495e12    # H100 SXM dense TF32 tensor cores, FLOP/s
 FP32_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores, FLOP/s
 BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
 INT8_OPS = 1979e12     # H100 SXM dense int8 tensor cores, OP/s
+FP64_FLOPS = 67e12     # H100 SXM fp64 tensor cores (DMMA), FLOP/s
 # bof_tpu's bands against float64 for each transfer mode (tests/test_gemm.py
 # :112, :202, :135): max|C - C64| / max|C64| below the band (and above
 # FLOOR, so that the mode is seen to round)
@@ -463,6 +496,38 @@ def lowp_kernel_phase(dev) -> dict:
     return out
 
 
+def _spare_dir(path):
+    return os.path.join(os.path.dirname(path), "spare")
+
+
+def _retire(path):
+    """Keep a finished phase's file as a spare instead of deleting it.  The
+    card's machine charges every block a run ever writes against its disk
+    image (a deleted file's blocks are not given back), so later phases
+    write their files over a spare's blocks (`_reuse`) rather than new
+    ones."""
+    spare = _spare_dir(path)
+    os.makedirs(spare, exist_ok=True)
+    os.replace(path, os.path.join(spare, f"{len(os.listdir(spare))}_"
+                                         f"{os.path.basename(path)}"))
+
+
+def _reuse(path, nbytes):
+    """Make `path` a file of `nbytes` bytes on the blocks of the smallest
+    spare that is large enough (a fresh file if none is); write it with
+    open(path, "r+b"), which overwrites in place."""
+    spare = _spare_dir(path)
+    cands = sorted((os.path.getsize(q), q) for q in (
+        os.path.join(spare, f) for f in (os.listdir(spare) if
+                                         os.path.isdir(spare) else ()))
+        if os.path.getsize(q) >= nbytes)
+    if cands:
+        os.replace(cands[0][1], path)
+    else:
+        open(path, "wb").close()
+    os.truncate(path, nbytes)
+
+
 def _write_operand(ctx, path, shape, order, rng):
     """Create `path` through the port's map_array and fill it with
     standard normals, one chunk of storage lines at a time; returns
@@ -531,24 +596,27 @@ def _write_operands(dev, scratch, specs, rng) -> list:
 
 
 def _reset_launch_counts():
-    from bof_tpu_torch.ops import matmul_cuda
+    from bof_tpu_torch.ops import kmeans, matmul_cuda
     from bof_tpu_torch.sparse import spmm_cuda
     matmul_cuda.reset_launch_counts()
     spmm_cuda.reset_launch_counts()
+    kmeans.reset_launch_counts()
 
 
 def _launch_counts() -> dict:
     """Every kernel's launch count, each one's by variant as
     '<kernel>[<variant>]', and the operands K1's low-precision pack pass
     rewrote as 'accum_matmul.lowp_packs'."""
+    from bof_tpu_torch.ops.kmeans import lloyd_accumulate, lloyd_assign
     from bof_tpu_torch.ops.matmul_cuda import accum_matmul
     from bof_tpu_torch.sparse.spmm_cuda import spmm_ell, spmv_ell
     counts = {"accum_matmul.lowp_packs": accum_matmul.lowp_packs}
     for name, fn in (("accum_matmul", accum_matmul), ("spmm_ell", spmm_ell),
-                     ("spmv_ell", spmv_ell)):
+                     ("spmv_ell", spmv_ell), ("lloyd_assign", lloyd_assign),
+                     ("lloyd_accumulate", lloyd_accumulate)):
         counts[name] = fn.launches
-        counts.update((f"{name}[{v}]", n)
-                      for v, n in fn.variant_launches.items())
+        counts.update((f"{name}[{v}]", n) for v, n in getattr(
+            fn, "variant_launches", {}).items())
     return counts
 
 
@@ -615,7 +683,8 @@ def _profiled(fn, argv) -> float:
         print(f"[profile] {us / 1e6:9.3f} s  {count:6d}x  {key[:90]}",
               flush=True)
     for name in ("accum_tf32_kernel", "accum_lowp_kernel", "pack_kernel",
-                 "spmm_ell_kernel", "spmv_ell_kernel"):
+                 "spmm_ell_kernel", "spmv_ell_kernel", "accum_dgemm_kernel",
+                 "lloyd_assign_kernel", "lloyd_accumulate_kernel"):
         hits = [(us, count) for us, count, key in rows if name in key]
         if hits:
             us = sum(h[0] for h in hits)
@@ -799,7 +868,7 @@ def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta,
         runs.append(launches)
     for p in list(paths.values()) + [c0_path]:
         if os.path.exists(p):
-            os.unlink(p)
+            _retire(p)
     return runs
 
 
@@ -1263,7 +1332,7 @@ def csrmm_fig6_phase(dev, scratch, prefix, a_sp, modes, n=1 << 12) -> list:
             _verify_band(label, pairs, BANDS[(xfer, c_xfer)])
         runs.append(launches)
     for p in (b_path, c_path):
-        os.unlink(p)
+        _retire(p)
     return runs
 
 
@@ -1389,9 +1458,561 @@ def csrgemv_phase(dev, scratch, prefix, a_sp, trans, tag="S5",
     return launches
 
 
+# ------------------------------------------------- fp64 gemm and k-means
+
+def f64_kernel_phase(dev) -> dict:
+    """K1 'f64' (DMMA) against its float64 plain version on the card: all 8
+    layouts at 8192^3 and at a ragged 1000x776x516 (odd leading
+    dimensions), alpha -1.5 and a non-zero C, each element within bof_tpu's
+    scaled bound 1e-12 * k * max|row of op(A)| * max|column of op(B)| *
+    |alpha| (tests/test_gemm64.py:76-80).  At 8192^3 R/N/N the median of 5
+    CUDA-event times of the kernel, its plain version and torch.mm on
+    float64 (cuBLAS DGEMM, the library yardstick), and the bound."""
+    import itertools
+
+    import torch
+    from bof_tpu_torch.ops.matmul_cuda import (accum_matmul,
+                                               accum_matmul_ref, k1_variant)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    alpha = -1.5
+    max_err = worst = 0.0
+    timing = {}
+    for m, n, k in ((8192, 8192, 8192), (1000, 776, 516)):
+        a_log, b_log, c_log = (torch.randn(s, generator=gen, device=dev,
+                                           dtype=torch.float64)
+                               for s in ((m, k), (k, n), (m, n)))
+        lim_log = 1e-12 * k * abs(alpha) * (
+            a_log.abs().amax(1)[:, None] * b_log.abs().amax(0)[None, :])
+        for a_km, b_nk, c_nm in itertools.product((False, True), repeat=3):
+            a = a_log.T.contiguous() if a_km else a_log
+            b = b_log.T.contiguous() if b_nk else b_log
+            c0 = c_log.T.contiguous() if c_nm else c_log
+            lim = lim_log.T if c_nm else lim_log
+            flags = dict(a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+            if k1_variant(a.shape[1], b.shape[1], "highest",
+                          dtype=torch.float64) != "f64":
+                raise AssertionError("k1_variant did not choose f64")
+            before = accum_matmul.variant_launches["f64"]
+            got = accum_matmul(c0.clone(), a, b, alpha, **flags)
+            want = accum_matmul_ref(c0.clone(), a, b, alpha, **flags)
+            torch.cuda.synchronize()
+            if accum_matmul.variant_launches["f64"] != before + 1:
+                raise AssertionError("the f64 count did not move")
+            diff = (got - want).abs()
+            err, ratio = float(diff.max()), float((diff / lim).max())
+            ok = ratio <= 1.0
+            print(f"K1 f64 {m}x{n}x{k} a_km={int(a_km)} b_nk={int(b_nk)} "
+                  f"c_nm={int(c_nm)}: max|kernel-plain| {err:.6g}, worst "
+                  f"|kernel-plain| / (1e-12*k*max|A row|*max|B col|*|alpha|)"
+                  f" {ratio:.3g} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError("K1 f64 disagrees with its plain "
+                                     "version")
+            max_err, worst = max(max_err, err), max(worst, ratio)
+            del got, want, diff
+            if m == 8192 and not (a_km or b_nk or c_nm):
+                c_t = c0.clone()
+                timing["ms"] = _median_ms(lambda: accum_matmul(
+                    c_t, a, b, alpha, **flags))
+                timing["plain_ms"] = _median_ms(lambda: accum_matmul_ref(
+                    c_t, a, b, alpha, **flags))
+                timing["library_ms"] = _median_ms(lambda: torch.mm(a, b))
+                del c_t
+        del a_log, b_log, c_log, lim_log, a, b, c0, lim
+        torch.cuda.empty_cache()
+    flop = 2.0 * 8192 ** 3
+    bound, by = _bound(4 * 8192 ** 2 * 8, flop, FP64_FLOPS)
+    print(f"K1 f64 8192^3 canonical, median of 5 CUDA-event times: kernel "
+          f"{timing['ms']:.3f} ms ({flop / timing['ms'] / 1e9:.1f} TFLOP/s),"
+          f" plain {timing['plain_ms']:.3f} ms, library torch.mm(float64) "
+          f"{timing['library_ms']:.3f} ms; bound {bound:.3f} ms ({by}, "
+          f"{FP64_FLOPS / 1e12:.0f} TFLOP/s), the kernel at "
+          f"{100 * bound / timing['ms']:.1f} % of it and "
+          f"{timing['ms'] / timing['library_ms']:.2f}x the library",
+          flush=True)
+    return {"max_abs_err": max_err, "max_err_over_limit": worst,
+            "bound_ms": bound, "bound_by": by, **timing}
+
+
+def _blobs(gen, dev, n, d, k, spread):
+    """n points round k true centers drawn from N(0, 10^2), each point its
+    center plus N(0, spread^2) noise, on the card; returns (points,
+    true centers)."""
+    import torch
+    true = 10.0 * torch.randn((k, d), generator=gen, device=dev)
+    lab = torch.randint(0, k, (n,), generator=gen, device=dev)
+    return true[lab] + spread * torch.randn((n, d), generator=gen,
+                                            device=dev), true
+
+
+def _near_ties(label, p, c64, got, want) -> int:
+    """Where two label vectors differ, the float64 partial distances of the
+    two centers must be within 1e-5 * (|p|^2 + max|c|^2) of each other (a
+    near-tie that fp32 may break either way); raises otherwise.  Returns
+    how many labels differ."""
+    import torch
+    diff = (got != want).nonzero().flatten()
+    if diff.numel():
+        p64 = p[diff].double()
+        pd = (c64 * c64).sum(1)[None, :] - 2.0 * p64 @ c64.T
+        rows = torch.arange(diff.numel(), device=p.device)
+        gap = (pd[rows, got[diff].long()] - pd[rows, want[diff].long()]).abs()
+        scale = (p64 * p64).sum(1) + float((c64 * c64).sum(1).max())
+        if not bool((gap <= 1e-5 * scale).all()):
+            raise AssertionError(f"[{label}] a label differs beyond a "
+                                 "near-tie")
+    return int(diff.numel())
+
+
+def kmeans_kernel_phase(dev) -> dict:
+    """B7 against its plain version on the card at S11's streamed block
+    (bn 131072, d 128, k 1024) and at a ragged 1000x33x7: labels equal but
+    at near-ties (float64 gap between the two centers <= 1e-5 * (|p|^2 +
+    max|c|^2)), mind within 1e-5 * (|p|^2 + max|c|^2); on the kernel's
+    labels, counts equal, sums within 1e-5 * sum|p| over each center's
+    points and bit-identical from run to run.  At S11's block the median
+    of 5 CUDA-event times of each kernel, its plain version, the library
+    calls (no single PyTorch call computes B7: assign beside the pair
+    torch.addmm then torch.min(dim=1); accumulate beside index_add_ of the
+    sums, whose counts would be a second call) and each bound."""
+    import torch
+    from bof_tpu_torch.ops.kmeans import (lloyd_accumulate,
+                                          lloyd_accumulate_ref, lloyd_assign,
+                                          lloyd_assign_ref)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    out = {"lloyd_assign": {"max_abs_err": 0.0},
+           "lloyd_accumulate": {"max_abs_err": 0.0}}
+    for bn, d, k in ((131072, 128, 1024), (1000, 33, 7)):
+        p, true = _blobs(gen, dev, bn, d, k, 1.0)
+        c = true + 0.5 * torch.randn((k, d), generator=gen, device=dev)
+        cn = (c * c).sum(1)
+        label = f"B7 {bn}x{d}x{k}"
+        before = (lloyd_assign.launches, lloyd_accumulate.launches)
+        labels, mind = lloyd_assign(p, c, cn)
+        want_l, want_m = lloyd_assign_ref(p, c, cn)
+        torch.cuda.synchronize()
+        c64 = c.double()
+        differ = _near_ties(label, p, c64, labels, want_l)
+        scale = (p.double() ** 2).sum(1) + float((c64 * c64).sum(1).max())
+        m_err = (mind - want_m).double().abs()
+        if not bool((m_err <= 1e-5 * scale).all()):
+            raise AssertionError(f"[{label}] mind disagrees")
+        sums, counts = [], []
+        for fn in (lloyd_accumulate, lloyd_accumulate, lloyd_accumulate_ref):
+            s_, n_ = (torch.zeros((k, d), device=dev),
+                      torch.zeros(k, dtype=torch.int32, device=dev))
+            fn(p, labels, s_, n_)
+            sums.append(s_)
+            counts.append(n_)
+        torch.cuda.synchronize()
+        if (lloyd_assign.launches, lloyd_accumulate.launches) != (
+                before[0] + 1, before[1] + 2):
+            raise AssertionError(f"[{label}] the B7 counts did not move")
+        abs_sum = torch.zeros((k, d), dtype=torch.float64, device=dev)
+        abs_sum.index_add_(0, labels.long(), p.double().abs())
+        s_err = (sums[0].double() - sums[2].double()).abs()
+        same = bool(torch.equal(sums[0], sums[1]))
+        ok = (bool(torch.equal(counts[0], counts[2])) and same
+              and bool((s_err <= 1e-5 * abs_sum).all()))
+        print(f"[{label}] labels differing from the plain version's: "
+              f"{differ} (all near-ties); max|mind-plain| "
+              f"{float(m_err.max()):.6g}; counts equal, sums max|kernel-"
+              f"plain| {float(s_err.max()):.6g} within 1e-5*sum|p|, two "
+              f"runs bit-identical: {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"[{label}] lloyd_accumulate disagrees")
+        out["lloyd_assign"]["max_abs_err"] = max(
+            out["lloyd_assign"]["max_abs_err"], float(m_err.max()))
+        out["lloyd_accumulate"]["max_abs_err"] = max(
+            out["lloyd_accumulate"]["max_abs_err"], float(s_err.max()))
+        if bn != 131072:
+            continue
+        idx = labels.long()
+        s_t, n_t = sums[0], counts[0]
+        ta = out["lloyd_assign"]
+        ta["ms"] = _median_ms(lambda: lloyd_assign(p, c, cn))
+        ta["plain_ms"] = _median_ms(lambda: lloyd_assign_ref(p, c, cn))
+        ta["library_ms"] = None
+        ta["library_pair_ms"] = _median_ms(lambda: torch.min(
+            torch.addmm(cn[None, :], p, c.T, alpha=-2.0), dim=1))
+        ta["bound_ms"], ta["bound_by"] = _bound(
+            (bn * d + k * d + k) * 4 + bn * 8, 2.0 * bn * k * d, FP32_FLOPS)
+        tc = out["lloyd_accumulate"]
+        tc["ms"] = _median_ms(lambda: lloyd_accumulate(p, labels, s_t, n_t))
+        tc["plain_ms"] = _median_ms(lambda: lloyd_accumulate_ref(
+            p, labels, s_t, n_t))
+        tc["library_ms"] = _median_ms(lambda: s_t.index_add_(0, idx, p))
+        tc["library"] = "index_add_ of the sums (counts: one more call)"
+        tc["bound_ms"], tc["bound_by"] = _bound(
+            (bn * d + bn) * 4 + 2 * (k * d + k) * 4, float(bn * d),
+            FP32_FLOPS)
+        print(f"B7 at S11's block {bn}x{d}x{k}, median of 5 CUDA-event "
+              f"times: lloyd_assign {ta['ms']:.4f} ms (plain "
+              f"{ta['plain_ms']:.4f}, addmm+min {ta['library_pair_ms']:.4f};"
+              f" bound {ta['bound_ms']:.4f} ms, {ta['bound_by']}, the kernel "
+              f"at {100 * ta['bound_ms'] / ta['ms']:.1f} %); "
+              f"lloyd_accumulate {tc['ms']:.4f} ms (plain "
+              f"{tc['plain_ms']:.4f}, index_add_ {tc['library_ms']:.4f}; "
+              f"bound {tc['bound_ms']:.4f} ms, {tc['bound_by']})", flush=True)
+        del p, c, cn, labels, mind, want_l, want_m, sums, counts, abs_sum
+        torch.cuda.empty_cache()
+    return out
+
+
+def _write_normals(path, shape, gen, dev, dtype):
+    """A row-major file of standard normals made on the card in chunks of
+    rows; returns each row's max|x| (numpy)."""
+    import numpy as np
+    import torch
+    rows, cols = shape
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    line_max = np.empty(rows)
+    _reuse(path, rows * cols * np.dtype(dtype).itemsize)
+    with open(path, "r+b") as f:
+        for r0 in range(0, rows, CHUNK):
+            x = torch.randn((min(CHUNK, rows - r0), cols), generator=gen,
+                            device=dev, dtype=tdt)
+            line_max[r0:r0 + len(x)] = x.abs().amax(1).cpu().numpy()
+            x.cpu().numpy().tofile(f)
+    return line_max
+
+
+def gemm64_phase(dev, scratch) -> dict:
+    """S10: gemm 16384^3 float64, order R, N/T, alpha -1.5, beta 0.5,
+    through `drivers.gemm --dtype float64` (O_DIRECT, the native engine):
+    16 seeded rows and columns of C against float64 numpy within
+    1e-12 * (k * max|A row| * max|B col| * |alpha| + |beta| * |C0|); eight
+    K1 launches, all 'f64'."""
+    import numpy as np
+    import torch
+    from bof_tpu_torch.drivers import gemm as gemm_driver
+    m = n = k = 16384
+    alpha, beta = -1.5, 0.5
+    label = (f"S10 gemm {m}x{n}x{k} float64 order=R ta=N tb=T alpha={alpha} "
+             f"beta={beta}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    paths = {x: os.path.join(scratch, f"{x}64.bin") for x in "ABC"}
+    t0 = time.perf_counter()
+    a_rmax = _write_normals(paths["A"], (m, k), gen, dev, np.float64)
+    b_rmax = _write_normals(paths["B"], (n, k), gen, dev, np.float64)
+    _write_normals(paths["C"], (m, n), gen, dev, np.float64)
+    rng = np.random.default_rng([SEED, 10])
+    rows = np.sort(rng.choice(m, N_SAMPLES, replace=False))
+    cols = np.sort(rng.choice(n, N_SAMPLES, replace=False))
+    mm = {x: np.memmap(paths[x], np.float64, "r", shape=(16384, 16384))
+          for x in "ABC"}
+    c0_rows, c0_cols = np.array(mm["C"][rows]), np.array(mm["C"][:, cols])
+    print(f"[{label}] operands written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    argv = [paths["A"], paths["B"], paths["C"], str(m), str(n), str(k),
+            "--ta", "N", "--tb", "T", "--alpha", repr(alpha), "--beta",
+            repr(beta), "--dtype", "float64", *_driver_args(dev, scratch)]
+    wall, launches, stages, peak = _drive(
+        dev, gemm_driver.main, argv,
+        profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
+    _check_launches(label, launches, {"accum_matmul": 8,
+                                      "accum_matmul[f64]": 8})
+    print(f"[{label}] wall {wall:.3f} s, {2.0 * m * n * k / wall / 1e9:.1f} "
+          f"GFLOP/s, K1 launches {launches['accum_matmul']} (= mB*nB*kB, all "
+          f"f64), peak device memory {peak / 2**30:.2f} GiB, h2d "
+          f"{stages['gemm.h2d_bytes'] / 2**30:.3f} GiB, d2h "
+          f"{stages['gemm.d2h_bytes'] / 2**30:.3f} GiB", flush=True)
+    _stages(label, stages, "gemm.",
+            ("disk_wait_s", "prep_s", "h2d_s", "c_read_s", "tile_wait_s",
+             "accum_wait_s", "d2h_s", "write_wait_s"))
+    # op(B) = B^T: C[rows] = A[rows] B^T and C[:, cols] = A B[cols]^T,
+    # streamed in row chunks of B and of A
+    a_rows = np.array(mm["A"][rows])
+    b_cols = np.array(mm["B"][cols])
+    want_rows = np.empty((N_SAMPLES, n))
+    want_cols = np.empty((m, N_SAMPLES))
+    for r0 in range(0, n, CHUNK):
+        want_rows[:, r0:r0 + CHUNK] = a_rows @ np.asarray(
+            mm["B"][r0:r0 + CHUNK]).T
+        want_cols[r0:r0 + CHUNK] = np.asarray(mm["A"][r0:r0 + CHUNK]) \
+            @ b_cols.T
+    c_out = np.memmap(paths["C"], np.float64, "r", shape=(m, n))
+    checks = (
+        (np.array(c_out[rows]), alpha * want_rows + beta * c0_rows,
+         a_rmax[rows][:, None] * b_rmax[None, :], c0_rows),
+        (np.array(c_out[:, cols]), alpha * want_cols + beta * c0_cols,
+         a_rmax[:, None] * b_rmax[cols][None, :], c0_cols))
+    worst = max_err = 0.0
+    for got, want, scale, c0 in checks:
+        if not np.isfinite(got).all():
+            raise AssertionError(f"[{label}] non-finite values in the output")
+        limit = 1e-12 * (k * abs(alpha) * scale + abs(beta) * np.abs(c0))
+        worst = max(worst, float((np.abs(got - want) / limit).max()))
+        max_err = max(max_err, float(np.abs(got - want).max()))
+    print(f"[{label}] 16 rows and 16 columns against float64 numpy: max abs "
+          f"err {max_err:.6g}, worst err / (1e-12*(k*max|A row|*max|B col|*"
+          f"|alpha| + |beta|*|C0|)) {worst:.4f} "
+          f"{'ok' if worst <= 1.0 else 'FAIL'}", flush=True)
+    if worst > 1.0:
+        raise AssertionError(f"[{label}] disagrees with float64 numpy")
+    del mm, c_out
+    for path in paths.values():
+        _retire(path)
+    return launches
+
+
+def _write_blobs(path, n, d, k, gen, dev):
+    """S11's points: blobs round k true centers drawn from N(0, 10^2),
+    N(0, 1) noise per point, made on the card in chunks; fp32
+    row-major."""
+    import torch
+    true = 10.0 * torch.randn((k, d), generator=gen, device=dev)
+    _reuse(path, n * d * 4)
+    with open(path, "r+b") as f:
+        for r0 in range(0, n, 1 << 20):
+            rows = min(1 << 20, n - r0)
+            lab = torch.randint(0, k, (rows,), generator=gen, device=dev)
+            x = true[lab] + torch.randn((rows, d), generator=gen, device=dev)
+            x.cpu().numpy().tofile(f)
+
+
+def _stream_check(label, pts, labels_path, centers, n, d, k, dev):
+    """The fit's output against float64 on the card: labels of 65536
+    seeded points against the float64 argmin to `centers` (near-ties
+    allowed), and over all points the float64 inertia sum |p - c_label|^2
+    and the float64 sums and counts of each label.  Returns (inertia64,
+    sums64, abs_sums64, counts64), the last three on the card."""
+    import numpy as np
+    import torch
+    P = np.memmap(pts, np.float32, "r", shape=(n, d))
+    L = np.memmap(labels_path, np.int32, "r", shape=(n,))
+    c64 = torch.from_numpy(centers).to(dev).double()
+    idx = np.sort(np.random.default_rng([SEED, n]).choice(
+        n, min(n, 65536), replace=False))
+    p = torch.from_numpy(np.array(P[idx])).to(dev)
+    got = torch.from_numpy(np.array(L[idx])).to(dev)
+    pd = (c64 * c64).sum(1)[None, :] - 2.0 * p.double() @ c64.T
+    differ = _near_ties(label, p, c64, got, pd.argmin(1).to(torch.int32))
+    inertia = 0.0
+    sums = torch.zeros((k, d), dtype=torch.float64, device=dev)
+    abs_sums = torch.zeros_like(sums)
+    counts = torch.zeros(k, dtype=torch.int64, device=dev)
+    for r0 in range(0, n, 1 << 20):
+        p = torch.from_numpy(np.array(P[r0:r0 + (1 << 20)])).to(dev).double()
+        lab = torch.from_numpy(np.array(L[r0:r0 + (1 << 20)])).to(dev).long()
+        if int(lab.min()) < 0 or int(lab.max()) >= k:
+            raise AssertionError(f"[{label}] a label out of [0, k)")
+        inertia += float(((p - c64[lab]) ** 2).sum())
+        sums.index_add_(0, lab, p)
+        abs_sums.index_add_(0, lab, p.abs())
+        counts += torch.bincount(lab, minlength=k)
+    print(f"[{label}] labels of {len(idx)} seeded points against the float64 "
+          f"argmin: {differ} differ, all near-ties", flush=True)
+    return inertia, sums, abs_sums, counts
+
+
+def _check_rel(label, what, got, want, rtol):
+    ok = abs(got - want) <= rtol * abs(want)
+    print(f"[{label}] {what} {got!r} against float64 {want!r}: rel err "
+          f"{abs(got - want) / abs(want):.3g} (rtol {rtol}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"[{label}] {what} disagrees")
+
+
+def _check_step(label, new_c, old_c, counts_got, sums64, abs64, counts64):
+    """A Lloyd step's centers against the float64 mean of the points under
+    the kernel's labels: within 1e-5 of the mean |p| per element (an
+    empty cluster keeps its center), and its counts exactly."""
+    import numpy as np
+    cnt = counts64.cpu().numpy()
+    if not np.array_equal(np.asarray(counts_got, np.int64), cnt):
+        raise AssertionError(f"[{label}] counts differ from the labels'")
+    safe = np.maximum(cnt, 1)[:, None]
+    want = np.where(cnt[:, None] > 0, sums64.cpu().numpy() / safe, old_c)
+    tol = 1e-5 * (abs64.cpu().numpy() / safe) + 1e-30
+    worst = float((np.abs(new_c - want) / tol).max())
+    print(f"[{label}] centers against the float64 mean under the kernel's "
+          f"labels: worst err / (1e-5 * mean|p|) {worst:.4f}; counts equal "
+          f"{'ok' if worst <= 1.0 else 'FAIL'}", flush=True)
+    if worst > 1.0:
+        raise AssertionError(f"[{label}] centers disagree")
+
+
+def kmeans_phase(dev, scratch) -> dict:
+    """S11: drivers.kmeans on 2^24 seeded blob points, d 128, k 1024, fp32,
+    3 iterations, --labels-out, O_DIRECT and the native engine: 8 GiB on
+    disk, more than the device budget allows resident (3*n*d*4 = 24 GiB >
+    12 GiB), so every pass streams 128 blocks of 131072 rows through the
+    pin cache and B7 runs 128 * (3 passes + the final labels pass) times.
+    Checked against float64: the labels (near-ties allowed), the inertia
+    (rtol 1e-4); then one more Lloyd step from the returned centers,
+    outside the counted run: its labels must be the fit's bit for bit, its
+    counts exact, its centers the float64 mean under those labels."""
+    import numpy as np
+    import torch
+    import bof_tpu_torch as bt
+    from bof_tpu_torch.drivers import kmeans as kmeans_driver
+    n, d, k, iters = 1 << 24, 128, 1024, 3
+    label = f"S11 kmeans n={n} d={d} k={k} iters={iters} (streamed)"
+    pts = os.path.join(scratch, "points.bin")
+    lab_path = os.path.join(scratch, "labels.bin")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    t0 = time.perf_counter()
+    _write_blobs(pts, n, d, k, gen, dev)
+    print(f"[{label}] points written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    fit = {}
+
+    def run(argv):
+        t = time.perf_counter()
+        fit["out"] = kmeans_driver.main(argv)
+        return time.perf_counter() - t
+    _reuse(lab_path, n * 4)
+    argv = [pts, str(n), str(d), str(k), "--iters", str(iters), "--seed",
+            str(SEED), "--labels-out", lab_path, *_driver_args(dev, scratch)]
+    wall, launches, stages, peak = _drive(
+        dev, run, argv, profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
+    blocks = n // 131072
+    want = blocks * (iters + 1)
+    _check_launches(label, launches, {"lloyd_assign": want,
+                                      "lloyd_accumulate": want})
+    centers, inertia = fit["out"]
+    print(f"[{label}] wall {wall:.3f} s, "
+          f"{2.0 * n * d * k * (iters + 1) / wall / 1e9:.1f} GFLOP/s (4 "
+          f"passes), B7 launches {launches['lloyd_assign']} + "
+          f"{launches['lloyd_accumulate']} (= {blocks} blocks x {iters + 1} "
+          f"passes each), peak device memory {peak / 2**30:.2f} GiB, h2d "
+          f"{stages.get('kmeans.h2d_bytes', 0) / 2**30:.3f} GiB", flush=True)
+    _stages(label, stages, "kmeans.", ("seed_s", "disk_wait_s", "h2d_s",
+                                       "d2h_s"))
+    t0 = time.perf_counter()
+    inertia64, sums64, abs64, counts64 = _stream_check(
+        label, pts, lab_path, centers, n, d, k, dev)
+    _check_rel(label, "inertia", inertia, inertia64, 1e-4)
+    ctx = _new_ctx(dev, scratch)
+    _reuse(lab_path + ".4", n * 4)
+    try:
+        P = bt.map_array(pts, (n, d), np.float32, ctx=ctx)
+        L4 = bt.map_array(lab_path + ".4", (n,), np.int32, create=True,
+                          ctx=ctx)
+        new_c, _, counts = bt.lloyds_iter(P, centers, labels_out=L4, ctx=ctx)
+    finally:
+        ctx.destroy()
+    same = np.array_equal(np.fromfile(lab_path + ".4", np.int32),
+                          np.fromfile(lab_path, np.int32))
+    print(f"[{label}] one more Lloyd step: its labels are the fit's bit for "
+          f"bit: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"[{label}] the labels are not reproducible")
+    _check_step(label, new_c, centers, counts, sums64, abs64, counts64)
+    print(f"[{label}] checked in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for path in (pts, lab_path, lab_path + ".4"):
+        _retire(path)
+    return launches
+
+
+def kmeans_resident_phase(dev, scratch) -> list:
+    """S11b: the resident tier.  2^21 points (1 GiB, so 3*n*d*4 fits the
+    device budget), the other settings as S11's, through kmeans_fit with
+    random seeding (S11 pays for k-means++): once with the default budgets
+    (the points upload once) and once with a 768 MiB host budget, below the
+    panel, so the same fit streams every pass.  Both launch B7 16 * 4
+    times; the link bytes are 1 and 4 panels; the centers and labels must
+    match (tests/test_kmeans.py:80), the labels stand against float64."""
+    import numpy as np
+    import torch
+    import bof_tpu_torch as bt
+    n, d, k, iters = 1 << 21, 128, 1024, 3
+    pts = os.path.join(scratch, "points_b.bin")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    _write_blobs(pts, n, d, k, gen, dev)
+    runs, out = [], {}
+    for tier, budget in (("resident", None), ("streamed", 768 << 20)):
+        label = f"S11b kmeans n={n} d={d} k={k} iters={iters} ({tier})"
+        lab_path = os.path.join(scratch, f"labels_{tier}.bin")
+        _reuse(lab_path, n * 4)
+        ctx = _new_ctx(dev, scratch)
+        if budget is not None:
+            ctx.config.program_budget = budget
+        fit = {}
+
+        def run(_):
+            t = time.perf_counter()
+            P = bt.map_array(pts, (n, d), np.float32, ctx=ctx)
+            L = bt.map_array(lab_path, (n,), np.int32, create=True, ctx=ctx)
+            fit["out"] = bt.kmeans_fit(P, k, n_iters=iters, seed=SEED,
+                                       init="random", labels_out=L, ctx=ctx)
+            return time.perf_counter() - t
+        try:
+            wall, launches, stages, peak = _drive(dev, run, None)
+        finally:
+            ctx.destroy()
+        want = (n // 131072) * (iters + 1)
+        _check_launches(label, launches, {"lloyd_assign": want,
+                                          "lloyd_accumulate": want})
+        h2d = stages.get("kmeans.h2d_bytes", 0)
+        want_h2d = n * d * 4 * (1 if budget is None else iters + 1)
+        print(f"[{label}] wall {wall:.3f} s, B7 launches "
+              f"{launches['lloyd_assign']} + {launches['lloyd_accumulate']}, "
+              f"h2d {h2d / 2**30:.3f} GiB (expected {want_h2d / 2**30:.3f}), "
+              f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
+        if h2d != want_h2d:
+            raise AssertionError(f"[{label}] the points crossed the link "
+                                 f"{h2d} bytes, expected {want_h2d}")
+        _stages(label, stages, "kmeans.", ("seed_s", "disk_wait_s", "h2d_s",
+                                           "d2h_s"))
+        out[tier] = fit["out"] + (np.fromfile(lab_path, np.int32),)
+        if budget is None:
+            inertia64 = _stream_check(label, pts, lab_path, fit["out"][0], n,
+                                      d, k, dev)[0]
+            _check_rel(label, "inertia", fit["out"][1], inertia64, 1e-4)
+        _retire(lab_path)
+        runs.append(launches)
+    (c_a, i_a, l_a), (c_b, i_b, l_b) = out["resident"], out["streamed"]
+    ok = (np.allclose(c_a, c_b, rtol=1e-5, atol=1e-5)
+          and np.array_equal(l_a, l_b) and abs(i_a - i_b) <= 1e-4 * abs(i_b))
+    print(f"[S11b] resident against streamed: centers within rtol 1e-5 "
+          f"(bit-identical: {np.array_equal(c_a, c_b)}), labels equal, "
+          f"inertia {i_a!r} / {i_b!r} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("[S11b] the resident fit differs from the "
+                             "streamed one")
+    _retire(pts)
+    return runs
+
+
+def gemm_run_phase(dev, scratch) -> None:
+    """drivers.gemm_run on the card for float32 and float64 with
+    --ld-pad 5: all 8 configs against the in-memory twin (float64 numpy for
+    float64) must pass, every K1 launch on the dtype's variant."""
+    from bof_tpu_torch.drivers import gemm_run
+    for dtype, variant in (("float32", "tf32x3"), ("float64", "f64")):
+        label = f"gemm_run {dtype} --ld-pad 5"
+
+        def run(argv):
+            t = time.perf_counter()
+            if gemm_run.main(argv) != 0:
+                raise AssertionError(f"[{label}] not ALL PASS")
+            return time.perf_counter() - t
+        wall, launches, _, _ = _drive(dev, run, [
+            "--dtype", dtype, "--ld-pad", "5", "--device", str(dev),
+            "--scratch", scratch])
+        steps = 8 * 4 * 3 * 4  # 8 configs of 512x384x448 at blk 128
+        _check_launches(label, launches, {"accum_matmul": steps,
+                                          f"accum_matmul[{variant}]": steps})
+        print(f"[{label}] ALL PASS in {wall:.3f} s, K1 launches "
+              f"{launches['accum_matmul']}, all {variant}", flush=True)
+
+
+NO_SPILLS = ("accum_tf32_kernel", "accum_lowp_kernel", "accum_dgemm_kernel",
+             "lloyd_assign_kernel", "lloyd_accumulate_kernel")
+
+
 def _ptxas_report(log: str) -> None:
-    """Print what ptxas says of each kernel; raise if a tensor-core
-    kernel (K1's fp32 or low-precision wgmma kernel) spills."""
+    """Print what ptxas says of each kernel; raise if a tensor-core kernel
+    (K1's fp32, low-precision or fp64 kernel) or a B7 kernel spills."""
     entry = ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -1399,8 +2020,7 @@ def _ptxas_report(log: str) -> None:
         if any(w in line for w in ("Compiling entry", "registers", "spill",
                                    "warning", "C75")):
             print("ptxas:", line.strip())
-        if "spill stores" in line and ("accum_tf32_kernel" in entry
-                                       or "accum_lowp_kernel" in entry) \
+        if "spill stores" in line and any(k in entry for k in NO_SPILLS) \
                 and "0 bytes spill stores, 0 bytes spill loads" not in line:
             raise AssertionError(f"{entry} spills: {line.strip()}")
     sys.stdout.flush()
@@ -1457,7 +2077,7 @@ def main() -> int:
                            "fails; point BOF_SCRATCH at a disk")
     if free < MIN_FREE:
         raise RuntimeError(f"scratch {scratch} has {free / 2**30:.1f} GiB "
-                           f"free, the Fig. 6 csrmm needs "
+                           f"free, the run's peak needs "
                            f"{MIN_FREE / 2**30:.0f} GiB; point BOF_SCRATCH "
                            "at a larger disk")
 
@@ -1487,6 +2107,23 @@ def main() -> int:
     for ext in (".off", ".col", ".csr"):
         os.unlink(prefix + ext)
     del a_sp
+    # float64 gemm and k-means: their kernels first, then their main paths
+    t0 = time.perf_counter()
+    summary["accum_matmul[f64]"] = f64_kernel_phase(dev)
+    summary.update(kmeans_kernel_phase(dev))
+    walls = {"kernels f64 + B7": time.perf_counter() - t0}
+    for tag, phase in (("S10", gemm64_phase), ("S11", kmeans_phase),
+                       ("S11b", kmeans_resident_phase)):
+        t0 = time.perf_counter()
+        got = phase(dev, scratch)
+        runs += got if isinstance(got, list) else [got]
+        walls[tag] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gemm_run_phase(dev, scratch)
+    walls["gemm_run"] = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(scratch, "spare"))
+    print("phase walls (s, data making and checks included): " + ", ".join(
+        f"{tag} {sec:.1f}" for tag, sec in walls.items()), flush=True)
     # each entry counts its own variant's launches: the fp32 kernels as
     # the fp32 calls ran them, the others as the transfer modes did
     counted = {"accum_matmul": "accum_matmul[tf32x3]",
@@ -1518,6 +2155,12 @@ def main() -> int:
                            "bof_tpu/sparse/spmm_device.py:89"),
         "spmv_ell[s8]": ("bof_tpu_torch/csrc/spmm_ell.cu",
                          "bof_tpu/sparse/spmm_device.py:89"),
+        "accum_matmul[f64]": ("bof_tpu_torch/csrc/matmul_f64.cu",
+                              "bof_tpu/ops/gemm64.py:89"),
+        "lloyd_assign": ("bof_tpu_torch/csrc/kmeans.cu",
+                         "bof_tpu/ops/kmeans.py:40"),
+        "lloyd_accumulate": ("bof_tpu_torch/csrc/kmeans.cu",
+                             "bof_tpu/ops/kmeans.py:40"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

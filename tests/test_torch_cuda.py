@@ -1,8 +1,8 @@
-"""bof_tpu_torch on a CUDA card: kernel K1 (its FFMA, tensor-core, bf16
-and s8 variants), K2 (ELL SpMM) and the ELL SpMV (on fp32, bf16 and int8
-values) against their plain versions, and the out-of-core gemm, csrmm and
-csrgemv through them, in every transfer mode, against the same calls on
-the CPU.
+"""bof_tpu_torch on a CUDA card: kernel K1 (its FFMA, tensor-core, bf16,
+s8 and f64 variants), K2 (ELL SpMM), the ELL SpMV (on fp32, bf16 and int8
+values) and the k-means pair B7 against their plain versions, and the
+out-of-core gemm (fp32, its transfer modes and float64), csrmm, csrgemv
+and lloyds_iter through them against the same calls on the CPU.
 
 These need the card (a CUDA kernel has no CPU mode): they carry the
 `cuda` marker and skip where torch.cuda.is_available() is False.  This
@@ -28,6 +28,9 @@ from bof_tpu_torch.ops.matmul_cuda import (K1_S8_MAX_K, K1_VARIANTS,
                                            accum_matmul_tf32_ref, k1_ldw,
                                            k1_variant, pack_kmajor_ref,
                                            tf32_truncate)
+from bof_tpu_torch.ops.kmeans import (lloyd_accumulate,
+                                      lloyd_accumulate_ref, lloyd_assign,
+                                      lloyd_assign_ref)
 from bof_tpu_torch.sparse.spmm_cuda import (promote_vals, spmm_ell,
                                             spmm_ell_ref, spmv_ell,
                                             spmv_ell_ref)
@@ -140,7 +143,7 @@ def test_variant_launch_counters(cuda_device):
     assert accum_matmul.launches == before[0] + 3
     assert {v: accum_matmul.variant_launches[v] - before[1][v]
             for v in before[1]} == {"tf32x3": 1, "tf32": 1, "ffma": 1,
-                                    "bf16": 0, "s8": 0}
+                                    "bf16": 0, "s8": 0, "f64": 0}
     assert tuple(before[1]) == K1_VARIANTS
 
 
@@ -662,3 +665,226 @@ def test_sparse_transfer_modes_on_card_match_cpu(cuda_device, tmp_path,
                                    atol=2e-4 * np.abs(out["cpu"]).max())
     np.testing.assert_allclose(y["cuda"], y["cpu"], rtol=0,
                                atol=2e-4 * np.abs(y["cpu"]).max())
+
+
+# ------------------------------------------------ K1 'f64' (DMMA) and B7
+
+def _f64_limit(a, b, alpha, a_km, b_nk, c_nm):
+    """bof_tpu's scaled fp64 bound (tests/test_gemm64.py:76-80), per
+    element of C in its storage layout: 1e-12 * k * max|row of op(A)| *
+    max|column of op(B)| * |alpha|."""
+    opa = a.T if a_km else a
+    opb = b.T if b_nk else b
+    lim = 1e-12 * opa.shape[1] * abs(alpha) * (
+        opa.abs().amax(1)[:, None] * opb.abs().amax(0)[None, :])
+    return lim.T if c_nm else lim
+
+
+@pytest.mark.parametrize("shape", [(300, 211, 147), (1000, 776, 516)])
+@pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
+def test_f64_variant_matches_plain(cuda_device, shape, a_km, b_nk, c_nm):
+    """K1 'f64' on every layout at ragged shapes (odd leading dimensions),
+    alpha -1.5 and a non-zero C, within bof_tpu's scaled fp64 bound of the
+    float64 plain version; only the 'f64' count moves."""
+    rng = np.random.default_rng(31 + a_km + 2 * b_nk + 4 * c_nm)
+    m, n, k = shape
+    a, b, got = [torch.from_numpy(x.T.copy() if t else x).to(cuda_device)
+                 for x, t in ((rng.standard_normal((m, k)), a_km),
+                              (rng.standard_normal((k, n)), b_nk),
+                              (rng.standard_normal((m, n)), c_nm))]
+    alpha = -1.5
+    flags = dict(a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+    for prec in ("highest", "default"):
+        assert k1_variant(a.shape[1], b.shape[1], prec,
+                          dtype=torch.float64) == "f64"
+    want = accum_matmul_ref(got.clone(), a, b, alpha, **flags)
+    assert want.dtype == torch.float64
+    before = dict(accum_matmul.variant_launches)
+    accum_matmul(got, a, b, alpha, **flags)
+    torch.cuda.synchronize()
+    moved = {v: accum_matmul.variant_launches[v] - before[v] for v in before}
+    assert moved == dict.fromkeys(K1_VARIANTS, 0) | {"f64": 1}
+    assert bool(((got - want).abs()
+                 <= _f64_limit(a, b, alpha, a_km, b_nk, c_nm)).all())
+
+
+@pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
+def test_f64_kernel_takes_any_leading_dimension(cuda_device, a_km, b_nk,
+                                                c_nm):
+    """The entry point on operands whose storage rows are wider than the
+    matrix (leading dimensions padded by 3, 5 and 7 elements): only the
+    named columns are read, and C's padding keeps its sentinel."""
+    rng = np.random.default_rng(41 + a_km + 2 * b_nk + 4 * c_nm)
+    m, n, k, alpha = 200, 131, 77, 0.75
+
+    def padded(rows, cols, pad):
+        full = torch.from_numpy(rng.standard_normal((rows, cols + pad))
+                                ).to(cuda_device)
+        return full, full[:, :cols]
+    a_full, a = padded(*((k, m) if a_km else (m, k)), 3)
+    b_full, b = padded(*((n, k) if b_nk else (k, n)), 5)
+    c_full, c = padded(*((n, m) if c_nm else (m, n)), 7)
+    c_full[:, c.shape[1]:] = -1234.5
+    want = accum_matmul_ref(c.contiguous(), a.contiguous(), b.contiguous(),
+                            alpha, a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+    rc = build().bof_accum_matmul_f64(
+        c_full.data_ptr(), a_full.data_ptr(), b_full.data_ptr(), alpha, m, n,
+        k, int(a_km), int(b_nk), int(c_nm), a_full.shape[1], b_full.shape[1],
+        c_full.shape[1], torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert bool(((c - want).abs() <= _f64_limit(
+        a, b, alpha, a_km, b_nk, c_nm)).all())
+    assert bool((c_full[:, c.shape[1]:] == -1234.5).all())
+
+
+@pytest.mark.parametrize("order,ta,tb", [("R", "N", "T"), ("C", "T", "N")])
+def test_gemm64_on_card_matches_cpu(cuda_device, tmp_path, order, ta, tb):
+    """float64 gemm through the pipeline on the card (every K1 launch
+    'f64') against the same files on the CPU, ragged superblocks, beta."""
+    rng = np.random.default_rng(9)
+    m, n, k, blk = 300, 260, 280, 128
+    a_shape = (k, m) if ta == "T" else (m, k)
+    b_shape = (n, k) if tb == "T" else (k, n)
+    data = {"A": rng.standard_normal(a_shape),
+            "B": rng.standard_normal(b_shape),
+            "C": rng.standard_normal((m, n))}
+    shapes = {"A": a_shape, "B": b_shape, "C": (m, n)}
+    out = {}
+    for device in ("cpu", "cuda"):
+        d = tmp_path / device
+        d.mkdir()
+        ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+            device=device, scratch_dir=str(d / "s")))
+        try:
+            arrs = []
+            for name in "ABC":
+                arr = bof_tpu_torch.map_array(
+                    os.path.join(d, name), shapes[name], np.float64, order,
+                    create=True, ctx=ctx)
+                arr.write_all(data[name])
+                arrs.append(arr)
+            before = accum_matmul.variant_launches["f64"]
+            bof_tpu_torch.gemm64(*arrs, alpha=-1.5, beta=0.5, transa=ta,
+                                 transb=tb, blk=blk, ctx=ctx)
+            launched = accum_matmul.variant_launches["f64"] - before
+            out[device] = arrs[2].read_all()
+        finally:
+            ctx.destroy()
+        assert launched == (0 if device == "cpu" else 3 * 3 * 3)
+    opa = data["A"].T if ta == "T" else data["A"]
+    opb = data["B"].T if tb == "T" else data["B"]
+    scale = np.abs(opa).max(1)[:, None] * np.abs(opb).max(0)[None, :]
+    assert (np.abs(out["cuda"] - out["cpu"]) <= 1e-12 * k * 1.5 * scale
+            ).all()
+
+
+def _near_tie(p, c, got, want):
+    """Where two label vectors differ, the float64 partial distances of
+    the two centers are within 1e-5 * (|p|^2 + max|c|^2) of each other."""
+    diff = (got != want).nonzero().flatten()
+    if diff.numel() == 0:
+        return True
+    p64, c64 = p[diff].double(), c.double()
+    pd = (c64 * c64).sum(1)[None, :] - 2.0 * p64 @ c64.T
+    rows = torch.arange(diff.numel(), device=p.device)
+    gap = (pd[rows, got[diff].long()] - pd[rows, want[diff].long()]).abs()
+    scale = (p64 * p64).sum(1) + float((c64 * c64).sum(1).max())
+    return bool((gap <= 1e-5 * scale).all())
+
+
+def _blobs(rng, bn, d, k, device):
+    true = rng.standard_normal((k, d)).astype(np.float32) * 3
+    p = true[rng.integers(0, k, bn)] + rng.standard_normal(
+        (bn, d)).astype(np.float32)
+    c = true + 0.1 * rng.standard_normal((k, d)).astype(np.float32)
+    return (torch.from_numpy(np.ascontiguousarray(p)).to(device),
+            torch.from_numpy(np.ascontiguousarray(c)).to(device))
+
+
+@pytest.mark.parametrize("bn,d,k", [(1000, 33, 7), (1, 16, 5),
+                                    (4096, 128, 300), (2000, 8, 1),
+                                    (777, 200, 129)])
+def test_lloyd_kernels_match_plain(cuda_device, bn, d, k):
+    """B7 at ragged shapes (k not a multiple of the 128-center tile, d not
+    of the 8-wide slab, bn = 1, d past one 128-feature pass): labels equal
+    the plain version's but at near-ties, mind within 1e-5 * (|p|^2 +
+    max|c|^2); on the same labels, counts equal and sums within 1e-5 *
+    sum|p| over each center's points, bit-identical from run to run."""
+    rng = np.random.default_rng(bn + d + k)
+    p, c = _blobs(rng, bn, d, k, cuda_device)
+    cn = (c * c).sum(1)
+    before = (lloyd_assign.launches, lloyd_accumulate.launches)
+    labels, mind = lloyd_assign(p, c, cn)
+    want_l, want_m = lloyd_assign_ref(p, c, cn)
+    torch.cuda.synchronize()
+    assert lloyd_assign.launches == before[0] + 1
+    assert labels.dtype == torch.int32 and mind.dtype == torch.float32
+    assert _near_tie(p, c, labels, want_l)
+    scale = (p.double() ** 2).sum(1) + float((c.double() ** 2).sum(1).max())
+    assert bool(((mind - want_m).double().abs() <= 1e-5 * scale).all())
+    sums0 = torch.from_numpy(rng.standard_normal((k, d)).astype(
+        np.float32)).to(cuda_device)
+    counts0 = torch.from_numpy(rng.integers(0, 5, k).astype(np.int32)
+                               ).to(cuda_device)
+    got = [(sums0.clone(), counts0.clone()) for _ in range(2)]
+    for s, n_ in got:
+        lloyd_accumulate(p, labels, s, n_)
+    want_s, want_n = sums0.clone(), counts0.clone()
+    lloyd_accumulate_ref(p, labels, want_s, want_n)
+    torch.cuda.synchronize()
+    assert lloyd_accumulate.launches == before[1] + 2
+    assert torch.equal(got[0][0], got[1][0]), "not deterministic"
+    assert torch.equal(got[0][1], want_n)
+    abs_sum = torch.zeros((k, d), dtype=torch.float64, device=cuda_device)
+    abs_sum.index_add_(0, labels.long(), p.double().abs())
+    err = (got[0][0].double() - want_s.double()).abs()
+    assert bool((err <= 1e-5 * abs_sum + 1e-6 * sums0.double().abs()).all())
+
+
+def test_lloyd_assign_ties_take_the_first_index(cuda_device):
+    """Duplicated centers give bit-equal distances: the kernel, like
+    jnp.argmin and torch.min, labels a point with the first of them, also
+    when the duplicates lie in different 128-center tiles."""
+    rng = np.random.default_rng(5)
+    d, k = 24, 300
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    for dup, src in ((3, 1), (170, 2), (299, 0), (129, 128)):
+        c[dup] = c[src]
+    c = torch.from_numpy(c).to(cuda_device)
+    p = c[[1, 2, 0, 128, 3, 170, 299, 129]].clone()
+    labels, _ = lloyd_assign(p, c, (c * c).sum(1))
+    want, _ = lloyd_assign_ref(p, c, (c * c).sum(1))
+    torch.cuda.synchronize()
+    assert labels.tolist() == [1, 2, 0, 128, 1, 2, 0, 128]
+    assert torch.equal(labels, want)
+
+
+def test_lloyds_iter_on_card_matches_cpu(cuda_device, tmp_path):
+    """One Lloyd pass over a flash file on the card (B7 on every block)
+    against the same pass on the CPU: the same labels, centers within
+    1e-5 relative, the same counts."""
+    rng = np.random.default_rng(12)
+    n, d, k = 5000, 16, 9
+    p, c = _blobs(rng, n, d, k, "cpu")
+    out = {}
+    for device in ("cpu", "cuda"):
+        ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+            device=device, scratch_dir=str(tmp_path / device)))
+        try:
+            P = bof_tpu_torch.mem_array((n, d), np.float32, data=p.numpy(),
+                                        ctx=ctx)
+            L = bof_tpu_torch.mem_array((n,), np.int32, ctx=ctx)
+            before = lloyd_assign.launches
+            cen, inertia, counts = bof_tpu_torch.lloyds_iter(
+                P, c.numpy(), labels_out=L, blk_rows=1024, ctx=ctx)
+            out[device] = (cen, inertia, counts, L.read_all(),
+                           lloyd_assign.launches - before)
+        finally:
+            ctx.destroy()
+    assert out["cuda"][4] == 5 and out["cpu"][4] == 0
+    np.testing.assert_array_equal(out["cuda"][3], out["cpu"][3])
+    np.testing.assert_array_equal(out["cuda"][2], out["cpu"][2])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-5)

@@ -308,15 +308,15 @@ def test_transfer_modes_cross_the_link_in_fewer_bytes(tmp_path):
 
 
 def test_transfer_mode_needs_float32_operands(tmp_path):
-    """bof_tpu's ValueErrors for a transfer mode on other operands; fp64
-    is refused first, as not ported (ROADMAP A13)."""
+    """bof_tpu's ValueErrors for a transfer mode on other operands, float64
+    included (bof_tpu/ops/gemm.py:214-219)."""
     for field in ("transfer_dtype", "c_transfer_dtype"):
         value = "int8" if field == "transfer_dtype" else "bfloat16"
         ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
             device="cpu", scratch_dir=str(tmp_path / "s"), **{field: value}))
         try:
             for dt, err in ((np.float16, ValueError),
-                            (np.float64, NotImplementedError)):
+                            (np.float64, ValueError)):
                 a = bof_tpu_torch.mem_array((8, 8), dt, ctx=ctx)
                 c = bof_tpu_torch.mem_array((8, 8), dt, ctx=ctx)
                 with pytest.raises(err):
@@ -326,13 +326,21 @@ def test_transfer_mode_needs_float32_operands(tmp_path):
 
 
 def test_float64_raises(tmp_path):
+    """float64 was refused until K1 'f64' was ported; the name dates from
+    the refusal.  Now float64 runs (tests/test_torch_gemm64.py holds it to
+    bof_tpu) and only other dtypes raise NotImplementedError."""
     ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
         device="cpu", scratch_dir=str(tmp_path / "s")))
     try:
-        a = bof_tpu_torch.mem_array((8, 8), np.float64, ctx=ctx)
+        a = bof_tpu_torch.mem_array((8, 8), np.float64, ctx=ctx,
+                                    data=np.eye(8) * 2.0)
         c = bof_tpu_torch.mem_array((8, 8), np.float64, ctx=ctx)
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            bof_tpu_torch.gemm(a, a, c, blk=4, ctx=ctx)
+        bof_tpu_torch.gemm(a, a, c, blk=4, ctx=ctx)
+        np.testing.assert_array_equal(c.read_all(), np.eye(8) * 4.0)
+        h = bof_tpu_torch.mem_array((8, 8), np.float16, ctx=ctx)
+        hc = bof_tpu_torch.mem_array((8, 8), np.float16, ctx=ctx)
+        with pytest.raises(NotImplementedError, match="float32 and float64"):
+            bof_tpu_torch.gemm(h, h, hc, blk=4, ctx=ctx)
     finally:
         ctx.destroy()
 

@@ -171,3 +171,43 @@ def test_config_round_trips_non_default_sparse_fields():
                 "ell_idx_narrow"):
         assert getattr(port, key) == getattr(ref, key), key
     assert port.device == "cuda"  # never inferred from the reference
+
+
+def test_dense_and_kmeans_slice_imports_neither_jax_nor_bof_tpu():
+    code = ("import sys, bof_tpu_torch.ops.gemm64, bof_tpu_torch.ops.kmeans, "
+            + ", ".join(f"bof_tpu_torch.drivers.{m}" for m in (
+                "dense_create", "repack", "in_mem_gemm", "gemm_run",
+                "mmap_gemm", "file_handle_test", "kmeans"))
+            + "; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'ml_dtypes', 'bof_tpu')); print(bad)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    for name in ("gemm64", "kmeans_fit", "lloyds_iter", "repack", "unpack"):
+        assert name in bof_tpu_torch.__all__
+        assert getattr(bof_tpu_torch, name).__name__ == name
+
+
+def test_new_kernel_sources_are_built_and_in_the_digest(tmp_path):
+    """csrc/matmul_f64.cu (K1 'f64') and csrc/kmeans.cu (B7) are among the
+    sources the build compiles, their entry points are bound, and a change
+    to either changes the library's digest (so it rebuilds)."""
+    import glob
+    import shutil
+    from bof_tpu_torch.ops import cuda_lib
+    sources = sorted(glob.glob(os.path.join(cuda_lib._CSRC, "*.cu")))
+    names = {os.path.basename(p) for p in sources}
+    assert {"matmul_f64.cu", "kmeans.cu"} <= names
+    for entry in ("bof_accum_matmul_f64", "bof_lloyd_assign",
+                  "bof_lloyd_accumulate"):
+        assert entry in cuda_lib._ENTRIES
+    base = cuda_lib._digest(sources)
+    for name in ("matmul_f64.cu", "kmeans.cu"):
+        copy = [str(tmp_path / os.path.basename(p)) for p in sources]
+        for src, dst in zip(sources, copy):
+            shutil.copyfile(src, dst)
+        with open(tmp_path / name, "a") as f:
+            f.write("\n// changed\n")
+        assert cuda_lib._digest(copy) != base, name
