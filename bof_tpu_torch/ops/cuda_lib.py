@@ -31,7 +31,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P, _I, _LL, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float, ctypes.c_double
-# entry point -> argtypes (every one returns cudaGetLastError() as an int)
+# entry point -> argtypes (every one returns cudaGetLastError() as an int,
+# but those of _SIZES)
 _ENTRIES = {
     "bof_accum_matmul_f32": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _P],
@@ -42,12 +43,14 @@ _ENTRIES = {
     "bof_accum_matmul_f64": [_P, _P, _P, _D, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _P],
     "bof_lloyd_assign": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "bof_lloyd_accumulate": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "bof_lloyd_accumulate": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "bof_lloyd_accumulate_scratch_ints": [_I, _I],
     "bof_spmm_ell": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F, _LL, _LL, _LL,
                      _I, _P],
     "bof_spmv_ell": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F, _LL, _LL, _I,
                      _P],
 }
+_SIZES = {"bof_lloyd_accumulate_scratch_ints"}  # return a size, long long
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -136,7 +139,7 @@ def build() -> ctypes.CDLL:
         for name, argtypes in _ENTRIES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _LL if name in _SIZES else ctypes.c_int
         BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0,
                           ptxas=log)
         _lib = lib

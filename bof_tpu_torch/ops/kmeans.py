@@ -67,6 +67,41 @@ def lloyd_accumulate_ref(p: torch.Tensor, labels: torch.Tensor,
     counts.index_add_(0, idx, torch.ones_like(labels))
 
 
+def lloyd_accumulate_ordered_ref(p: torch.Tensor, labels: torch.Tensor,
+                                 sums: torch.Tensor, counts: torch.Tensor,
+                                 budget: int = 1 << 28) -> None:
+    """Plain version of `lloyd_accumulate` in the kernel's order of
+    additions, so bit for bit: each center's rows in index order, gathered
+    into a zero-padded (centers, max count, d) block, added one row at a
+    time into an fp32 sum from 0 (adds only, so nothing contracts to an
+    fma), then sums += that sum for every center and counts += the exact
+    counts.  Centers go in batches whose block stays under `budget` bytes.
+    For tests and chip_smoke.py."""
+    k, d = sums.shape
+    cnt = torch.bincount(labels.long(), minlength=k)
+    order = torch.sort(labels.long(), stable=True).indices
+    cnt_h = cnt.tolist()
+    starts = (torch.cumsum(cnt, 0) - cnt).tolist()
+    acc_all = torch.zeros_like(sums)
+    j0 = 0
+    while j0 < k:
+        j1, width = j0 + 1, cnt_h[j0]
+        while j1 < k and (j1 + 1 - j0) * max(width, cnt_h[j1]) * d * 4 \
+                <= budget:
+            width = max(width, cnt_h[j1])
+            j1 += 1
+        rows = p.new_zeros((j1 - j0, width, d))
+        for j in range(j0, j1):
+            rows[j - j0, :cnt_h[j]] = p[order[starts[j]:starts[j] + cnt_h[j]]]
+        acc = torch.zeros_like(acc_all[j0:j1])
+        for t in range(width):
+            acc = acc + rows[:, t]
+        acc_all[j0:j1] = acc
+        j0 = j1
+    sums.add_(acc_all)
+    counts.add_(cnt.to(counts.dtype))
+
+
 def lloyd_block_ref(p, centers, c_norms, sums, counts):
     """Plain version of B7 (`lloyd_block`)."""
     labels, mind = lloyd_assign_ref(p, centers, c_norms)
@@ -112,7 +147,10 @@ def lloyd_accumulate(p: torch.Tensor, labels: torch.Tensor,
     """Kernel 2 of B7: sums[j] += the points labelled j and counts[j] +=
     their number, in place; p (bn, d) fp32, labels (bn,) int32 in [0, k),
     sums (k, d) fp32, counts (k,) int32 (exact).  Deterministic on the
-    card: each center adds its points in index order.  CPU tensors take
+    card: a counting sort of the labels, then each center adds its points
+    in index order (`lloyd_accumulate_ordered_ref`'s bits), in int32
+    scratch sized by the library's
+    `bof_lloyd_accumulate_scratch_ints`.  CPU tensors take
     `lloyd_accumulate_ref`."""
     k = sums.shape[0]
     _check_block(p, k, labels, sums, counts)
@@ -129,10 +167,12 @@ def lloyd_accumulate(p: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"lloyd_accumulate: unsupported device {p.device}")
     bn, d = p.shape
     lib = build()
+    n_scratch = lib.bof_lloyd_accumulate_scratch_ints(bn, k)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=p.device)
     with torch.cuda.device(p.device):
         rc = lib.bof_lloyd_accumulate(
             p.data_ptr(), labels.data_ptr(), sums.data_ptr(),
-            counts.data_ptr(), bn, k, d,
+            counts.data_ptr(), scratch.data_ptr(), n_scratch, bn, k, d,
             torch.cuda.current_stream(p.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bof_lloyd_accumulate launch failed: CUDA error "

@@ -29,6 +29,7 @@ from bof_tpu_torch.ops.matmul_cuda import (K1_S8_MAX_K, K1_VARIANTS,
                                            k1_variant, pack_kmajor_ref,
                                            tf32_truncate)
 from bof_tpu_torch.ops.kmeans import (lloyd_accumulate,
+                                      lloyd_accumulate_ordered_ref,
                                       lloyd_accumulate_ref, lloyd_assign,
                                       lloyd_assign_ref)
 from bof_tpu_torch.sparse.spmm_cuda import (promote_vals, spmm_ell,
@@ -680,12 +681,15 @@ def _f64_limit(a, b, alpha, a_km, b_nk, c_nm):
     return lim.T if c_nm else lim
 
 
-@pytest.mark.parametrize("shape", [(300, 211, 147), (1000, 776, 516)])
+@pytest.mark.parametrize("shape", [(300, 211, 147), (1000, 776, 516),
+                                   (129, 135, 7), (250, 131, 17)])
 @pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
 def test_f64_variant_matches_plain(cuda_device, shape, a_km, b_nk, c_nm):
-    """K1 'f64' on every layout at ragged shapes (odd leading dimensions),
+    """K1 'f64' on every layout at ragged shapes (no dimension a multiple
+    of the 128x128x16 tiles or of 16, K below 16; odd leading dimensions),
     alpha -1.5 and a non-zero C, within bof_tpu's scaled fp64 bound of the
-    float64 plain version; only the 'f64' count moves."""
+    float64 plain version; only the 'f64' count moves; a second launch on
+    the same inputs gives the same bits."""
     rng = np.random.default_rng(31 + a_km + 2 * b_nk + 4 * c_nm)
     m, n, k = shape
     a, b, got = [torch.from_numpy(x.T.copy() if t else x).to(cuda_device)
@@ -699,6 +703,7 @@ def test_f64_variant_matches_plain(cuda_device, shape, a_km, b_nk, c_nm):
                           dtype=torch.float64) == "f64"
     want = accum_matmul_ref(got.clone(), a, b, alpha, **flags)
     assert want.dtype == torch.float64
+    again = got.clone()
     before = dict(accum_matmul.variant_launches)
     accum_matmul(got, a, b, alpha, **flags)
     torch.cuda.synchronize()
@@ -706,24 +711,35 @@ def test_f64_variant_matches_plain(cuda_device, shape, a_km, b_nk, c_nm):
     assert moved == dict.fromkeys(K1_VARIANTS, 0) | {"f64": 1}
     assert bool(((got - want).abs()
                  <= _f64_limit(a, b, alpha, a_km, b_nk, c_nm)).all())
+    accum_matmul(again, a, b, alpha, **flags)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got), "two launches differ"
 
 
+@pytest.mark.parametrize("shape,pads", [
+    ((200, 131, 77), (3, 5, 7)),   # odd and even lds, odd extents
+    ((201, 131, 77), (3, 5, 7)),   # every ld even, every extent odd
+    ((200, 132, 78), (3, 5, 7)),   # every ld odd
+    ((200, 132, 78), (2, 4, 6))])  # every ld and extent even
 @pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
-def test_f64_kernel_takes_any_leading_dimension(cuda_device, a_km, b_nk,
-                                                c_nm):
+def test_f64_kernel_takes_any_leading_dimension(cuda_device, shape, pads,
+                                                a_km, b_nk, c_nm):
     """The entry point on operands whose storage rows are wider than the
-    matrix (leading dimensions padded by 3, 5 and 7 elements): only the
-    named columns are read, and C's padding keeps its sentinel."""
+    matrix (leading dimensions padded by `pads` elements): an odd leading
+    dimension takes 8-byte copies, an even one 16-byte copies, and with an
+    odd extent along the storage rows the last of a row's 16-byte copies
+    reads one element and zero-fills the other.  Only the named columns
+    are read, and C's padding keeps its sentinel."""
     rng = np.random.default_rng(41 + a_km + 2 * b_nk + 4 * c_nm)
-    m, n, k, alpha = 200, 131, 77, 0.75
+    (m, n, k), alpha = shape, 0.75
 
     def padded(rows, cols, pad):
         full = torch.from_numpy(rng.standard_normal((rows, cols + pad))
                                 ).to(cuda_device)
         return full, full[:, :cols]
-    a_full, a = padded(*((k, m) if a_km else (m, k)), 3)
-    b_full, b = padded(*((n, k) if b_nk else (k, n)), 5)
-    c_full, c = padded(*((n, m) if c_nm else (m, n)), 7)
+    a_full, a = padded(*((k, m) if a_km else (m, k)), pads[0])
+    b_full, b = padded(*((n, k) if b_nk else (k, n)), pads[1])
+    c_full, c = padded(*((n, m) if c_nm else (m, n)), pads[2])
     c_full[:, c.shape[1]:] = -1234.5
     want = accum_matmul_ref(c.contiguous(), a.contiguous(), b.contiguous(),
                             alpha, a_km=a_km, b_nk=b_nk, c_nm=c_nm)
@@ -802,15 +818,24 @@ def _blobs(rng, bn, d, k, device):
             torch.from_numpy(np.ascontiguousarray(c)).to(device))
 
 
-@pytest.mark.parametrize("bn,d,k", [(1000, 33, 7), (1, 16, 5),
-                                    (4096, 128, 300), (2000, 8, 1),
-                                    (777, 200, 129)])
-def test_lloyd_kernels_match_plain(cuda_device, bn, d, k):
+@pytest.mark.parametrize("bn,d,k,skew", [(1000, 33, 7, None),
+                                         (1, 16, 5, None),
+                                         (4096, 128, 300, None),
+                                         (2000, 8, 1, None),
+                                         (777, 200, 129, None),
+                                         (3001, 24, 5000, None),
+                                         (2500, 40, 64, "one"),
+                                         (5000, 16, 64, "half")])
+def test_lloyd_kernels_match_plain(cuda_device, bn, d, k, skew):
     """B7 at ragged shapes (k not a multiple of the 128-center tile, d not
-    of the 8-wide slab, bn = 1, d past one 128-feature pass): labels equal
-    the plain version's but at near-ties, mind within 1e-5 * (|p|^2 +
-    max|c|^2); on the same labels, counts equal and sums within 1e-5 *
-    sum|p| over each center's points, bit-identical from run to run."""
+    of the 8-wide slab, bn = 1 and bn not a multiple of the 1024-label
+    chunk, d past one 128-feature pass, k 5000 past the shared-memory
+    count table): labels equal the plain version's but at near-ties, mind
+    within 1e-5 * (|p|^2 + max|c|^2); then the accumulate on those labels,
+    or with `skew` on every point in one center ("one") or on half the
+    centers left empty ("half"): counts equal, sums bit-equal to the
+    order-faithful plain version and within 1e-5 * sum|p| over each
+    center's points of index_add_, two launches bit-identical."""
     rng = np.random.default_rng(bn + d + k)
     p, c = _blobs(rng, bn, d, k, cuda_device)
     cn = (c * c).sum(1)
@@ -823,6 +848,11 @@ def test_lloyd_kernels_match_plain(cuda_device, bn, d, k):
     assert _near_tie(p, c, labels, want_l)
     scale = (p.double() ** 2).sum(1) + float((c.double() ** 2).sum(1).max())
     assert bool(((mind - want_m).double().abs() <= 1e-5 * scale).all())
+    if skew == "one":
+        labels = torch.full_like(labels, k // 3)
+    elif skew == "half":
+        labels = torch.from_numpy(2 * rng.integers(0, k // 2, bn).astype(
+            np.int32)).to(cuda_device)
     sums0 = torch.from_numpy(rng.standard_normal((k, d)).astype(
         np.float32)).to(cuda_device)
     counts0 = torch.from_numpy(rng.integers(0, 5, k).astype(np.int32)
@@ -832,14 +862,47 @@ def test_lloyd_kernels_match_plain(cuda_device, bn, d, k):
         lloyd_accumulate(p, labels, s, n_)
     want_s, want_n = sums0.clone(), counts0.clone()
     lloyd_accumulate_ref(p, labels, want_s, want_n)
+    ord_s, ord_n = sums0.clone(), counts0.clone()
+    lloyd_accumulate_ordered_ref(p, labels, ord_s, ord_n)
     torch.cuda.synchronize()
     assert lloyd_accumulate.launches == before[1] + 2
     assert torch.equal(got[0][0], got[1][0]), "not deterministic"
-    assert torch.equal(got[0][1], want_n)
+    assert torch.equal(got[0][1], want_n) and torch.equal(ord_n, want_n)
+    assert torch.equal(got[0][0], ord_s), "not the kernel's order"
     abs_sum = torch.zeros((k, d), dtype=torch.float64, device=cuda_device)
     abs_sum.index_add_(0, labels.long(), p.double().abs())
     err = (got[0][0].double() - want_s.double()).abs()
     assert bool((err <= 1e-5 * abs_sum + 1e-6 * sums0.double().abs()).all())
+
+
+def test_lloyd_accumulate_scratch_is_sized_by_the_library(cuda_device):
+    """The int32 scratch the accumulate needs: the sorted indices, a count
+    a (center, chunk of 1024 labels) and two k-vectors; a launch given less
+    is refused (cudaErrorInvalidValue) before it touches anything."""
+    lib = build()
+    size = lib.bof_lloyd_accumulate_scratch_ints
+    assert size(1, 5) == 1 + 5 + 10
+    assert size(1024, 3) == 1024 + 3 + 6
+    assert size(1025, 3) == 1025 + 6 + 6
+    assert size(131072, 1024) == 131072 + 1024 * 128 + 2048
+    p = torch.ones((3000, 4), device=cuda_device)
+    labels = torch.zeros(3000, dtype=torch.int32, device=cuda_device)
+    sums = torch.zeros((7, 4), device=cuda_device)
+    counts = torch.zeros(7, dtype=torch.int32, device=cuda_device)
+    n = size(3000, 7)
+    scratch = torch.empty(n, dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = lib.bof_lloyd_accumulate(
+        p.data_ptr(), labels.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+        scratch.data_ptr(), n - 1, 3000, 7, 4, stream)
+    assert rc == 1  # cudaErrorInvalidValue
+    assert int(counts.abs().sum()) == 0 and float(sums.abs().sum()) == 0.0
+    rc = lib.bof_lloyd_accumulate(
+        p.data_ptr(), labels.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+        scratch.data_ptr(), n, 3000, 7, 4, stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and counts.tolist() == [3000, 0, 0, 0, 0, 0, 0]
+    assert bool((sums[0] == 3000.0).all())
 
 
 def test_lloyd_assign_ties_take_the_first_index(cuda_device):

@@ -288,6 +288,56 @@ def test_kmeans_in_mem_is_the_reference_golden_model():
     assert got[1] == want[1]
 
 
+@pytest.mark.parametrize("bn,d,k,skew", [(1000, 33, 7, None),
+                                         (1, 8, 3, None),
+                                         (2500, 16, 9, "one"),
+                                         (2049, 12, 10, "half")])
+def test_ordered_accumulate_matches_reference(bn, d, k, skew):
+    """The accumulate kernel's order-faithful plain version against
+    index_add_ (`lloyd_accumulate_ref`) and bof_tpu's block step on its
+    labels: sums within 1e-5 relative, counts exact; also with every point
+    in one center ("one") and with half the centers empty ("half"), which
+    far centers force on bof_tpu's argmin."""
+    rng = np.random.default_rng(bn + d + k)
+    p, _ = blobs(rng, bn, d, k, spread=0.5)
+    c = p[rng.integers(0, bn, k)] + 0.1 * rng.standard_normal(
+        (k, d)).astype(np.float32)
+    if skew == "one":
+        c[:] = 1e3
+        c[k // 2] = p.mean(0)
+    elif skew == "half":
+        c[1::2] = 1e3
+    cn = (c.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    r_lab, _, r_sums, r_counts = ref_km._jit_steps()(
+        jnp.asarray(p), jnp.asarray(c), jnp.asarray(cn),
+        jnp.zeros((k, d), jnp.float32), jnp.zeros((k,), jnp.float32),
+        n_centers=k, prec="highest")
+    labels = torch.from_numpy(np.asarray(r_lab).astype(np.int32))
+    if skew == "one":
+        assert (labels == k // 2).all()
+    elif skew == "half":
+        assert (labels % 2 == 0).all()
+    pt = torch.from_numpy(p)
+    got = (torch.zeros((k, d)), torch.zeros(k, dtype=torch.int32))
+    port_km.lloyd_accumulate_ordered_ref(pt, labels, *got, budget=1 << 12)
+    want = (torch.zeros((k, d)), torch.zeros(k, dtype=torch.int32))
+    port_km.lloyd_accumulate_ref(pt, labels, *want)
+    assert torch.equal(got[1], want[1])
+    np.testing.assert_array_equal(got[1].numpy().astype(np.float32),
+                                  np.asarray(r_counts))
+    atol = 1e-5 * float(np.abs(p).sum(0).max())
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=1e-5,
+                               atol=atol)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(r_sums), rtol=1e-5,
+                               atol=atol)
+    # each center's sum is its rows added one by one in index order
+    for j in range(k):
+        acc = np.zeros(d, np.float32)
+        for row in p[np.asarray(r_lab) == j]:
+            acc = acc + row
+        np.testing.assert_array_equal(got[0][j].numpy(), acc)
+
+
 def test_wrappers_check_their_inputs():
     p = torch.zeros((4, 3))
     c = torch.zeros((2, 3))
@@ -299,3 +349,11 @@ def test_wrappers_check_their_inputs():
         port_km.lloyd_accumulate(p, torch.zeros(4, dtype=torch.int64),
                                  torch.zeros((2, 3)),
                                  torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="match"):
+        port_km.lloyd_accumulate(p, torch.zeros(4, dtype=torch.int32),
+                                 torch.zeros((2, 4)),
+                                 torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="int32"):
+        port_km.lloyd_accumulate(p, torch.zeros(4, dtype=torch.int32),
+                                 torch.zeros((2, 3)),
+                                 torch.zeros(2, dtype=torch.int64))
