@@ -12,18 +12,44 @@
 // lloyd_accumulate: sums[j] += sum of the points labelled j and counts[j] +=
 //   their number, sums fp32 (k, d), counts int32 (exact).
 //
-// What bounds lloyd_assign: 2 * bn * k * d operations on bn * d + k * d
-// floats; at the streamed block of S11 (bn 131072, d 128, k 1024) that is
-// 34.4 GFLOP on 65 MB, so fp32 FFMA (67 TFLOP/s) bounds it at 0.513 ms and
-// the bytes at 0.02 ms.  The point of a hand kernel is what it does not
-// write: the (bn x k) distance block (512 MiB at S11) never leaves
-// registers.  Design: a block owns 128 points and walks all centers in tiles
-// of 128; each tile is the FFMA SGEMM tile of matmul.cu (BK 8 slabs of d
-// through two shared-memory stages, 256 threads each with an 8x8 fp32
-// accumulator, full fp32 at every matmul_precision), and its epilogue folds
-// the 64 distances into a running (min, argmin) for the thread's 8 points.
-// After the last tile the 16 threads that share a point row (a half-warp)
-// reduce their candidates with shuffles, smaller index first on a tie.
+// What bounds lloyd_assign: G is 2 * bn * k * d operations, and the design
+// below computes it in three TF32 passes; at the streamed block of S11 (bn
+// 131072, d 128, k 1024) that is 3 * 34.4 GFLOP on 65 MB of points and
+// centers, 0.208 ms at the H100's 495 TFLOP/s against 0.02 ms for the
+// bytes, so tensor-core operations bound it.  The point of a hand kernel is
+// what it does not write: the (bn x k) distance block (512 MiB at S11)
+// never leaves registers.
+//
+// Design: K1's 3xTF32 mainloop (matmul_tf32.cu) with an argmin epilogue.
+// - P and C are both K-major (rows of d floats), as wgmma reads tf32.  The
+//   split pass (hopper.cuh: tf32_prepare) writes lo = x - tf32(x) of each
+//   (P's: 64 MiB at S11, about 0.04 ms of traffic), and a K-major copy at a
+//   leading dimension of d rounded up to 32 floats (rows on 128-byte lines)
+//   when TMA cannot read the operand where it lies (d % 4 != 0, or a base
+//   not 16-byte aligned); the tensor maps' K extent is d, so the copy's
+//   padding reads as zeros.
+// - A block owns 128 points (two consumer warpgroups of 64 rows) and walks
+//   every center in tiles of 256.  One TMA ring of two 96 KiB stages (P's
+//   hi and lo 32-float K slices and the center tile's, 128-byte swizzle)
+//   runs through the (center tile, K slice) sequence without a break
+//   between tiles; the warpgroup that finishes with a stage second refills
+//   it, so no warp only loads.  P's slices are read again for each center
+//   tile, from L2.
+// - Each stage's three tf32 products go into a fresh accumulator that is
+//   added to fp32 registers (hopper.cuh: tf32x3_stage): fp32-class
+//   arithmetic at every matmul_precision, at least each of bof_tpu's tiers.
+//   32 floats of K a stage halve those adds against K1's 16 (8 % faster at
+//   S11's block, PERF.md).
+// - A tile's fp32 accumulators start at -cn/2 of their center, so the
+//   tile ends at g - cn/2 = -pd/2 (pd rounded along the sums, not once at
+//   the end; well inside the fp32 tolerance), and the epilogue folds the
+//   64 x 256 fragment into a running (max, argmax) for each of the
+//   thread's 2 rows with compares alone, centers in increasing index
+//   order (a tie keeps the first); centers past k are skipped.  Loading
+//   cn and forming pd in the fold instead cost 11 % of the kernel's time
+//   (PERF.md).  After the last tile, pd = -2 * that max exactly, and
+//   the 4 lanes that share a row reduce with shuffles, the smaller index
+//   winning a tie.  No atomics: two runs give the same bits.
 //
 // What bounds lloyd_accumulate: reading P once (bn * d * 4 bytes), the
 // labels once and sums and counts once each way, 0.02 ms at S11.  Design:
@@ -47,124 +73,167 @@
 // over the labels), so the sums keep its bits.  All points in one center
 // leave a single block to sum every row: correct, but one SM's loads.
 
+#include <cuda.h>  // CUtensorMap and the driver API's types; not linked
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // points a block
-constexpr int BN = 128;  // centers a tile
-constexpr int BK = 8;
-constexpr int PAD = 4;
-constexpr int THREADS = 256;
-constexpr int LOADS = BM * BK / THREADS;  // 4 floats of P (and of C) a thread
+using namespace hopper;
 
-__device__ __forceinline__ void tile_coord(int e, int& outer, int& kk) {
-  // both operands are stored K-contiguous (rows of d floats)
-  const int idx = threadIdx.x + e * THREADS;
-  kk = idx % BK;
-  outer = idx / BK;
-}
+constexpr int A_BM = 128;            // points a block: 2 warpgroups x 64
+constexpr int A_BN = 256;            // centers a tile
+constexpr int A_NH = A_BN / 128;     // 128-center parts of a tile
+constexpr int A_BK = 32;             // fp32 of K a stage: one 128-byte row
+constexpr int A_WG = 128;            // threads in a warpgroup
+constexpr int A_THREADS = 2 * A_WG;  // no producer warp, as in K1
+constexpr int A_TILE_P = A_BM * A_BK * 4;  // bytes of a P slice
+constexpr int A_TILE_C = A_BN * A_BK * 4;  // bytes of a center slice
+constexpr int A_STAGE = 2 * (A_TILE_P + A_TILE_C);  // hi and lo of both
+constexpr int A_STAGES = 196608 / A_STAGE;          // 192 KiB of tiles
+// stages, then an mbarrier and a counter a stage, plus slack to align the
+// base to 1 KiB (the 128-byte swizzle's atom is 8 rows of 128 bytes)
+constexpr int A_SMEM = A_STAGES * A_STAGE + A_STAGES * 12 + 1024;
+
+static_assert(A_BN % 128 == 0, "the products go 128 centers at a time");
 
 __device__ __forceinline__ bool better(float v, int j, float bv, int bj) {
   return v < bv || (v == bv && j < bj);
 }
 
-__global__ void __launch_bounds__(THREADS)
-lloyd_assign_kernel(const float* __restrict__ p, const float* __restrict__ cen,
+// Step t of the (center tile, K slice) sequence into its stage of the ring,
+// reported to the stage's full barrier as bytes.
+__device__ __forceinline__ void assign_load(
+    int t, int ktiles, uint32_t ring, uint32_t full, const CUtensorMap* p_x,
+    const CUtensorMap* c_x, const CUtensorMap* p_lo, const CUtensorMap* c_lo,
+    int m0) {
+  const int s = t % A_STAGES;
+  const int n0 = (t / ktiles) * A_BN, k0 = (t % ktiles) * A_BK;
+  const uint32_t stage = ring + s * A_STAGE, bar = full + 8 * s;
+  mbar_expect_tx(bar, A_STAGE);
+  tma_load(stage, p_x, bar, k0, m0);
+  tma_load(stage + A_TILE_P, c_x, bar, k0, n0);
+  tma_load(stage + A_TILE_P + A_TILE_C, p_lo, bar, k0, m0);
+  tma_load(stage + 2 * A_TILE_P + A_TILE_C, c_lo, bar, k0, n0);
+}
+
+// labels/mind of the block's 128 points against all k centers; p_x/c_x are
+// the points and centers (TF32 hi by truncation), p_lo/c_lo their lo parts,
+// all K-major with K extent d.
+__global__ void __launch_bounds__(A_THREADS, 1)
+lloyd_assign_kernel(const __grid_constant__ CUtensorMap p_x,
+                    const __grid_constant__ CUtensorMap c_x,
+                    const __grid_constant__ CUtensorMap p_lo,
+                    const __grid_constant__ CUtensorMap c_lo,
                     const float* __restrict__ cn, int* __restrict__ labels,
                     float* __restrict__ mind, int bn, int k, int d) {
-  __shared__ __align__(16) float Ps[2][BK][BM + PAD];
-  __shared__ __align__(16) float Cs[2][BK][BN + PAD];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t full = ring + A_STAGES * A_STAGE;  // mbarriers
+  // per stage, how many warpgroups have finished reading it (mod 2)
+  uint32_t* done =
+      reinterpret_cast<uint32_t*>(smem + A_STAGES * A_STAGE + 8 * A_STAGES);
 
-  const int tx = threadIdx.x % 16;  // centers tx*4.., 64+tx*4..
-  const int ty = threadIdx.x / 16;  // points ty*4.., 64+ty*4..
-  const int m0 = blockIdx.x * BM;
+  const int m0 = blockIdx.x * A_BM;
+  const int ktiles = (d + A_BK - 1) / A_BK;
+  const int steps = ((k + A_BN - 1) / A_BN) * ktiles;
+  const int wg = threadIdx.x / A_WG;
 
-  float best_v[8];
-  int best_j[8];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < A_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);  // the loader's expect_tx arrival
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int t = 0; t < min(A_STAGES, steps); ++t)
+      assign_load(t, ktiles, ring, full, &p_x, &c_x, &p_lo, &c_lo, m0);
+  }
+  __syncthreads();
+
+  // One thread of each warpgroup calls this once the warpgroup's wgmmas no
+  // longer read step t's stage; the second of the two refills the stage
+  // with step t + A_STAGES.
+  auto release = [&](int t) {
+    const int s = t % A_STAGES;
+    __threadfence_block();
+    if (atomicAdd(&done[s], 1u) % 2 == 1 && t + A_STAGES < steps)
+      assign_load(t + A_STAGES, ktiles, ring, full, &p_x, &c_x, &p_lo, &c_lo,
+                  m0);
+  };
+
+  // the m64nNk8 fp32 fragment holds, for 8-column chunk j, acc[4j + 2i + e]
+  // at row warp*16 + lane/4 + 8i, column 8j + 2(lane%4) + e
+  const int wt = threadIdx.x % A_WG;  // thread within the warpgroup
+  const int quad = wt % 4;
+  // the thread's best of each of its 2 rows so far: the largest -pd/2 and
+  // its center
+  float best_a[2];
+  int best_j[2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    best_v[i] = __int_as_float(0x7f800000);  // +inf
+  for (int i = 0; i < 2; ++i) {
+    best_a[i] = __int_as_float(0xff800000);  // -inf
     best_j[i] = 0;
   }
 
-  float rp[LOADS], rc[LOADS];
-  const int nslabs = (d + BK - 1) / BK;
-  for (int n0 = 0; n0 < k; n0 += BN) {
-    auto load_tiles = [&](int k0) {
+  const uint32_t p_off = wg * 64 * A_BK * 4;  // this warpgroup's rows
+  int t = 0;
+  for (int n0 = 0; n0 < k; n0 += A_BN) {
+    // acc starts at -cn/2 of its center, so the tile ends at g - cn/2 =
+    // -pd/2 and the fold only compares
+    float acc[A_BN / 2];
 #pragma unroll
-      for (int e = 0; e < LOADS; ++e) {
-        int oo, kk;
-        tile_coord(e, oo, kk);
-        const int gk = k0 + kk;
-        const int gm = m0 + oo, gn = n0 + oo;
-        rp[e] = (gm < bn && gk < d) ? p[(long long)gm * d + gk] : 0.f;
-        rc[e] = (gn < k && gk < d) ? cen[(long long)gn * d + gk] : 0.f;
+    for (int j = 0; j < A_BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + 8 * j + 2 * quad + e;
+        const float h = col < k ? -0.5f * __ldg(cn + col) : 0.f;
+        acc[4 * j + e] = h;
+        acc[4 * j + 2 + e] = h;
       }
-    };
-    auto store_tiles = [&](int s) {
-#pragma unroll
-      for (int e = 0; e < LOADS; ++e) {
-        int oo, kk;
-        tile_coord(e, oo, kk);
-        Ps[s][kk][oo] = rp[e];
-        Cs[s][kk][oo] = rc[e];
-      }
-    };
-
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    // the previous tile's last barrier follows its last read of either stage
-    load_tiles(0);
-    store_tiles(0);
-    __syncthreads();
-    for (int t = 0; t < nslabs; ++t) {
-      const int cur = t & 1;
-      if (t + 1 < nslabs) load_tiles((t + 1) * BK);
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&Ps[cur][kk][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&Ps[cur][kk][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Cs[cur][kk][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&Cs[cur][kk][64 + tx * 4]);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      if (t + 1 < nslabs) store_tiles(cur ^ 1);
-      __syncthreads();
     }
-
-    // fold this tile's distances into the running (min, argmin), centers in
-    // increasing index order
+    for (int kt = 0; kt < ktiles; ++kt, ++t) {
+      const int s = t % A_STAGES;
+      const uint32_t stage = ring + s * A_STAGE;
+      mbar_wait(full + 8 * s, (t / A_STAGES) & 1);
+      tf32x3_stage<A_NH, A_BK>(
+          acc, tf32_desc<A_BK>(stage + p_off),
+          tf32_desc<A_BK>(stage + A_TILE_P),
+          tf32_desc<A_BK>(stage + A_TILE_P + A_TILE_C + p_off),
+          tf32_desc<A_BK>(stage + 2 * A_TILE_P + A_TILE_C));
+      if (wt == 0) release(t);
+    }
+    // fold this tile into the running (max, argmax) of -pd/2, the thread's
+    // centers in increasing index order (a tie keeps the first)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gj = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (gj >= k) continue;
-      const float cnj = cn[gj];
+    for (int j = 0; j < A_BN / 8; ++j) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float v = cnj - 2.f * acc[i][j];
-        if (better(v, gj, best_v[i], best_j[i])) {
-          best_v[i] = v;
-          best_j[i] = gj;
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + 8 * j + 2 * quad + e;
+        if (col < k) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (acc[4 * j + 2 * i + e] > best_a[i]) {
+              best_a[i] = acc[4 * j + 2 * i + e];
+              best_j[i] = col;
+            }
+          }
         }
       }
     }
   }
 
-  // the 16 threads of a point row are one half-warp (lanes tx = 0..15)
+  // the 4 lanes of a quad share a row; pd = -2 * acc exactly
+  float best_v[2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < 2; ++i) {
+    best_v[i] = -2.f * best_a[i];
 #pragma unroll
-    for (int off = 8; off >= 1; off >>= 1) {
+    for (int off = 1; off <= 2; off <<= 1) {
       const float v = __shfl_xor_sync(0xffffffffu, best_v[i], off);
       const int j = __shfl_xor_sync(0xffffffffu, best_j[i], off);
       if (better(v, j, best_v[i], best_j[i])) {
@@ -172,15 +241,10 @@ lloyd_assign_kernel(const float* __restrict__ p, const float* __restrict__ cen,
         best_j[i] = j;
       }
     }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-      if (gm < bn) {
-        labels[gm] = best_j[i];
-        mind[gm] = best_v[i];
-      }
+    const int row = m0 + wg * 64 + (wt / 32) * 16 + (wt % 32) / 4 + 8 * i;
+    if (quad == 0 && row < bn) {
+      labels[row] = best_j[i];
+      mind[row] = best_v[i];
     }
   }
 }
@@ -364,19 +428,41 @@ acc_sum_kernel(const float* __restrict__ p, const int* __restrict__ order,
 
 // labels[i], mind[i] for the bn points of p against the k centers (module
 // comment), launched on `stream`.  Returns the CUDA error of the launch.
+// labels/mind of the bn points of p (bn, d) against the k centers cen
+// (k, d) with squared norms cn (k), on `stream`.  The split pass's fp32
+// workspaces, (rows x d) K-major at leading dimension ldw (a multiple of 4),
+// come from the caller (ops/kmeans.py:lloyd_workspace): p_lo (bn rows) and
+// c_lo (k rows) always, p_x and c_x (K-major copies) only where TMA cannot
+// read the operand where it lies (d % 4 != 0, or a base not 16-byte
+// aligned), else null.  Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for a missing workspace or a tensor map the driver
+// refuses.
 extern "C" int bof_lloyd_assign(const float* p, const float* cen,
                                 const float* cn, int* labels, float* mind,
-                                int bn, int k, int d, void* stream) {
+                                float* p_x, float* p_lo, float* c_x,
+                                float* c_lo, long long ldw, int bn, int k,
+                                int d, void* stream) {
   if (bn <= 0) return 0;
-  const int grid = (bn + BM - 1) / BM;
-  lloyd_assign_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, cen, cn, labels, mind, bn, k, d);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *px, *cx;
+  long long ldp, ldc;
+  CUtensorMap pm, cm, plm, clm;
+  if (!tf32_prepare(p, d, true, bn, d, 3, p_x, p_lo, ldw, &px, &ldp, s) ||
+      !tf32_prepare(cen, d, true, k, d, 3, c_x, c_lo, ldw, &cx, &ldc, s) ||
+      !tf32_kmajor_map(&pm, px, bn, d, ldp, A_BM, A_BK) ||
+      !tf32_kmajor_map(&cm, cx, k, d, ldc, A_BN, A_BK) ||
+      !tf32_kmajor_map(&plm, p_lo, bn, d, ldw, A_BM, A_BK) ||
+      !tf32_kmajor_map(&clm, c_lo, k, d, ldw, A_BN, A_BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      lloyd_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      A_SMEM);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  lloyd_assign_kernel<<<(bn + A_BM - 1) / A_BM, A_THREADS, A_SMEM, s>>>(
+      pm, cm, plm, clm, cn, labels, mind, bn, k, d);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The int32 scratch entries bof_lloyd_accumulate needs for bn points and k
-// centers: the sorted point indices (bn), the (k x nchunks) table and two
-// k-vectors.
 extern "C" long long bof_lloyd_accumulate_scratch_ints(int bn, int k) {
   const long long nchunks = (bn + ACC_CHUNK - 1) / ACC_CHUNK;
   return (long long)bn + (long long)k * nchunks + 2LL * k;

@@ -16,9 +16,9 @@
 // Shared memory keeps each operand tile in its storage layout and the
 // fragment loads index it per layout, so a_km/b_nk cost nothing; c_nm is
 // absorbed on the host by computing C^T += alpha * op(B)^T op(A)^T with the
-// opposite flags, as matmul.cu does.  Any leading dimension and any shape:
-// ragged edges are zero-filled by the copies and masked in the epilogue, so
-// no workspace is needed.
+// opposite flags, as matmul_tf32.cu does.  Any leading dimension and any
+// shape: ragged edges are zero-filled by the copies and masked in the
+// epilogue, so no workspace is needed.
 //
 // What bounds it: at the pipeline's superblock (8192^3) a step is 1.10e12
 // fp64 operations on 1.5 GiB of operands, about 700 operations a byte, so

@@ -16,7 +16,7 @@
 // rounds twice, __fadd_rn(c, __fmul_rn(scale, float(acc))), as XLA's
 // multiply then add do, so the plain version can match it bit for bit.
 //
-// Layouts are the eight storage-major ones of matmul.cu: A (M,K) or (K,M)
+// Layouts are K1's eight storage-major ones: A (M,K) or (K,M)
 // with a_km, B (K,N) or (N,K) with b_nk, C (M,N) or (N,M) with c_nm.
 //
 // What bounds it: at the pipeline's superblock (8192^3) a step is 1.10e12
@@ -397,12 +397,6 @@ accum_lowp_kernel(const __grid_constant__ CUtensorMap p_map,
 }
 
 // ------------------------------------------------------------------ host
-
-// TMA reads a 2-D operand where it lies when its base is 16-byte aligned
-// and its rows are a multiple of 16 bytes apart.
-bool tma_ok(const void* p, long long ld, int size) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (ld * size) % 16 == 0;
-}
 
 // One operand of `rows` x K as the product reads it: K-major, at *x with
 // leading dimension *ld.  With a workspace the pack pass writes it there

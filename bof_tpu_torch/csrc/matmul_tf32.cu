@@ -1,10 +1,11 @@
 // Accumulate matmul on the tensor cores: C_storage += alpha * op(A) op(B),
-// fp32 in and out, the tensor-core variants of kernel K1.
+// fp32 in and out, K1's fp32 variants ('tf32x3' and 'tf32').
 //
 // Replaces bof_tpu/ops/matmul_pallas.py:matmul (the Pallas MXU kernel) and
-// the epilogue of bof_tpu/ops/device.py:accum_step (`c + alpha * out`), as
-// csrc/matmul.cu does with FFMA; ops/matmul_cuda.py:k1_variant chooses
-// between the two.  Layouts are the eight storage-major ones of matmul.cu.
+// the epilogue of bof_tpu/ops/device.py:accum_step (`c + alpha * out`) for
+// every fp32 operand: any layout, leading dimension and base address.
+// Layouts are K1's eight storage-major ones: A (M,K) or (K,M) with a_km,
+// B (K,N) or (N,K) with b_nk, C (M,N) or (N,M) with c_nm.
 //
 // Precision.  PASSES = 3 ('highest', 'high') is 3xTF32: every operand is
 // split as x = hi + lo with hi = x truncated to TF32 (the low 13 mantissa
@@ -22,10 +23,16 @@
 // (one pass: 2.22 ms).
 //
 // How the design meets it:
-// - wgmma reads tf32 operands from shared memory only K-major.  A split
-//   pass (split_kernel) first writes, for each operand, a K-major copy when
-//   its storage is not K-major (a_km, or B stored (K,N)) and lo when
-//   PASSES = 3; a K-major operand is read in place, raw, as its own hi.
+// - wgmma reads tf32 operands from shared memory only K-major, and TMA
+//   reads an operand only where its base is 16-byte aligned and its rows
+//   a multiple of 16 bytes apart.  A split pass (hopper.cuh:
+//   tf32_prepare) first writes, for each operand, a K-major copy at a
+//   leading dimension of K rounded up to 32 floats (rows on 128-byte
+//   lines, which TMA reads fastest) when its storage is not
+//   K-major (a_km, or B stored (K,N)) or TMA cannot read it where it lies
+//   (a leading dimension that is not a multiple of 4 floats, or a base
+//   that is not 16-byte aligned), and lo when PASSES = 3;
+//   a K-major operand TMA can read is read in place, raw, as its own hi.
 //   The pass reads each operand once and writes it once or twice: at
 //   8192^3 R/N/N about 1.3 GB in all, 0.55 ms on the H100 against 9.4 ms
 //   for the product (PERF.md).
@@ -36,25 +43,18 @@
 //   whichever of the two finishes with a stage last refills it.  There is
 //   no producer warp: a ninth warp would cap ptxas at 168 registers a
 //   thread, and the 3-pass variant needs about 200.
-// - The tensor cores' fp32 accumulation drops low bits (on the H100, one
-//   TF32 pass at 8192^3 ends about 2e-5 * max|C| from the same products
-//   summed by cuBLAS in fp32), which would make 3xTF32 no better than
-//   that.  So with PASSES = 3 each stage's 3 x 16 products go into a
-//   fresh accumulator (wgmma.m64n128k8, one half of the columns at a
-//   time), which the CUDA cores then add to the fp32 accumulators.  With
-//   PASSES = 1 wgmma.m64n256k8 accumulates in place, one group in flight
-//   while the next stage is awaited.
+// - With PASSES = 3 each stage's 3 x 16 products go into a fresh
+//   accumulator and are then added to the fp32 accumulators
+//   (hopper.cuh: tf32x3_stage), since the tensor cores' own accumulation
+//   drops low bits.  With PASSES = 1 wgmma.m64n256k8 accumulates in place,
+//   one group in flight while the next stage is awaited.
 // - Ragged M/N/K edges: TMA fills out-of-bounds boxes with zeros, and the
 //   epilogue masks its stores.  c_nm is the transposed product
 //   C^T += op(B)^T op(A)^T, formed by swapping the two K-major operands.
 // - Epilogue: C += alpha * acc straight from the accumulator fragment, so
-//   a step reads C once and writes it once, as the FFMA kernel does.
+//   a step reads C once and writes it once.
 // - Tiles are visited in groups of 16 block rows, so one wave of blocks
 //   shares its A and B tiles in L2.
-//
-// Needs every TMA-read operand 16-byte aligned with a leading dimension that
-// is a multiple of 4 floats; ops/matmul_cuda.py:k1_variant sends anything
-// else to the FFMA kernel.
 
 #include <cuda.h>  // CUtensorMap and the driver API's types; not linked
 #include <cuda_runtime.h>
@@ -70,7 +70,6 @@ using namespace hopper;
 constexpr int BM = 128;          // block tile rows: 2 consumer warpgroups x 64
 constexpr int BN = 256;          // block tile columns: wgmma n256
 constexpr int BK = 16;           // fp32 along K per stage: one 64-byte row
-constexpr int WK = 8;            // K of one tf32 wgmma
 constexpr int GROUP_M = 16;      // block rows per raster group (L2 reuse)
 constexpr int WG = 128;          // threads in a warpgroup
 // two warpgroups and no producer warp: with 8 warps, 2 on each SM
@@ -80,8 +79,6 @@ constexpr int THREADS = 2 * WG;
 constexpr int TILE_P = BM * BK * 4;  // bytes of one P (rows of C) tile
 constexpr int TILE_Q = BN * BK * 4;  // bytes of one Q (columns of C) tile
 
-static_assert(BK * 4 == 64, "the 64-byte swizzle needs 64-byte tile rows");
-
 template <int PASSES>
 struct Ring {
   static constexpr int STAGE_BYTES = (TILE_P + TILE_Q) * (PASSES == 3 ? 2 : 1);
@@ -90,11 +87,6 @@ struct Ring {
   // the base to 1 KiB
   static constexpr int SMEM = STAGES * STAGE_BYTES + STAGES * 12 + 1024;
 };
-
-// wgmma descriptor of a K-major tile with 64-byte swizzled rows.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t saddr) {
-  return smem_desc<BK * 4>(saddr);
-}
 
 // d += A(64x8, K-major, desc a) * B(8x256, K-major, desc b), tf32 in, fp32
 // accumulate, for the executing warpgroup.
@@ -151,84 +143,7 @@ __device__ __forceinline__ void wgmma_m64n256k8(float (&d)[128], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-// d = A(64x8) * B(8x128) + (accumulate ? d : 0), tf32 in, fp32 out, both
-// operands K-major in shared memory, for the executing warpgroup.
-__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], uint64_t a,
-                                                uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
-      "%46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63},"
-      " %64, %65, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
 // --------------------------------------------------------------- kernels
-
-// x truncated to TF32: the 13 low mantissa bits dropped.
-__device__ __forceinline__ float tf32_hi(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
-}
-
-// The split pass for one operand of `rows` x K logical elements (rows of C
-// or columns of C, K inner).  Reads it in storage order (TRANS: stored
-// (K, rows); else (rows, K)), and writes K-major copies with leading
-// dimension ldo: the operand itself (WRITE_X) and lo = x - tf32_hi(x)
-// (WRITE_LO).  32 x 32 tiles, 1-D grid; the shared tile makes both the
-// reads and the writes of a transpose contiguous across a warp.
-template <bool TRANS, bool WRITE_X, bool WRITE_LO>
-__global__ void __launch_bounds__(256)
-split_kernel(const float* __restrict__ src, long long lds,
-             float* __restrict__ x_out, float* __restrict__ lo_out,
-             long long ldo, int rows, int K) {
-  __shared__ float tile[32][33];
-  const int ktiles = (K + 31) / 32;
-  const int r0 = (blockIdx.x / ktiles) * 32;
-  const int k0 = (blockIdx.x % ktiles) * 32;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-#pragma unroll
-  for (int j = ty; j < 32; j += 8) {
-    if (TRANS) {  // tile[k][r]
-      const int k = k0 + j, r = r0 + tx;
-      tile[j][tx] = (k < K && r < rows) ? src[(long long)k * lds + r] : 0.f;
-    } else {  // tile[r][k]
-      const int r = r0 + j, k = k0 + tx;
-      tile[j][tx] = (r < rows && k < K) ? src[(long long)r * lds + k] : 0.f;
-    }
-  }
-  if (TRANS) __syncthreads();
-#pragma unroll
-  for (int j = ty; j < 32; j += 8) {
-    const int r = r0 + j, k = k0 + tx;
-    if (r < rows && k < K) {
-      const float v = TRANS ? tile[tx][j] : tile[j][tx];
-      if (WRITE_X) x_out[(long long)r * ldo + k] = v;
-      if (WRITE_LO) lo_out[(long long)r * ldo + k] = v - tf32_hi(v);
-    }
-  }
-}
 
 // K-tile kt of the four operands (two when PASSES == 1) into its stage of
 // the ring, reported to the stage's full barrier as bytes.
@@ -312,35 +227,12 @@ accum_tf32_kernel(const __grid_constant__ CUtensorMap p_x,
     const int s = kt % R::STAGES;
     const uint32_t stage = ring + s * R::STAGE_BYTES;
     mbar_wait(full + 8 * s, (kt / R::STAGES) & 1);
-    const uint64_t px = kmajor_desc(stage + p_off);
-    const uint64_t qx = kmajor_desc(stage + TILE_P);
+    const uint64_t px = tf32_desc<BK>(stage + p_off);
+    const uint64_t qx = tf32_desc<BK>(stage + TILE_P);
     if constexpr (PASSES == 3) {
-      // The stage's three passes go into a fresh tensor-core accumulator,
-      // 128 columns at a time, which is then added to acc on the CUDA
-      // cores: the tensor cores' own accumulation drops low bits, and a
-      // sum that never grows beyond one stage's 16 terms keeps that loss
-      // at fp32's level.
-      const uint64_t pl = kmajor_desc(stage + TILE_P + TILE_Q + p_off);
-      const uint64_t ql = kmajor_desc(stage + 2 * TILE_P + TILE_Q);
-      float part[64];
-#pragma unroll
-      for (int h = 0; h < BN / 128; ++h) {
-        const uint64_t half = (h * 128 * BK * 4) >> 4;  // Q rows 128h..
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / WK; ++kk) {
-          const uint64_t step = (kk * WK * 4) >> 4;  // 16-byte units
-          // the small terms first; the first product overwrites part
-          wgmma_m64n128k8(part, pl + step, qx + half + step, kk > 0);
-          wgmma_m64n128k8(part, px + step, ql + half + step, 1);
-          wgmma_m64n128k8(part, px + step, qx + half + step, 1);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc(part);
-#pragma unroll
-        for (int i = 0; i < 64; ++i) acc[64 * h + i] += part[i];
-      }
+      tf32x3_stage<BN / 128, BK>(
+          acc, px, qx, tf32_desc<BK>(stage + TILE_P + TILE_Q + p_off),
+          tf32_desc<BK>(stage + 2 * TILE_P + TILE_Q));
       if (threadIdx.x % WG == 0) release(kt);
     } else {
       // one TF32 pass accumulates on the tensor cores: its 2^-11 input
@@ -348,8 +240,8 @@ accum_tf32_kernel(const __grid_constant__ CUtensorMap p_x,
       fence_acc(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / WK; ++kk) {
-        const uint64_t step = (kk * WK * 4) >> 4;  // 16-byte units
+      for (int kk = 0; kk < BK / TF32_WK; ++kk) {
+        const uint64_t step = (kk * TF32_WK * 4) >> 4;  // 16-byte units
         wgmma_m64n256k8(acc, px + step, qx + step);
       }
       wgmma_commit();
@@ -387,60 +279,6 @@ accum_tf32_kernel(const __grid_constant__ CUtensorMap p_x,
 
 // ------------------------------------------------------------------ host
 
-// Tensor map of a K-major (rows x K) fp32 operand with leading dimension ld,
-// cut into boxes of box_rows x BK with the 64-byte swizzle; out-of-bounds
-// elements of a box read as zero.
-bool kmajor_map(CUtensorMap* map, const float* base, int rows, int K,
-                long long ld, int box_rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
-  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                const_cast<float*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <bool TRANS, bool WRITE_X, bool WRITE_LO>
-void launch_split(const float* src, long long lds, float* x_out,
-                  float* lo_out, long long ldo, int rows, int K,
-                  cudaStream_t s) {
-  const long long blocks = (long long)((rows + 31) / 32) * ((K + 31) / 32);
-  split_kernel<TRANS, WRITE_X, WRITE_LO><<<(unsigned)blocks, 256, 0, s>>>(
-      src, lds, x_out, lo_out, ldo, rows, K);
-}
-
-// One operand of `rows` x K as the product kernel reads it: K-major, at
-// *x with leading dimension *ld, and its lo part when passes == 3.  Runs
-// the split pass that makes what the storage does not already hold.
-// Returns false when a workspace it needs is missing.
-bool prepare(const float* src, long long lds, bool kmajor, int rows, int K,
-             int passes, float* x_ws, float* lo_ws, long long ldw,
-             const float** x, long long* ld, cudaStream_t s) {
-  const bool lo = passes == 3;
-  if ((!kmajor && x_ws == nullptr) || (lo && lo_ws == nullptr)) return false;
-  if (kmajor) {
-    *x = src;
-    *ld = lds;
-    if (lo) launch_split<false, false, true>(src, lds, nullptr, lo_ws, ldw,
-                                             rows, K, s);
-  } else {
-    *x = x_ws;
-    *ld = ldw;
-    if (lo)
-      launch_split<true, true, true>(src, lds, x_ws, lo_ws, ldw, rows, K, s);
-    else
-      launch_split<true, true, false>(src, lds, x_ws, nullptr, ldw, rows, K,
-                                      s);
-  }
-  return true;
-}
-
 template <int PASSES>
 cudaError_t launch_product(const CUtensorMap& px, const CUtensorMap& qx,
                            const CUtensorMap& pl, const CUtensorMap& ql,
@@ -464,10 +302,12 @@ cudaError_t launch_product(const CUtensorMap& px, const CUtensorMap& qx,
 // are the storage leading dimensions in elements.  The workspaces, each
 // (rows x K) K-major with leading dimension ldw (a multiple of 4), are
 // allocated by the caller and may be null where unused: a_x (M rows) when
-// a_km, b_x (N rows) when B is stored (K,N), a_lo and b_lo when passes is
-// 3.  Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
-// for an argument it cannot take (a missing workspace, a tensor map the
-// driver refuses, passes other than 1 or 3).
+// op(A) is rewritten K-major (a_km, or lda or A's base not as TMA reads),
+// b_x (N rows) likewise for B (stored (K,N), or ldb or its base), a_lo and
+// b_lo when passes is 3 (ops/matmul_cuda.py:k1_workspace).  Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for an
+// argument it cannot take (a missing workspace, a tensor map the driver
+// refuses, passes other than 1 or 3).
 extern "C" int bof_accum_matmul_tf32(float* c, const float* a, const float* b,
                                      float alpha, int M, int N, int K,
                                      int a_km, int b_nk, int c_nm,
@@ -481,8 +321,10 @@ extern "C" int bof_accum_matmul_tf32(float* c, const float* a, const float* b,
   // P = op(A) (M x K) and Q = op(B)^T (N x K), both K-major
   const float *p, *q;
   long long ldp, ldq;
-  if (!prepare(a, lda, !a_km, M, K, passes, a_x, a_lo, ldw, &p, &ldp, s) ||
-      !prepare(b, ldb, b_nk != 0, N, K, passes, b_x, b_lo, ldw, &q, &ldq, s))
+  if (!tf32_prepare(a, lda, !a_km, M, K, passes, a_x, a_lo, ldw, &p, &ldp,
+                    s) ||
+      !tf32_prepare(b, ldb, b_nk != 0, N, K, passes, b_x, b_lo, ldw, &q, &ldq,
+                    s))
     return cudaErrorInvalidValue;
   const float* p_lo = passes == 3 ? a_lo : p;
   const float* q_lo = passes == 3 ? b_lo : q;
@@ -497,10 +339,10 @@ extern "C" int bof_accum_matmul_tf32(float* c, const float* a, const float* b,
     rows_q = M;
   }
   CUtensorMap px, qx, pl, ql;
-  if (!kmajor_map(&px, p, rows_p, K, ldp, BM) ||
-      !kmajor_map(&qx, q, rows_q, K, ldq, BN) ||
-      !kmajor_map(&pl, p_lo, rows_p, K, ldp_lo, BM) ||
-      !kmajor_map(&ql, q_lo, rows_q, K, ldq_lo, BN))
+  if (!tf32_kmajor_map(&px, p, rows_p, K, ldp, BM, BK) ||
+      !tf32_kmajor_map(&qx, q, rows_q, K, ldq, BN, BK) ||
+      !tf32_kmajor_map(&pl, p_lo, rows_p, K, ldp_lo, BM, BK) ||
+      !tf32_kmajor_map(&ql, q_lo, rows_q, K, ldq_lo, BN, BK))
     return cudaErrorInvalidValue;
   const cudaError_t rc =
       passes == 3

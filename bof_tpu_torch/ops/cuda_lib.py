@@ -34,15 +34,14 @@ _P, _I, _LL, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # entry point -> argtypes (every one returns cudaGetLastError() as an int,
 # but those of _SIZES)
 _ENTRIES = {
-    "bof_accum_matmul_f32": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
-                             _LL, _LL, _LL, _P],
     "bof_accum_matmul_tf32": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                               _LL, _LL, _LL, _I, _P, _P, _P, _P, _LL, _P],
     "bof_accum_matmul_lowp": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                               _LL, _LL, _LL, _I, _P, _P, _LL, _P],
     "bof_accum_matmul_f64": [_P, _P, _P, _D, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _P],
-    "bof_lloyd_assign": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "bof_lloyd_assign": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                         _I, _P],
     "bof_lloyd_accumulate": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "bof_lloyd_accumulate_scratch_ints": [_I, _I],
     "bof_spmm_ell": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F, _LL, _LL, _LL,

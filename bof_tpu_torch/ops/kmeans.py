@@ -12,11 +12,13 @@ each center's points to its sum and count.  A full iteration makes one
 pass over the points.  (|p|^2 is constant per point and left out of the
 argmin; it is added only to report inertia.)
 
-B7 computes in full fp32 at every `matmul_precision`, at least as precise
-as each of bof_tpu's tiers.  float64 points take bof_tpu's exact numpy
-host step (its FP_DOUBLE_PRECISION semantics, not a fall-back).  The
-kernel wrappers launch on CUDA tensors and run their plain versions
-(`lloyd_assign_ref`, `lloyd_accumulate_ref`) on CPU tensors only.
+B7 computes in fp32-class arithmetic at every `matmul_precision`
+(`lloyd_assign` in 3xTF32 on the tensor cores, the sums in fp32), at
+least as precise as each of bof_tpu's tiers.  float64 points take
+bof_tpu's exact numpy host step (its FP_DOUBLE_PRECISION semantics, not a
+fall-back).  The kernel wrappers launch on CUDA tensors and run their
+plain versions (`lloyd_assign_ref`, `lloyd_accumulate_ref`) on CPU
+tensors only.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from ..core.pipeline import PrefetchSeq, TicketWindow
 from ..utils import LOG, METRICS, Timer
 from . import device as dev
 from .cuda_lib import build
+from .matmul_cuda import fp32_workspace, tf32_ldw, tf32_truncate
 
 
 def _check_block(p: torch.Tensor, k: int, *tensors) -> None:
@@ -56,6 +59,42 @@ def lloyd_assign_ref(p: torch.Tensor, centers: torch.Tensor,
     pd = torch.addmm(c_norms[None, :], p, centers.T, alpha=-2.0)
     mind, labels = torch.min(pd, dim=1)
     return labels.to(torch.int32), mind
+
+
+def lloyd_assign_tf32x3_ref(p: torch.Tensor, centers: torch.Tensor,
+                            c_norms: torch.Tensor):
+    """Plain 3xTF32 emulation of `lloyd_assign`'s arithmetic: each operand
+    split as hi = tf32_truncate(x) and lo = tf32_truncate(x - hi) (the
+    kernel's lo, truncated again by the tensor cores), G = lo_p hi_c^T +
+    hi_p lo_c^T + hi_p hi_c^T with exact products, a = G - c_norms/2
+    summed in float64 and rounded once to fp32 (the kernel sums in fp32,
+    from -c_norms/2, in its own order), then the partial distance -2a
+    (exact) and min(dim=1) as in `lloyd_assign_ref`.  For tests and
+    chip_smoke.py only.  Returns (labels int32, mind fp32)."""
+    def split(x):
+        hi = tf32_truncate(x)
+        return hi.double(), tf32_truncate(x - hi).double()
+    p_hi, p_lo = split(p)
+    c_hi, c_lo = split(centers)
+    a = (p_lo @ c_hi.T + p_hi @ c_lo.T + p_hi @ c_hi.T
+         - 0.5 * c_norms.double()[None, :]).to(torch.float32)
+    mind, labels = torch.min(-2.0 * a, dim=1)
+    return labels.to(torch.int32), mind
+
+
+def lloyd_workspace(bn: int, k: int, d: int, *,
+                    aligned: tuple = (True, True)) -> dict:
+    """Row counts of the fp32 workspaces `lloyd_assign`'s split pass writes,
+    each rows x `tf32_ldw(d)`: 'p_lo' and 'c_lo' (x - tf32(x)) always, and
+    'p_x'/'c_x' (K-major copies) where TMA cannot read the points or the
+    centers where they lie: d not a multiple of 4 floats, or a base that
+    is not 16-byte `aligned` (for P and C)."""
+    rows = {}
+    for name, n, ok in (("p", bn, aligned[0]), ("c", k, aligned[1])):
+        if d % 4 or not ok:
+            rows[f"{name}_x"] = n
+        rows[f"{name}_lo"] = n
+    return rows
 
 
 def lloyd_accumulate_ref(p: torch.Tensor, labels: torch.Tensor,
@@ -115,7 +154,10 @@ def lloyd_assign(p: torch.Tensor, centers: torch.Tensor,
     (the first index on a tie) and mind[i] = that minimum, for p (bn, d),
     centers (k, d) and c_norms (k,), all fp32 and contiguous.  Returns
     (labels int32 (bn,), mind fp32 (bn,)).  CUDA tensors launch the
-    kernel on the current stream; CPU tensors take `lloyd_assign_ref`."""
+    kernel (3xTF32 on the tensor cores, `lloyd_assign_tf32x3_ref`'s
+    arithmetic up to summation order) on the current stream, with the
+    split pass's workspace (`lloyd_workspace`); CPU tensors take
+    `lloyd_assign_ref`."""
     k = centers.shape[0]
     _check_block(p, k, centers, c_norms)
     if (centers.dtype != torch.float32 or c_norms.dtype != torch.float32
@@ -130,11 +172,16 @@ def lloyd_assign(p: torch.Tensor, centers: torch.Tensor,
     bn, d = p.shape
     labels = torch.empty(bn, dtype=torch.int32, device=p.device)
     mind = torch.empty(bn, dtype=torch.float32, device=p.device)
+    rows = lloyd_workspace(bn, k, d, aligned=(p.data_ptr() % 16 == 0,
+                                              centers.data_ptr() % 16 == 0))
+    ldw = tf32_ldw(d)
+    ws, ptr = fp32_workspace(rows, ldw, p.device)
     lib = build()
     with torch.cuda.device(p.device):
         rc = lib.bof_lloyd_assign(
             p.data_ptr(), centers.data_ptr(), c_norms.data_ptr(),
-            labels.data_ptr(), mind.data_ptr(), bn, k, d,
+            labels.data_ptr(), mind.data_ptr(), ptr.get("p_x"), ptr["p_lo"],
+            ptr.get("c_x"), ptr["c_lo"], ldw, bn, k, d,
             torch.cuda.current_stream(p.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bof_lloyd_assign launch failed: CUDA error {rc}")

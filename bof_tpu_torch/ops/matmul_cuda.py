@@ -6,13 +6,14 @@ accum_step`'s epilogue) on CUDA tensors, and runs its plain PyTorch
 version, `accum_matmul_ref`, on CPU tensors.  Nothing else chooses between
 the two: a CUDA tensor launches the kernel or raises.
 
-K1 has five variants, and `k1_variant` alone picks one.  On fp32 operands:
+K1 has five variants, and `k1_variant` alone picks one.  On fp32 operands
+of any layout, leading dimension and base address:
 - 'tf32x3' (`csrc/matmul_tf32.cu`, 3 passes): TMA + wgmma 3xTF32, for
   precision 'highest' and 'high';
-- 'tf32' (the same kernel, 1 pass): one TF32 pass, for 'default';
-- 'ffma' (`csrc/matmul.cu`): full fp32 FFMA, for operands TMA cannot
-  describe (a leading dimension that is not a multiple of 4 floats, or a
-  base address that is not 16-byte aligned), at every precision.
+- 'tf32' (the same kernel, 1 pass): one TF32 pass, for 'default'.
+Their split pass first writes a K-major copy of each operand `k1_packs`
+names (MN-major, or where TMA cannot read it), counted in
+`accum_matmul.tf32_packs`, and the lo parts for 3 passes (`k1_workspace`).
 On the transfer modes' operands (FlashConfig.transfer_dtype), C fp32:
 - 'bf16' (`csrc/matmul_lowp.cu`): bf16 A and B, TMA + wgmma with an fp32
   accumulator, at every precision (bof_tpu's bf16 tiles);
@@ -20,7 +21,8 @@ On the transfer modes' operands (FlashConfig.transfer_dtype), C fp32:
   C += alpha * float(sum) in two roundings (bof_tpu's `accum_step_q`,
   alpha = its scale); K at most `K1_S8_MAX_K`.
 Both read K-major operands only: a pack pass in the same file first
-writes a K-major copy of each operand `lowp_packs` names.
+writes a K-major copy of each operand `k1_packs` names, counted in
+`accum_matmul.lowp_packs`.
 On float64 C, A and B (bof_tpu's FP_DOUBLE_PRECISION gemm):
 - 'f64' (`csrc/matmul_f64.cu`): DMMA on the fp64 tensor cores, every
   layout and leading dimension, at every precision (bof_tpu's Ozaki
@@ -39,7 +41,7 @@ from .cuda_lib import build
 # matmul precision -> tensor-core passes; each tier keeps at least the bits
 # the TPU's tier keeps ('highest': 6 bf16 passes; 'default': 1 bf16 pass)
 K1_PASSES = {"highest": 3, "high": 3, "default": 1}
-K1_VARIANTS = ("tf32x3", "tf32", "ffma", "bf16", "s8", "f64")
+K1_VARIANTS = ("tf32x3", "tf32", "bf16", "s8", "f64")
 # the int32 sum of K int8 products is exact while 127^2 * K < 2^31
 K1_S8_MAX_K = 1 << 17
 _LOWP = {torch.bfloat16: ("bf16", 0), torch.int8: ("s8", 1)}
@@ -67,38 +69,38 @@ def _passes(prec: str) -> int:
     return K1_PASSES[prec]
 
 
-def k1_variant(lda: int, ldb: int, prec: str, *, aligned: bool = True,
-               dtype: torch.dtype = torch.float32) -> str:
+def k1_variant(prec: str, *, dtype: torch.dtype = torch.float32) -> str:
     """The K1 variant a CUDA launch runs.  float64 operands (`dtype`) run
-    'f64', bf16 operands 'bf16' and int8 operands 's8', whatever their
-    layout (the low-precision pack pass makes a K-major copy where TMA
-    cannot read one, `lowp_packs`).  fp32
-    operands run 'tf32x3' for 'highest'/'high', 'tf32' for 'default',
-    when TMA can describe both (storage leading
-    dimensions `lda`, `ldb` multiples of 4 floats, i.e. 16 bytes, and both
-    base addresses 16-byte `aligned`); 'ffma', the full-fp32 FFMA kernel,
-    otherwise.  C has no constraint (the epilogue stores floats one by
-    one).  Raises ValueError on an unknown `prec`."""
+    'f64', bf16 operands 'bf16' and int8 operands 's8'; fp32 operands run
+    'tf32x3' for 'highest'/'high' and 'tf32' for 'default'.  No layout,
+    leading dimension or base address changes the choice: each variant's
+    pass before the product writes a K-major copy of an operand TMA
+    cannot read where it lies (`k1_packs`), and C has no constraint (the
+    epilogue stores floats one by one).  Raises ValueError on an unknown
+    `prec`."""
     passes = _passes(prec)
     if dtype == torch.float64:
         return "f64"
     if dtype in _LOWP:
         return _LOWP[dtype][0]
-    if not aligned or lda % 4 or ldb % 4:
-        return "ffma"
     return "tf32x3" if passes == 3 else "tf32"
 
 
 def k1_workspace(m: int, n: int, k: int, *, a_km: bool, b_nk: bool,
-                 passes: int) -> dict:
-    """Row counts of the K-major fp32 workspaces the tensor-core variants
-    write before the product (each rows x `k1_ldw(k)`): 'a_x' (op(A)
-    rewritten K-major) when a_km, 'b_x' (op(B)^T) when B is stored (K,N),
-    and 'a_lo'/'b_lo' (x - tf32(x)) for 3 passes."""
+                 passes: int, lda: int = 0, ldb: int = 0,
+                 aligned: tuple = (True, True)) -> dict:
+    """Row counts of the K-major fp32 workspaces the fp32 variants write
+    before the product (each rows x `tf32_ldw(k)`): 'a_x' (op(A) rewritten
+    K-major) and 'b_x' (op(B)^T) for each operand `k1_packs` names (stored
+    MN-major: a_km, or B stored (K,N); or K-major where TMA cannot read it:
+    a storage leading dimension `lda`/`ldb` that is not a multiple of 4
+    floats, or a base that is not 16-byte `aligned`), and 'a_lo'/'b_lo'
+    (x - tf32(x)) for 3 passes.  The default lda/ldb 0 count as readable."""
+    pack_a, pack_b = k1_packs(a_km, b_nk, lda, ldb, torch.float32, aligned)
     rows = {}
-    if a_km:
+    if pack_a:
         rows["a_x"] = m
-    if not b_nk:
+    if pack_b:
         rows["b_x"] = n
     if passes == 3:
         rows["a_lo"] = m
@@ -113,18 +115,42 @@ def k1_ldw(k: int, itemsize: int = 4) -> int:
     return -(-k // step) * step
 
 
-def lowp_packs(a_km: bool, b_nk: bool, lda: int, ldb: int,
-               dtype: torch.dtype, aligned: tuple = (True, True)) -> tuple:
-    """Which operands, (A, B), the 'bf16' and 's8' variants' pack pass
-    rewrites K-major (into a workspace of `k1_ldw(k, itemsize)` columns)
-    before the product: one whose storage is not K-major (a_km, or B
-    stored (K,N)), or that TMA cannot read where it lies: its storage
-    leading dimension (lda, ldb elements of `dtype`) not a multiple of 16
-    bytes, or its base not 16-byte aligned (`aligned`, for A and B)."""
+def tf32_ldw(k: int) -> int:
+    """Leading dimension of the fp32 split pass's workspaces (K1's fp32
+    variants, B7's assign): k rounded up to 32 floats, so that every row
+    starts a 128-byte line.  TMA needs only 16 bytes, but on the H100 rows
+    16 bytes off a line made K1 at 8192 x 8193 x 8193 (ld 8196) 1.8x
+    slower than at 8192^3 (PERF.md)."""
+    return -(-k // 32) * 32
+
+
+def k1_packs(a_km: bool, b_nk: bool, lda: int, ldb: int,
+             dtype: torch.dtype, aligned: tuple = (True, True)) -> tuple:
+    """Which operands, (A, B), K1's pass before the product rewrites
+    K-major (into a workspace of `k1_ldw(k, itemsize)` columns): the
+    fp32 variants' split pass and the 'bf16' and 's8' variants' pack
+    pass alike.  One whose storage is not K-major (a_km, or B stored
+    (K,N)), or that TMA cannot read where it lies: its storage leading
+    dimension (lda, ldb elements of `dtype`) not a multiple of 16 bytes,
+    or its base not 16-byte aligned (`aligned`, for A and B)."""
     a_ok, b_ok = aligned
     size = dtype.itemsize
     return (bool(a_km or not a_ok or lda * size % 16),
             bool(not b_nk or not b_ok or ldb * size % 16))
+
+
+def fp32_workspace(rows: dict, ld: int, device) -> tuple:
+    """One fp32 device buffer cut into the named blocks of `rows[name]`
+    rows of `ld` floats each (ld a multiple of 4, so every block starts
+    16-byte aligned): (the buffer, name -> address).  The caller keeps the
+    buffer until its launch is enqueued."""
+    ws = torch.empty(sum(rows.values()) * ld, dtype=torch.float32,
+                     device=device)
+    ptr, off = {}, 0
+    for name, r in rows.items():
+        ptr[name] = ws.data_ptr() + 4 * off
+        off += r * ld
+    return ws, ptr
 
 
 def pack_kmajor_ref(x: torch.Tensor, *, mn_major: bool,
@@ -227,14 +253,14 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return c  # nothing to add; the C entries would launch nothing
     lda, ldb = a.shape[1], b.shape[1]
     aligned = (a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
-    variant = k1_variant(lda, ldb, prec, aligned=all(aligned), dtype=a.dtype)
+    variant = k1_variant(prec, dtype=a.dtype)
     lib = build()
-    packs = (False, False)
+    packs, tf32_packs = (False, False), 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if a.dtype in _LOWP:
             entry = "bof_accum_matmul_lowp"
-            packs = lowp_packs(a_km, b_nk, lda, ldb, a.dtype, aligned)
+            packs = k1_packs(a_km, b_nk, lda, ldb, a.dtype, aligned)
             ldw = k1_ldw(k, a.element_size())
             ws = [torch.empty((rows, ldw), dtype=a.dtype, device=dev)
                   if pack else None for pack, rows in zip(packs, (m, n))]
@@ -249,22 +275,13 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha), m, n,
                 k, int(a_km), int(b_nk), int(c_nm), lda, ldb, c.shape[1],
                 stream)
-        elif variant == "ffma":
-            entry = "bof_accum_matmul_f32"
-            rc = lib.bof_accum_matmul_f32(
-                c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha), m, n,
-                k, int(a_km), int(b_nk), int(c_nm), lda, ldb, c.shape[1],
-                stream)
         else:
             entry = "bof_accum_matmul_tf32"
-            rows = k1_workspace(m, n, k, a_km=a_km, b_nk=b_nk, passes=passes)
-            ldw = k1_ldw(k)
-            ws = torch.empty(sum(rows.values()) * ldw, dtype=torch.float32,
-                             device=dev)
-            ptr, off = {}, 0
-            for name, r in rows.items():
-                ptr[name] = ws.data_ptr() + 4 * off
-                off += r * ldw
+            rows = k1_workspace(m, n, k, a_km=a_km, b_nk=b_nk, passes=passes,
+                                lda=lda, ldb=ldb, aligned=aligned)
+            tf32_packs = ("a_x" in rows) + ("b_x" in rows)
+            ldw = tf32_ldw(k)
+            ws, ptr = fp32_workspace(rows, ldw, dev)
             rc = lib.bof_accum_matmul_tf32(
                 c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha), m, n,
                 k, int(a_km), int(b_nk), int(c_nm), lda, ldb, c.shape[1],
@@ -275,15 +292,18 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     accum_matmul.launches += 1
     accum_matmul.variant_launches[variant] += 1
     accum_matmul.lowp_packs += sum(packs)
+    accum_matmul.tf32_packs += tf32_packs
     return c
 
 
 def reset_launch_counts() -> None:
-    """Set K1's launch count, its per-variant counts and the count of
-    operands the low-precision pack pass rewrote (`lowp_packs`) to 0."""
+    """Set K1's launch count, its per-variant counts and the counts of
+    operands the low-precision pack pass (`lowp_packs`) and the fp32
+    split pass (`tf32_packs`) rewrote K-major to 0."""
     accum_matmul.launches = 0
     accum_matmul.variant_launches = dict.fromkeys(K1_VARIANTS, 0)
     accum_matmul.lowp_packs = 0
+    accum_matmul.tf32_packs = 0
 
 
 reset_launch_counts()

@@ -1,4 +1,4 @@
-"""bof_tpu_torch on a CUDA card: kernel K1 (its FFMA, tensor-core, bf16,
+"""bof_tpu_torch on a CUDA card: kernel K1 (its tensor-core fp32, bf16,
 s8 and f64 variants), K2 (ELL SpMM), the ELL SpMV (on fp32, bf16 and int8
 values) and the k-means pair B7 against their plain versions, and the
 out-of-core gemm (fp32, its transfer modes and float64), csrmm, csrgemv
@@ -31,7 +31,8 @@ from bof_tpu_torch.ops.matmul_cuda import (K1_S8_MAX_K, K1_VARIANTS,
 from bof_tpu_torch.ops.kmeans import (lloyd_accumulate,
                                       lloyd_accumulate_ordered_ref,
                                       lloyd_accumulate_ref, lloyd_assign,
-                                      lloyd_assign_ref)
+                                      lloyd_assign_ref,
+                                      lloyd_assign_tf32x3_ref)
 from bof_tpu_torch.sparse.spmm_cuda import (promote_vals, spmm_ell,
                                             spmm_ell_ref, spmv_ell,
                                             spmv_ell_ref)
@@ -92,7 +93,7 @@ def test_tensor_core_variant_matches_plain(cuda_device, prec, a_km, b_nk,
     m, n, k, alpha = 1000, 776, 516, 1.5
     a, b, got = _k1_operands(rng, m, n, k, a_km, b_nk, c_nm, cuda_device)
     c0 = got.clone()
-    variant = k1_variant(a.shape[1], b.shape[1], prec)
+    variant = k1_variant(prec)
     assert variant == ("tf32x3" if prec == "highest" else "tf32")
     flags = dict(a_km=a_km, b_nk=b_nk, c_nm=c_nm)
     before = dict(accum_matmul.variant_launches)
@@ -110,6 +111,60 @@ def test_tensor_core_variant_matches_plain(cuda_device, prec, a_km, b_nk,
         limit = 2.0 ** -10 * k ** 0.5 * float(a.abs().max()) \
             * float(b.abs().max()) * alpha
         assert float((got - want).abs().max()) <= limit
+
+
+def _misaligned(x):
+    """A contiguous copy of x whose base is 4 bytes past a 16-byte
+    boundary: TMA cannot read it in place."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    y = buf[1:1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 == 4
+    return y
+
+
+@pytest.mark.parametrize("where", ["odd ld", "A's base", "B's base"])
+@pytest.mark.parametrize("prec", ["highest", "default"])
+@pytest.mark.parametrize("a_km,b_nk,c_nm", LAYOUTS)
+def test_tensor_core_variant_takes_any_leading_dimension_and_base(
+        cuda_device, where, prec, a_km, b_nk, c_nm):
+    """Operands TMA cannot read where they lie run on the tensor cores
+    after the split pass copies them K-major: 1000x777x513 (every leading
+    dimension odd), or 1000x776x516 with A's or B's base 4 bytes off 16.
+    The fp32 variant of the tier runs, the pack count moves by the
+    operands copied (MN-major, or not readable in place), and the result
+    meets test_tensor_core_variant_matches_plain's bounds."""
+    rng = np.random.default_rng(17 + a_km + 2 * b_nk + 4 * c_nm)
+    m, n, k = (1000, 777, 513) if where == "odd ld" else (1000, 776, 516)
+    a, b, got = _k1_operands(rng, m, n, k, a_km, b_nk, c_nm, cuda_device)
+    if where == "A's base":
+        a = _misaligned(a)
+    elif where == "B's base":
+        b = _misaligned(b)
+    readable = [x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+                for x in (a, b)]
+    want_packs = int(a_km or not readable[0]) + int(not b_nk or
+                                                    not readable[1])
+    c0 = got.clone()
+    flags = dict(a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+    variant = "tf32x3" if prec == "highest" else "tf32"
+    before = (accum_matmul.variant_launches[variant],
+              accum_matmul.tf32_packs)
+    accum_matmul(got, a, b, 1.5, prec=prec, **flags)
+    torch.cuda.synchronize()
+    assert (accum_matmul.variant_launches[variant],
+            accum_matmul.tf32_packs) == (before[0] + 1,
+                                         before[1] + want_packs)
+    want = accum_matmul_ref(c0.clone(), a, b, 1.5, **flags)
+    if prec == "highest":
+        assert float((got - want).abs().max()) <= \
+            2e-4 * float(want.abs().max())
+    else:
+        emul = accum_matmul_tf32_ref(c0.clone(), a, b, 1.5, **flags)
+        assert float((got - emul).abs().max()) <= \
+            2e-4 * float(emul.abs().max())
+        assert float((got - want).abs().max()) <= 2.0 ** -10 * k ** 0.5 \
+            * float(a.abs().max()) * float(b.abs().max()) * 1.5
 
 
 def test_tf32_operands_are_truncated(cuda_device):
@@ -130,7 +185,8 @@ def test_tf32_operands_are_truncated(cuda_device):
 
 
 def test_variant_launch_counters(cuda_device):
-    """One launch of each variant moves its own count and the total."""
+    """One launch of each variant moves its own count and the total; the
+    ragged 100x77x51 (rows TMA cannot read) runs on the tensor cores too."""
     rng = np.random.default_rng(13)
     before = (accum_matmul.launches, dict(accum_matmul.variant_launches))
     for (m, n, k), prec in (((256, 256, 64), "highest"),
@@ -143,8 +199,8 @@ def test_variant_launch_counters(cuda_device):
     torch.cuda.synchronize()
     assert accum_matmul.launches == before[0] + 3
     assert {v: accum_matmul.variant_launches[v] - before[1][v]
-            for v in before[1]} == {"tf32x3": 1, "tf32": 1, "ffma": 1,
-                                    "bf16": 0, "s8": 0, "f64": 0}
+            for v in before[1]} == {"tf32x3": 2, "tf32": 1, "bf16": 0,
+                                    "s8": 0, "f64": 0}
     assert tuple(before[1]) == K1_VARIANTS
 
 
@@ -183,7 +239,7 @@ def test_lowp_variant_matches_plain(cuda_device, shape, dtype, a_km, b_nk,
                                cuda_device)
     alpha = 1.5 if dtype == torch.bfloat16 else 3.0517578125e-05 * 1.37
     flags = dict(a_km=a_km, b_nk=b_nk, c_nm=c_nm)
-    variant = k1_variant(a.shape[1], b.shape[1], "highest", dtype=dtype)
+    variant = k1_variant("highest", dtype=dtype)
     assert variant == ("bf16" if dtype == torch.bfloat16 else "s8")
     want = accum_matmul_ref(got.clone(), a, b, alpha, **flags)
     before = accum_matmul.variant_launches[variant]
@@ -699,8 +755,7 @@ def test_f64_variant_matches_plain(cuda_device, shape, a_km, b_nk, c_nm):
     alpha = -1.5
     flags = dict(a_km=a_km, b_nk=b_nk, c_nm=c_nm)
     for prec in ("highest", "default"):
-        assert k1_variant(a.shape[1], b.shape[1], prec,
-                          dtype=torch.float64) == "f64"
+        assert k1_variant(prec, dtype=torch.float64) == "f64"
     want = accum_matmul_ref(got.clone(), a, b, alpha, **flags)
     assert want.dtype == torch.float64
     again = got.clone()
@@ -875,6 +930,36 @@ def test_lloyd_kernels_match_plain(cuda_device, bn, d, k, skew):
     assert bool((err <= 1e-5 * abs_sum + 1e-6 * sums0.double().abs()).all())
 
 
+@pytest.mark.parametrize("bn,d,k,where", [(1000, 33, 7, None),
+                                          (4099, 130, 1000, None),
+                                          (2048, 128, 256, "points"),
+                                          (300, 64, 257, "centers"),
+                                          (131, 3, 513, None)])
+def test_lloyd_assign_matches_its_tf32x3_emulation(cuda_device, bn, d, k,
+                                                   where):
+    """lloyd_assign (3xTF32 on the tensor cores) against its plain 3xTF32
+    emulation, with d not a multiple of 4 (the split pass's zero-padded
+    K-major copy), k not a multiple of the 256-center tile, and the points'
+    or the centers' base 4 bytes off 16 (also copied): labels equal but at
+    near-ties, mind within 1e-5 * (|p|^2 + max|c|^2), two launches
+    bit-identical."""
+    rng = np.random.default_rng(bn + d + k + 3)
+    p, c = _blobs(rng, bn, d, k, cuda_device)
+    if where == "points":
+        p = _misaligned(p)
+    elif where == "centers":
+        c = _misaligned(c)
+    cn = (c * c).sum(1)
+    labels, mind = lloyd_assign(p, c, cn)
+    again = lloyd_assign(p, c, cn)
+    want_l, want_m = lloyd_assign_tf32x3_ref(p, c, cn)
+    torch.cuda.synchronize()
+    assert torch.equal(labels, again[0]) and torch.equal(mind, again[1])
+    assert _near_tie(p, c, labels, want_l)
+    scale = (p.double() ** 2).sum(1) + float((c.double() ** 2).sum(1).max())
+    assert bool(((mind - want_m).double().abs() <= 1e-5 * scale).all())
+
+
 def test_lloyd_accumulate_scratch_is_sized_by_the_library(cuda_device):
     """The int32 scratch the accumulate needs: the sorted indices, a count
     a (center, chunk of 1024 labels) and two k-vectors; a launch given less
@@ -908,7 +993,7 @@ def test_lloyd_accumulate_scratch_is_sized_by_the_library(cuda_device):
 def test_lloyd_assign_ties_take_the_first_index(cuda_device):
     """Duplicated centers give bit-equal distances: the kernel, like
     jnp.argmin and torch.min, labels a point with the first of them, also
-    when the duplicates lie in different 128-center tiles."""
+    when the duplicates lie in different 256-center tiles."""
     rng = np.random.default_rng(5)
     d, k = 24, 300
     c = rng.standard_normal((k, d)).astype(np.float32)

@@ -278,6 +278,73 @@ def test_reference_checkpoint_resumes_in_the_port(ctxs, tmp_path,
     np.testing.assert_allclose(got[1], want_ref[1], rtol=1e-4)
 
 
+def _near_ties_only(p, c, got, want):
+    """Where two label vectors differ, the float64 partial distances of the
+    two centers are within 1e-5 * (|p|^2 + max|c|^2) of each other: a
+    near-tie that fp32-class arithmetic may break either way."""
+    diff = np.nonzero(got != want)[0]
+    if diff.size == 0:
+        return True
+    p64, c64 = p[diff].astype(np.float64), c.astype(np.float64)
+    pd = (c64 * c64).sum(1)[None, :] - 2.0 * p64 @ c64.T
+    rows = np.arange(diff.size)
+    gap = np.abs(pd[rows, got[diff]] - pd[rows, want[diff]])
+    scale = (p64 * p64).sum(1) + (c64 * c64).sum(1).max()
+    return bool((gap <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("bn,d,k", [(257, 16, 5), (1000, 33, 7), (1, 8, 3),
+                                    (600, 4, 1), (3000, 130, 300)])
+def test_tf32x3_assign_emulation_matches_plain_and_reference(bn, d, k):
+    """The plain 3xTF32 emulation of lloyd_assign's arithmetic (d = 33 and
+    130 not multiples of 4, k not a multiple of the 256-center tile)
+    against lloyd_assign_ref and bof_tpu's block step ('highest'): labels
+    equal but at near-ties, mind within 1e-5 * (|p|^2 + max|c|^2), the
+    tolerance chip_smoke.py holds the kernel to.  Its lo terms are in: its
+    mind is within 1e-6 * that scale of float64's, where one TF32 pass
+    (hi alone) is not."""
+    rng = np.random.default_rng(bn * 7 + d + k)
+    p, _ = blobs(rng, bn, d, k, spread=0.5)
+    c = p[rng.integers(0, bn, k)] + 0.1 * rng.standard_normal(
+        (k, d)).astype(np.float32)
+    cn = (c.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    pt, ct, cnt = (torch.from_numpy(x) for x in (p, c, cn))
+    e_lab, e_mind = port_km.lloyd_assign_tf32x3_ref(pt, ct, cnt)
+    assert e_lab.dtype == torch.int32 and e_mind.dtype == torch.float32
+    p_lab, p_mind = port_km.lloyd_assign_ref(pt, ct, cnt)
+    r_lab, r_mind = ref_km._jit_steps()(
+        jnp.asarray(p), jnp.asarray(c), jnp.asarray(cn),
+        jnp.zeros((k, d), jnp.float32), jnp.zeros((k,), jnp.float32),
+        n_centers=k, prec="highest")[:2]
+    scale = (p.astype(np.float64) ** 2).sum(1) + float(cn.max())
+    for lab, mind in ((p_lab.numpy(), p_mind.numpy()),
+                      (np.asarray(r_lab), np.asarray(r_mind))):
+        assert _near_ties_only(p, c, e_lab.numpy(), lab)
+        assert (np.abs(e_mind.numpy() - mind) <= 1e-5 * scale).all()
+    pd64 = cn.astype(np.float64)[None, :] - 2.0 * (
+        p.astype(np.float64) @ c.astype(np.float64).T)
+    mind64 = pd64[np.arange(bn), e_lab.numpy()]
+    assert (np.abs(e_mind.numpy() - mind64) <= 1e-6 * scale).all()
+    hi_p, hi_c = (port_km.tf32_truncate(x).double().numpy() for x in (pt, ct))
+    one_pass = cn.astype(np.float64)[None, :] - 2.0 * hi_p @ hi_c.T
+    assert (np.abs(one_pass - pd64).max(1) > 1e-6 * scale).any()
+
+
+@pytest.mark.parametrize("d,aligned,want", [
+    (128, (True, True), {"p_lo": 1000, "c_lo": 7}),
+    (33, (True, True), {"p_x": 1000, "p_lo": 1000, "c_x": 7, "c_lo": 7}),
+    (128, (False, True), {"p_x": 1000, "p_lo": 1000, "c_lo": 7}),
+    (128, (True, False), {"p_lo": 1000, "c_x": 7, "c_lo": 7}),
+])
+def test_lloyd_workspace_rows(d, aligned, want):
+    """lloyd_assign's split pass writes lo of the points and the centers,
+    and a K-major copy of either only where TMA cannot read it in place
+    (d not a multiple of 4 floats, a base not 16-byte aligned); rows of d
+    rounded up to 32 floats (128-byte lines)."""
+    assert port_km.lloyd_workspace(1000, 7, d, aligned=aligned) == want
+    assert [port_km.tf32_ldw(x) for x in (33, 128, 130)] == [64, 128, 160]
+
+
 def test_kmeans_in_mem_is_the_reference_golden_model():
     rng = np.random.default_rng(9)
     pts, _ = blobs(rng, 300, 5, 3)
@@ -357,3 +424,26 @@ def test_wrappers_check_their_inputs():
         port_km.lloyd_accumulate(p, torch.zeros(4, dtype=torch.int32),
                                  torch.zeros((2, 3)),
                                  torch.zeros(2, dtype=torch.int64))
+
+
+def test_assign_variant_tool_edits_apply_to_the_committed_kernel(tmp_path):
+    """tools/torch_b7_assign_variants.py times textual variants of
+    csrc/kmeans.cu (the measurements PERF.md cites): each edit must still
+    find its text in the committed source, once, and the first design comes
+    from the file it is given."""
+    import importlib.util
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "b7_assign_variants",
+        os.path.join(root, "tools", "torch_b7_assign_variants.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(os.path.join(tool.CSRC, "kmeans.cu")) as f:
+        src = f.read()
+    first = tmp_path / "first.cu"
+    first.write_text("// the first design\n")
+    variants = tool._variants(src, tool.NAMES, str(first))
+    assert variants["committed"] == src
+    assert variants[tool.FIRST] == "// the first design\n"
+    assert set(variants) == set(tool.NAMES)
+    assert len(set(variants.values())) == len(tool.NAMES)

@@ -22,10 +22,10 @@ from bof_tpu_torch.ops.matmul_cuda import (K1_PASSES, K1_S8_MAX_K,
                                            K1_VARIANTS, accum_matmul,
                                            accum_matmul_ref,
                                            accum_matmul_tf32_ref, k1_ldw,
-                                           k1_variant, k1_workspace,
-                                           lowp_packs, pack_kmajor_ref,
+                                           k1_packs, k1_variant,
+                                           k1_workspace, pack_kmajor_ref,
                                            reset_launch_counts,
-                                           tf32_truncate)
+                                           tf32_ldw, tf32_truncate)
 
 LAYOUTS = list(itertools.product([False, True], repeat=3))
 
@@ -123,20 +123,28 @@ def test_precision_maps_to_tensor_core_passes():
     assert K1_PASSES == {"highest": 3, "high": 3, "default": 1}
 
 
-@pytest.mark.parametrize("lda,ldb,aligned,prec,want", [
-    (8192, 8192, True, "highest", "tf32x3"),
-    (8192, 8192, True, "high", "tf32x3"),
-    (8192, 8192, True, "default", "tf32"),
-    (516, 776, True, "highest", "tf32x3"),
-    (1000, 516, True, "default", "tf32"),
-    (513, 777, True, "highest", "ffma"),   # chip_smoke's ragged shape
-    (513, 777, True, "default", "ffma"),
-    (516, 514, True, "highest", "ffma"),   # 8-byte rows: not TMA's 16
-    (6, 8, True, "default", "ffma"),
-    (8192, 8192, False, "highest", "ffma"),  # a base not 16-byte aligned
+@pytest.mark.parametrize("lda,ldb,aligned,prec,want,packs", [
+    (8192, 8192, True, "highest", "tf32x3", (False, False)),
+    (8192, 8192, True, "high", "tf32x3", (False, False)),
+    (8192, 8192, True, "default", "tf32", (False, False)),
+    (516, 776, True, "highest", "tf32x3", (False, False)),
+    (1000, 516, True, "default", "tf32", (False, False)),
+    # chip_smoke's ragged shape: TMA cannot read either operand in place
+    (513, 777, True, "highest", "tf32x3", (True, True)),
+    (513, 777, True, "default", "tf32", (True, True)),
+    (516, 514, True, "highest", "tf32x3", (False, True)),  # 8-byte rows
+    (6, 8, True, "default", "tf32", (True, False)),
+    # a base not 16-byte aligned
+    (8192, 8192, False, "highest", "tf32x3", (True, True)),
 ])
-def test_k1_variant_rule(lda, ldb, aligned, prec, want):
-    assert k1_variant(lda, ldb, prec, aligned=aligned) == want
+def test_k1_variant_rule(lda, ldb, aligned, prec, want, packs):
+    """Every fp32 operand runs on the tensor cores, at its tier's pass
+    count; an operand TMA cannot read where it lies (rows not a multiple
+    of 16 bytes apart, a base not 16-byte aligned) is one the split pass
+    rewrites K-major first (here both stored K-major: A (M,K), B (N,K))."""
+    assert k1_variant(prec) == want
+    assert k1_packs(False, True, lda, ldb, torch.float32,
+                    (aligned, aligned)) == packs
 
 
 @pytest.mark.parametrize("call", ["variant", "wrapper", "accum_step"])
@@ -144,7 +152,7 @@ def test_unknown_precision_raises(call):
     a, b, c = torch.zeros(4, 8), torch.zeros(8, 4), torch.zeros(4, 4)
     with pytest.raises(ValueError, match="precision"):
         if call == "variant":
-            k1_variant(8, 4, "fastest")
+            k1_variant("fastest")
         elif call == "wrapper":
             accum_matmul(c, a, b, 1.0, a_km=False, b_nk=False, c_nm=False,
                          prec="fastest")
@@ -168,6 +176,34 @@ def test_k1_workspace(a_km, b_nk, passes):
         want.update(a_lo=1000, b_lo=776)
     assert rows == want
     assert (k1_ldw(513), k1_ldw(516), k1_ldw(1)) == (516, 516, 4)
+
+
+@pytest.mark.parametrize("lda,ldb,aligned,want_x", [
+    (513, 513, (True, True), {"a_x": 1000, "b_x": 776}),  # odd rows
+    (514, 516, (True, True), {"a_x": 1000}),              # 8-byte rows
+    (516, 516, (False, True), {"a_x": 1000}),              # A's base
+    (516, 516, (True, False), {"b_x": 776}),               # B's base
+    (516, 516, (True, True), {}),
+])
+@pytest.mark.parametrize("passes", [1, 3])
+def test_k1_workspace_rewrites_what_tma_cannot_read(lda, ldb, aligned,
+                                                    want_x, passes):
+    """Both operands stored K-major (A (M,K), B (N,K)): the split pass
+    copies one K-major only where TMA cannot read it, a leading dimension
+    that is not a multiple of 4 floats or a base that is not 16-byte
+    aligned (`k1_packs`' rule in fp32); the lo parts as before."""
+    rows = k1_workspace(1000, 776, 513, a_km=False, b_nk=True,
+                        passes=passes, lda=lda, ldb=ldb, aligned=aligned)
+    assert [tf32_ldw(k) for k in (513, 8193, 8192, 1)] == [544, 8224,
+                                                          8192, 32]
+    want = dict(want_x)
+    if passes == 3:
+        want.update(a_lo=1000, b_lo=776)
+    assert rows == want
+    # an MN-major operand is copied whatever its rows and base
+    rows = k1_workspace(1000, 776, 513, a_km=True, b_nk=False,
+                        passes=passes, lda=lda, ldb=ldb, aligned=aligned)
+    assert rows["a_x"] == 1000 and rows["b_x"] == 776
 
 
 def test_tf32_truncation_and_one_pass_emulation(rng):
@@ -284,13 +320,17 @@ def test_s8_refuses_a_k_whose_int32_sum_could_overflow():
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "bf16"),
                                         (torch.int8, "s8"),
-                                        (torch.float32, "ffma")])
+                                        (torch.float32, "tf32x3")])
 @pytest.mark.parametrize("prec", ["highest", "default"])
 def test_k1_variant_by_operand_type(dtype, want, prec):
-    """The transfer modes' operands pick their variants at every precision
-    and any leading dimension (their pack pass rewrites what TMA cannot
-    read in place)."""
-    assert k1_variant(513, 777, prec, dtype=dtype) == want
+    """Each operand type picks its variant at any leading dimension (the
+    pass before the product rewrites what TMA cannot read in place, and
+    here `k1_packs` names both operands); the transfer modes' at every
+    precision, fp32's by the tier's pass count ('default': one pass)."""
+    if dtype == torch.float32 and prec == "default":
+        want = "tf32"
+    assert k1_variant(prec, dtype=dtype) == want
+    assert k1_packs(False, True, 513, 777, dtype) == (True, True)
     assert "bf16" in K1_VARIANTS and "s8" in K1_VARIANTS
 
 
@@ -347,34 +387,39 @@ def test_lowp_pack_rule(a_km, b_nk, dtype, ld, rows_ok):
     stored (K,M), B stored (K,N)), or one whose rows are not a multiple of
     16 bytes apart or whose base is not 16-byte aligned."""
     want = (a_km or not rows_ok, not b_nk or not rows_ok)
-    assert lowp_packs(a_km, b_nk, ld, ld, dtype) == want
-    assert lowp_packs(a_km, b_nk, ld, ld, dtype, (True, True)) == want
-    assert lowp_packs(a_km, b_nk, ld, ld, dtype,
-                      aligned=(False, True)) == (True, want[1])
-    assert lowp_packs(a_km, b_nk, ld, ld, dtype,
-                      aligned=(True, False)) == (want[0], True)
-    assert lowp_packs(a_km, b_nk, ld, ld, dtype,
-                      aligned=(False, False)) == (True, True)
+    assert k1_packs(a_km, b_nk, ld, ld, dtype) == want
+    assert k1_packs(a_km, b_nk, ld, ld, dtype, (True, True)) == want
+    assert k1_packs(a_km, b_nk, ld, ld, dtype,
+                    aligned=(False, True)) == (True, want[1])
+    assert k1_packs(a_km, b_nk, ld, ld, dtype,
+                    aligned=(True, False)) == (want[0], True)
+    assert k1_packs(a_km, b_nk, ld, ld, dtype,
+                    aligned=(False, False)) == (True, True)
 
 
 def test_lowp_pack_rule_on_the_main_paths():
     """S6 (int8, R/N/N at blk 8192: A (M,K), B (K,N)) packs B alone; S7
     (bf16, C/T/N: a_km False, b_nk True) packs nothing."""
-    assert lowp_packs(False, False, 8192, 8192, torch.int8) == (False, True)
-    assert lowp_packs(False, True, 8192, 8192, torch.bfloat16) == (False,
-                                                                   False)
+    assert k1_packs(False, False, 8192, 8192, torch.int8) == (False, True)
+    assert k1_packs(False, True, 8192, 8192, torch.bfloat16) == (False,
+                                                                 False)
 
 
 def test_lowp_pack_count_is_reset_and_left_alone_on_the_cpu(rng):
-    """reset_launch_counts zeroes the pack count; the CPU path (the plain
+    """reset_launch_counts zeroes the pack counts; the CPU path (the plain
     versions) packs nothing and launches nothing."""
     accum_matmul.lowp_packs = 5
+    accum_matmul.tf32_packs = 3
     reset_launch_counts()
     assert accum_matmul.lowp_packs == 0 and accum_matmul.launches == 0
+    assert accum_matmul.tf32_packs == 0
     a = torch.zeros((8, 6), dtype=torch.int8)
     accum_matmul(torch.zeros(6, 5), a, torch.zeros((8, 5), dtype=torch.int8),
                  1.0, a_km=True, b_nk=False, c_nm=False)
+    accum_matmul(torch.zeros(6, 5), torch.zeros((8, 6)), torch.zeros((8, 5)),
+                 1.0, a_km=True, b_nk=False, c_nm=False)
     assert accum_matmul.lowp_packs == 0 and accum_matmul.launches == 0
+    assert accum_matmul.tf32_packs == 0
 
 
 def test_lowp_variant_tool_edits_apply_to_the_committed_kernel():
