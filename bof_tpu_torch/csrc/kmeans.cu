@@ -38,8 +38,8 @@
 // - Each stage's three tf32 products go into a fresh accumulator that is
 //   added to fp32 registers (hopper.cuh: tf32x3_stage): fp32-class
 //   arithmetic at every matmul_precision, at least each of bof_tpu's tiers.
-//   32 floats of K a stage halve those adds against K1's 16 (8 % faster at
-//   S11's block, PERF.md).
+//   32 floats of K a stage halve those adds against K1's 16 (12 % faster
+//   at S11's block, PERF.md).
 // - A tile's fp32 accumulators start at -cn/2 of their center, so the
 //   tile ends at g - cn/2 = -pd/2 (pd rounded along the sums, not once at
 //   the end; well inside the fp32 tolerance), and the epilogue folds the
@@ -426,8 +426,6 @@ acc_sum_kernel(const float* __restrict__ p, const int* __restrict__ order,
 
 }  // namespace
 
-// labels[i], mind[i] for the bn points of p against the k centers (module
-// comment), launched on `stream`.  Returns the CUDA error of the launch.
 // labels/mind of the bn points of p (bn, d) against the k centers cen
 // (k, d) with squared norms cn (k), on `stream`.  The split pass's fp32
 // workspaces, (rows x d) K-major at leading dimension ldw (a multiple of 4),
@@ -463,6 +461,9 @@ extern "C" int bof_lloyd_assign(const float* p, const float* cen,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The int32 scratch entries bof_lloyd_accumulate needs for bn points and k
+// centers: the sorted point indices (bn), the (k x nchunks) table and two
+// k-vectors.
 extern "C" long long bof_lloyd_accumulate_scratch_ints(int bn, int k) {
   const long long nchunks = (bn + ACC_CHUNK - 1) / ACC_CHUNK;
   return (long long)bn + (long long)k * nchunks + 2LL * k;

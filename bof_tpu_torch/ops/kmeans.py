@@ -34,7 +34,7 @@ from ..core.pipeline import PrefetchSeq, TicketWindow
 from ..utils import LOG, METRICS, Timer
 from . import device as dev
 from .cuda_lib import build
-from .matmul_cuda import fp32_workspace, tf32_ldw, tf32_truncate
+from .matmul_cuda import fp32_workspace, k1_packs, tf32_ldw, tf32_truncate
 
 
 def _check_block(p: torch.Tensor, k: int, *tensors) -> None:
@@ -82,16 +82,17 @@ def lloyd_assign_tf32x3_ref(p: torch.Tensor, centers: torch.Tensor,
     return labels.to(torch.int32), mind
 
 
-def lloyd_workspace(bn: int, k: int, d: int, *,
-                    aligned: tuple = (True, True)) -> dict:
+def lloyd_workspace(bn: int, k: int, d: int, *, aligned: tuple) -> dict:
     """Row counts of the fp32 workspaces `lloyd_assign`'s split pass writes,
     each rows x `tf32_ldw(d)`: 'p_lo' and 'c_lo' (x - tf32(x)) always, and
     'p_x'/'c_x' (K-major copies) where TMA cannot read the points or the
     centers where they lie: d not a multiple of 4 floats, or a base that
     is not 16-byte `aligned` (for P and C)."""
+    # P (bn, d) and C (k, d) lie K-major, as K1's A (M, K) and B (N, K)
+    packs = k1_packs(False, True, d, d, torch.float32, aligned)
     rows = {}
-    for name, n, ok in (("p", bn, aligned[0]), ("c", k, aligned[1])):
-        if d % 4 or not ok:
+    for name, n, pack in zip("pc", (bn, k), packs):
+        if pack:
             rows[f"{name}_x"] = n
         rows[f"{name}_lo"] = n
     return rows

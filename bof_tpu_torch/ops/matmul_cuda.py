@@ -87,15 +87,14 @@ def k1_variant(prec: str, *, dtype: torch.dtype = torch.float32) -> str:
 
 
 def k1_workspace(m: int, n: int, k: int, *, a_km: bool, b_nk: bool,
-                 passes: int, lda: int = 0, ldb: int = 0,
-                 aligned: tuple = (True, True)) -> dict:
+                 passes: int, lda: int, ldb: int, aligned: tuple) -> dict:
     """Row counts of the K-major fp32 workspaces the fp32 variants write
     before the product (each rows x `tf32_ldw(k)`): 'a_x' (op(A) rewritten
     K-major) and 'b_x' (op(B)^T) for each operand `k1_packs` names (stored
     MN-major: a_km, or B stored (K,N); or K-major where TMA cannot read it:
     a storage leading dimension `lda`/`ldb` that is not a multiple of 4
-    floats, or a base that is not 16-byte `aligned`), and 'a_lo'/'b_lo'
-    (x - tf32(x)) for 3 passes.  The default lda/ldb 0 count as readable."""
+    floats, or a base that is not 16-byte `aligned`, for A and B), and
+    'a_lo'/'b_lo' (x - tf32(x)) for 3 passes."""
     pack_a, pack_b = k1_packs(a_km, b_nk, lda, ldb, torch.float32, aligned)
     rows = {}
     if pack_a:
@@ -109,8 +108,9 @@ def k1_workspace(m: int, n: int, k: int, *, a_km: bool, b_nk: bool,
 
 
 def k1_ldw(k: int, itemsize: int = 4) -> int:
-    """Leading dimension of the workspaces, in elements of `itemsize`
-    bytes: k rounded up to 16 bytes (4 floats, 8 bf16, 16 int8)."""
+    """Leading dimension of the 'bf16' and 's8' pack pass's workspaces, in
+    elements of `itemsize` bytes: k rounded up to 16 bytes (8 bf16, 16
+    int8; 4 floats).  The fp32 split pass's rows are `tf32_ldw`'s."""
     step = 16 // itemsize
     return -(-k // step) * step
 
@@ -127,12 +127,13 @@ def tf32_ldw(k: int) -> int:
 def k1_packs(a_km: bool, b_nk: bool, lda: int, ldb: int,
              dtype: torch.dtype, aligned: tuple = (True, True)) -> tuple:
     """Which operands, (A, B), K1's pass before the product rewrites
-    K-major (into a workspace of `k1_ldw(k, itemsize)` columns): the
-    fp32 variants' split pass and the 'bf16' and 's8' variants' pack
-    pass alike.  One whose storage is not K-major (a_km, or B stored
-    (K,N)), or that TMA cannot read where it lies: its storage leading
-    dimension (lda, ldb elements of `dtype`) not a multiple of 16 bytes,
-    or its base not 16-byte aligned (`aligned`, for A and B)."""
+    K-major: the fp32 variants' split pass (into a workspace of
+    `tf32_ldw(k)` columns) and the 'bf16' and 's8' variants' pack pass
+    (`k1_ldw(k, itemsize)` columns) alike.  One whose storage is not
+    K-major (a_km, or B stored (K,N)), or that TMA cannot read where it
+    lies: its storage leading dimension (lda, ldb elements of `dtype`) not
+    a multiple of 16 bytes, or its base not 16-byte aligned (`aligned`,
+    for A and B)."""
     a_ok, b_ok = aligned
     size = dtype.itemsize
     return (bool(a_km or not a_ok or lda * size % 16),

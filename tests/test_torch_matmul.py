@@ -164,9 +164,12 @@ def test_unknown_precision_raises(call):
 @pytest.mark.parametrize("a_km,b_nk,passes", list(itertools.product(
     [False, True], [False, True], [1, 3])))
 def test_k1_workspace(a_km, b_nk, passes):
-    """A K-major copy only of an operand whose storage is not K-major, lo
-    parts only for 3 passes; rows of k rounded up to 16 bytes."""
-    rows = k1_workspace(1000, 776, 513, a_km=a_km, b_nk=b_nk, passes=passes)
+    """Operands whose rows and bases TMA can read: a K-major copy only of
+    an operand whose storage is not K-major, lo parts only for 3 passes;
+    rows of k rounded up to 128 bytes (32 floats)."""
+    rows = k1_workspace(1000, 776, 513, a_km=a_km, b_nk=b_nk, passes=passes,
+                        lda=1000 if a_km else 516, ldb=516 if b_nk else 776,
+                        aligned=(True, True))
     want = {}
     if a_km:
         want["a_x"] = 1000
@@ -175,7 +178,7 @@ def test_k1_workspace(a_km, b_nk, passes):
     if passes == 3:
         want.update(a_lo=1000, b_lo=776)
     assert rows == want
-    assert (k1_ldw(513), k1_ldw(516), k1_ldw(1)) == (516, 516, 4)
+    assert (tf32_ldw(513), tf32_ldw(516), tf32_ldw(1)) == (544, 544, 32)
 
 
 @pytest.mark.parametrize("lda,ldb,aligned,want_x", [

@@ -244,7 +244,9 @@ def main(argv=None) -> int:
         c = true + 0.5 * torch.randn((k, d), generator=gen, device=dev)
         cn = (c * c).sum(1)
         ldw = tf32_ldw(d)
-        ws, ptr = fp32_workspace(lloyd_workspace(bn, k, d), ldw, dev)
+        rows = lloyd_workspace(bn, k, d, aligned=(p.data_ptr() % 16 == 0,
+                                                  c.data_ptr() % 16 == 0))
+        ws, ptr = fp32_workspace(rows, ldw, dev)
         labels = torch.empty(bn, dtype=torch.int32, device=dev)
         mind = torch.empty(bn, dtype=torch.float32, device=dev)
 
