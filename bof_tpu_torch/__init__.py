@@ -16,7 +16,12 @@ What is ported so far:
 - float64 gemm on K1's DMMA variant, also as `gemm64` (bof_tpu's name);
   tile-major files (`repack`, `unpack`); out-of-core k-means
   (`kmeans_fit`, `lloyds_iter`) whose Lloyd block step is the CUDA kernel
-  pair B7 (ops/kmeans.py); and the dense and k-means CLI drivers.
+  pair B7 (ops/kmeans.py); and the dense and k-means CLI drivers;
+- the paper's three applications (apps/): the block eigensolver
+  (`block_lanczos_svd`, `block_power_svd`, both halves of its one-pass
+  operator on K2), extreme multi-label ranking (`xml_rank`: K2, then the
+  CUDA row top-k B8, ops/topk_cuda.py) and topic modeling (`topic_model`
+  on csrmm and k-means), with their CLI drivers.
 ROADMAP.md lists what follows.
 """
 from .config import DEFAULT_CONFIG, FlashConfig, config_from_reference
@@ -29,6 +34,8 @@ from .ops import gemm, gemm_in_mem
 from .ops.gemm64 import gemm64
 from .ops.kmeans import kmeans_fit, lloyds_iter
 from .sparse import CsrFlashMatrix, csrcsc, csrgemv, csrmm
+from .apps import (block_lanczos_svd, block_power_svd, topic_model,
+                   xml_rank)
 
 __version__ = "0.1.0"
 
@@ -39,4 +46,5 @@ __all__ = [
     "map_array", "map_tiled_array", "mem_array", "MemStore", "StrideInfo",
     "repack", "unpack", "gemm", "gemm64", "gemm_in_mem", "kmeans_fit",
     "lloyds_iter", "CsrFlashMatrix", "csrcsc", "csrgemv", "csrmm",
+    "block_lanczos_svd", "block_power_svd", "topic_model", "xml_rank",
 ]

@@ -1,0 +1,287 @@
+"""Out-of-core extreme multi-label (XML) ranking inference.
+
+The port of `bof_tpu/apps/xml_rank.py` (the NSDI'19 paper's Table 6
+workload: linear label scoring over bag-of-words features, top-k labels a
+document):
+
+    S = A W^T          A (docs x vocab) sparse CSR on flash,
+                       W (labels x vocab) dense label weights on flash,
+    topk(S, k)         per-document label ranking.
+
+Two execution paths, as in bof_tpu:
+
+- **Fused device path (default on the card).** Per label block, the
+  (vocab x lb_max) fp32 W panel is uploaded once and transposed on the
+  card; sparse row blocks stream through the pin cache and each ELL band
+  is one launch of K2 (the block product, into a (rows x lb_max) buffer on
+  the card) and one of B8 (`ops/topk_cuda.py:row_topk`: the label mask and
+  the per-row top-k, in lax.top_k's order), so only (rows x k) scores and
+  ids cross the link.
+- **csrmm-composition path** (host sparse compute, or `fused=False`): per
+  label block, S_b = A @ W_b^T lands on flash scratch via one csrmm pass,
+  then the running (docs x k) top-k panels merge per doc block on the host.
+
+`mesh=` (several cards) is not ported yet: ROADMAP A14.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..context import get_context
+from ..core.flash_array import FlashArray, flash_empty, flash_free
+from ..ops import device as dev
+from ..ops.topk_cuda import row_topk
+from ..sparse import CsrFlashMatrix, csrmm
+from ..utils import LOG, METRICS, Timer
+
+
+def _topk_step(b_panel, ja_ell, va_ell, counts, label_mask, k: int):
+    """bof_tpu's fused step on one ELL band: (top-k scores, top-k label
+    offsets) of spmm_ell(b_panel, ja, va) + label_mask, K2 then B8.  The
+    band's rows are those of ja/va (counts gives each one's real slots);
+    label_mask is 0 on real labels and -inf on the padded tail
+    (zero-padded W columns would otherwise score 0 and beat real negative
+    scores)."""
+    from ..sparse.spmm_device import spmm_ell_block
+    s = spmm_ell_block(b_panel, ja_ell, va_ell, counts=counts)
+    return row_topk(s, label_mask, k)
+
+
+def _label_axis(w: FlashArray) -> Tuple[int, int]:
+    """(n_labels, vocab) for a label-weight matrix stored with one label's
+    weight vector per storage line: (labels x vocab) row-major or
+    (vocab x labels) column-major."""
+    if len(w.shape) != 2:
+        raise ValueError("W must be 2-D")
+    if w.order == "R":
+        return w.shape[0], w.shape[1]
+    return w.shape[1], w.shape[0]
+
+
+def _wt_view(w: FlashArray, b0: int, lb: int, vocab: int) -> FlashArray:
+    """Zero-copy (vocab x lb) column-major view of label rows [b0, b0+lb)
+    — the W_b^T operand for csrmm, no bytes moved or transposed."""
+    return FlashArray(w.store, (vocab, lb), w.dtype, "C",
+                      offset=w.offset + b0 * w.ld * w.itemsize,
+                      ld=w.ld, ctx=w.ctx)
+
+
+def _merge_topk(scores: FlashArray, labels: FlashArray, r0: int,
+                s_new: np.ndarray, l_new: np.ndarray, k: int, first: bool):
+    """Merge (bn, w) candidate scores/labels into the running flash-
+    resident (docs, k) top-k panels at doc rows [r0, r0+bn)."""
+    bn = s_new.shape[0]
+    if first:
+        cand_s, cand_l = s_new, l_new
+    else:
+        cand_s = np.concatenate([scores.read_block(r0, bn, 0, k), s_new],
+                                axis=1)
+        cand_l = np.concatenate([labels.read_block(r0, bn, 0, k), l_new],
+                                axis=1)
+    if cand_s.shape[1] > k:
+        part = np.argpartition(-cand_s, k - 1, axis=1)[:, :k]
+    else:  # first candidates narrower than k: pad to full width
+        pad = k - cand_s.shape[1]
+        cand_s = np.concatenate(
+            [cand_s, np.full((bn, pad), -np.inf, np.float32)], axis=1)
+        cand_l = np.concatenate(
+            [cand_l, np.full((bn, pad), -1, np.int32)], axis=1)
+        part = np.broadcast_to(np.arange(k), (bn, k))
+    rows = np.arange(bn)[:, None]
+    top_s = cand_s[rows, part]
+    top_l = cand_l[rows, part]
+    order = np.argsort(-top_s, axis=1, kind="stable")
+    scores.write_block(r0, top_s[rows, order].astype(np.float32), 0)
+    labels.write_block(r0, top_l[rows, order].astype(np.int32), 0)
+
+
+def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
+                    scores: FlashArray, labels: FlashArray,
+                    lb_max: int, ctx) -> None:
+    """Fused device path: per ELL band one K2 and one B8 launch, only
+    (rows x k) crossing the link; no score panel beyond one band's
+    (rows x lb_max) buffer on the card.  Stage seconds and link bytes go
+    to METRICS under `xml_rank.*`."""
+    from ..sparse import spmm_device as sdev
+    from ..sparse.csr import fill_row_blocks, stream_row_blocks
+
+    cfg = ctx.config
+    device = dev.resolve_device(cfg.device)
+    docs, vocab = a.shape
+    n_labels, _ = _label_axis(w)
+    lb_max = max(lb_max, k)  # the top-k needs k <= the label axis
+    ia_np = a.read_ia()
+    blocks = fill_row_blocks(ia_np, cfg.max_nnzs)
+    entry_cap = max(1 << 14, int(cfg.hbm_budget // 6 // max(lb_max * 4, 1)))
+    sort_rows = getattr(cfg, "ell_sort_rows", True)
+    ell_idt = sdev.ell_idx_dtype(vocab, getattr(cfg, "ell_idx_narrow", True))
+    ell_vdt = sdev.ell_val_dtype(a.vals.dtype, cfg)
+
+    for b0 in range(0, n_labels, lb_max):
+        lb = min(lb_max, n_labels - b0)
+        t0 = time.perf_counter()
+        # (lb, vocab) contiguous label rows for either W layout
+        wt_st = _wt_view(w, b0, lb, vocab).read_block_storage(0, vocab,
+                                                              0, lb)
+        METRICS.add("xml_rank.w_read_s", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        if lb < lb_max:
+            wt_pad = np.zeros((lb_max, vocab), np.float32)
+            wt_pad[:lb] = wt_st
+        else:
+            # always float32, so every label block runs the same fp32
+            # product (bof_tpu's rule)
+            wt_pad = wt_st.astype(np.float32, copy=False)
+        # (vocab, lb_max) row-major on the card: one upload, one transpose
+        b_panel = dev.to_device(wt_pad, device).T.contiguous()
+        del wt_st, wt_pad
+        mask = np.zeros(lb_max, np.float32)
+        mask[lb:] = -np.inf  # padded labels must never win the top-k
+        mask_dev = dev.to_device(mask, device)
+        METRICS.add("xml_rank.w_h2d_s", time.perf_counter() - t0)
+        METRICS.add("xml_rank.h2d_bytes", b_panel.nbytes + mask.nbytes)
+        first = b0 == 0
+
+        t_wait = time.perf_counter()
+        for r, e, ja_blk, va_blk in stream_row_blocks(a, ia_np, blocks,
+                                                      ctx):
+            t0 = time.perf_counter()
+            METRICS.add("xml_rank.disk_wait_s", t0 - t_wait)
+            blk_ia = ia_np[r:e + 1] - int(ia_np[r])
+            counts = np.diff(blk_ia)
+            # count-sorted ELL banding (as csrmm's); results stage per
+            # block so the top-k merge stays a contiguous panel write
+            order = (np.argsort(counts, kind="stable") if sort_rows
+                     else np.arange(e - r))
+            s_stage = np.empty((e - r, k), np.float32)
+            l_stage = np.empty((e - r, k), np.int32)
+            for (s0, s1) in sdev.ell_row_ranges(counts[order], entry_cap):
+                rows_sel = order[s0:s1]
+                n_sel = len(rows_sel)
+                ja_ell, va_ell = sdev.to_ell_rows(
+                    blk_ia, ja_blk, va_blk, rows_sel, idx_dtype=ell_idt,
+                    val_dtype=ell_vdt, counts=counts)
+                cnt = counts[rows_sel].astype(np.int32)
+                t1 = time.perf_counter()
+                METRICS.add("xml_rank.prep_s", t1 - t0)
+                ja_d = dev.to_device(ja_ell[:n_sel], device)
+                va_d, _, va_bytes = sdev.upload_ell_vals(
+                    va_ell[:n_sel], device)
+                cnt_d = dev.to_device(cnt, device)
+                t2 = time.perf_counter()
+                METRICS.add("xml_rank.h2d_s", t2 - t1)
+                METRICS.add("xml_rank.h2d_bytes",
+                            ja_d.nbytes + va_bytes + cnt.nbytes)
+                vals, idx = _topk_step(b_panel, ja_d, va_d, cnt_d, mask_dev,
+                                       k)
+                t3 = time.perf_counter()
+                METRICS.add("xml_rank.dispatch_s", t3 - t2)
+                vals_np = dev.from_device(vals)  # waits for K2 and B8
+                idx_np = dev.from_device(idx)
+                t0 = time.perf_counter()
+                METRICS.add("xml_rank.d2h_s", t0 - t3)
+                METRICS.add("xml_rank.d2h_bytes",
+                            vals_np.nbytes + idx_np.nbytes)
+                s_stage[rows_sel] = vals_np
+                l_stage[rows_sel] = idx_np + b0
+            _merge_topk(scores, labels, r, s_stage, l_stage, k, first)
+            t_wait = time.perf_counter()
+            METRICS.add("xml_rank.merge_s", t_wait - t0)
+        del b_panel
+
+
+def xml_rank(a: CsrFlashMatrix, w: FlashArray, k: int,
+             scores_out: Optional[FlashArray] = None,
+             labels_out: Optional[FlashArray] = None,
+             label_blk: Optional[int] = None,
+             doc_blk: Optional[int] = None,
+             fused: Optional[bool] = None,
+             mesh=None, ctx=None) -> Tuple[FlashArray, FlashArray]:
+    """Top-k labels per document: returns (scores (docs, k) float32
+    descending per row, labels (docs, k) int32).  Output panels live on
+    flash (caller-provided or scratch).  `label_blk` bounds the streamed
+    W panel; `doc_blk` bounds host merge memory.
+
+    `fused` selects the fused K2 + B8 path (default: on, unless the
+    link/problem heuristic picks host sparse compute — the same placement
+    logic as csrmm — or the W panel would not fit a third of the device
+    budget).  `mesh` (several cards) is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError("xml_rank mesh= is not ported yet "
+                                  "(ROADMAP A14: multi-GPU)")
+    ctx = ctx or a.ctx or w.ctx or get_context()
+    cfg = ctx.config
+    docs, vocab = a.shape
+    n_labels, w_vocab = _label_axis(w)
+    if w_vocab != vocab:
+        raise ValueError(f"W vocab {w_vocab} != A vocab {vocab}")
+    if not 1 <= k <= n_labels:
+        raise ValueError(f"k={k} out of range [1, {n_labels}]")
+
+    lb_max = label_blk or max(k, min(n_labels,
+                                     int(cfg.program_budget // 16
+                                         // max(vocab * 4, 1)) or 1,
+                                     4096))
+    lb_max = max(lb_max, 1)
+    db = doc_blk or max(1, min(docs, (32 << 20) // max(4 * (lb_max + k), 1)))
+
+    scores = scores_out or flash_empty((docs, k), np.float32, ctx=ctx)
+    labels = labels_out or flash_empty((docs, k), np.int32, ctx=ctx)
+    if scores.shape != (docs, k) or labels.shape != (docs, k):
+        raise ValueError("output panels must be (docs, k)")
+
+    timer = Timer()
+    if fused is None:
+        from ..sparse.csrmm import _resolve_sparse_compute
+        # the fused step holds the whole (vocab x lb) W panel on the card;
+        # at huge vocab fall back to the composition path, whose csrmm
+        # K-splits oversized panels
+        fused = (vocab * max(lb_max, k) * 4 <= cfg.hbm_budget // 3
+                 and _resolve_sparse_compute(cfg, docs, vocab, lb_max,
+                                             a.nnz) != "host")
+    if fused:
+        _xml_rank_fused(a, w, k, scores, labels, lb_max, ctx)
+        scores.store.flush()
+        labels.store.flush()
+        LOG.debug("xml_rank[fused]: %d docs x %d labels top-%d in %.0f ms",
+                  docs, n_labels, k, timer.elapsed_ms())
+        return scores, labels
+
+    s_blk = flash_empty((docs, lb_max), np.float32, ctx=ctx)
+    try:
+        for b0 in range(0, n_labels, lb_max):
+            lb = min(lb_max, n_labels - b0)
+            wt = _wt_view(w, b0, lb, vocab)
+            s_view = (s_blk if lb == lb_max else
+                      FlashArray(s_blk.store, (docs, lb), np.float32, "R",
+                                 ld=lb_max, ctx=ctx))
+            csrmm(a, wt, s_view, ctx=ctx)  # S_b = A @ W_b^T, out of core
+
+            first = b0 == 0
+            lab_ids = np.arange(b0, b0 + lb, dtype=np.int32)
+            for r0 in range(0, docs, db):
+                bn = min(db, docs - r0)
+                s_new = s_view.read_block(r0, bn, 0, lb)
+                _merge_topk(scores, labels, r0, s_new,
+                            np.broadcast_to(lab_ids, (bn, lb)), k, first)
+        scores.store.flush()
+        labels.store.flush()
+        LOG.debug("xml_rank: %d docs x %d labels top-%d in %.0f ms "
+                  "(%d label blocks)", docs, n_labels, k,
+                  timer.elapsed_ms(), -(-n_labels // lb_max))
+        return scores, labels
+    finally:
+        flash_free(s_blk)
+
+
+def xml_rank_in_mem(a_sp, w_np: np.ndarray, k: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Golden model: dense scores + full argsort (the in-memory twin's
+    role, reference test strategy SURVEY §4.2)."""
+    s = np.asarray(a_sp @ w_np.T, dtype=np.float32)
+    order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    rows = np.arange(s.shape[0])[:, None]
+    return s[rows, order], order.astype(np.int32)

@@ -8,7 +8,8 @@ digest of the flags and of every `csrc/*.cu` and `*.cuh`, and serialized
 by a flock.  Nothing is linked beyond nvcc's defaults: the TMA tensor
 maps' encoder is fetched from the driver at run time.  A failed
 build raises.  The kernel wrappers (`ops/matmul_cuda.py`, `ops/kmeans.py`,
-`sparse/spmm_cuda.py`) take their entry points from `build()`.
+`ops/topk_cuda.py`, `sparse/spmm_cuda.py`) take their entry points from
+`build()`.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ _ENTRIES = {
                      _I, _P],
     "bof_spmv_ell": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F, _LL, _LL, _I,
                      _P],
+    "bof_row_topk": [_P, _P, _P, _P, _LL, _I, _I, _P],
 }
 _SIZES = {"bof_lloyd_accumulate_scratch_ints"}  # return a size, long long
 

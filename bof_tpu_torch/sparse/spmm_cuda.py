@@ -168,6 +168,8 @@ def _ptr(t):
 
 
 def _launch(fn, dev, *args):
+    """fn(*args, stream) on `dev`'s current stream; raises on a non-zero
+    CUDA error code."""
     if dev.index is None or dev.index == torch.cuda.current_device():
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     else:

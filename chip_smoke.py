@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive bof_tpu_torch's out-of-core SGEMM and sparse paths, in fp32 and
-in their link-compressed transfer modes, then its float64 gemm and its
-out-of-core k-means, once on one CUDA card.
+in their link-compressed transfer modes, the paper's three applications,
+then its float64 gemm and its out-of-core k-means, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -92,6 +92,28 @@ Steps, each of which raises (exit code != 0) when it fails:
    host assembly (no `csrmm.assemble_s`) and downloaded each row block
    and column panel once (`csrmm.d2h_bytes`); the wall time, GFLOP/s,
    the driver's GB/s, stage seconds and peak device memory.
+9b. B8 (`row_topk`, the fused XML step's masked row top-k) against its
+   plain version, values and columns bit for bit: the band (rows 512,
+   lb_max 1024, k 5; timed beside the plain version, torch.topk and the
+   bound), k 1, k = lb_max, all-equal rows, a -inf tail wider than the
+   real labels, and lb_max 8192 (past shared memory); ptxas must report
+   no spills for it (run with the kernel checks of step 4);
+9c. the applications on S3's A, each through its driver: E1, block
+   Lanczos (`drivers.eigensolver`, 64 values, 1 restart, one pass):
+   K2 launched (forward + transposed bands) x applications times, one
+   application to 8 columns of V within rtol 1e-4 of float64 scipy,
+   sigma_i^2 within rtol 1e-4 of |A v_i|^2 for the top 8, V orthonormal
+   to 1e-5; X1, XML ranking (`drivers.xml_rank`, W 4096 x 2^17 seeded
+   normals over a spare's blocks, k 5, fused): K2 and B8 once a band a
+   label block, only rows*k*8 bytes down a block, 64 seeded documents
+   against float64 dense scores (test_apps.py's _check_topk criteria);
+   T1, topic model (`drivers.topic_model`, 1000 topics, proj_dim 64,
+   sample rate 0.1, 4 iterations): 16 rows of P = A R within the csrmm
+   gate, labels in range, the topic-word matrix the row-normalized
+   float64 one_hot(labels)^T A within rtol 1e-4 (and each row's float32
+   normalizer's rounding), K2 once a projection band, B7 launched.  Each
+   prints its wall, GFLOP/s (the driver's formula), stage seconds and
+   peak device memory.
 
 10. K1 'f64' (DMMA) against its float64 plain version on the 8 layouts
    at 8192^3, 1000x776x516 and 1001x777x517 (there also with leading
@@ -134,9 +156,9 @@ writes (a deleted file's blocks are not given back) against a 45 GiB
 disk image, and S1-S9 alone use about 36 GiB of it.  The spares are
 deleted at the end.  TF32 is switched off, so every torch matmul here is
 full fp32 (but for the one timing that asks for it).
-With BOF_SMOKE_PROFILE=1 the S1, S2, S3, S10 and S11 calls run under
-torch.profiler and the device time by kernel (and a launch, for K1, K2,
-the SpMV and B7) and the device's busy share are printed.
+With BOF_SMOKE_PROFILE=1 the S1, S2, S3, E1, X1, T1, S10 and S11 calls
+run under torch.profiler and the device time by kernel (and a launch, for K1, K2,
+the SpMV, B7 and B8) and the device's busy share are printed.
 
 The line before the last is the kernel summary as JSON, one entry a
 kernel variant the main paths launched (each one's time, plain and
@@ -647,11 +669,12 @@ def _write_operands(dev, scratch, specs, rng) -> list:
 
 
 def _reset_launch_counts():
-    from bof_tpu_torch.ops import kmeans, matmul_cuda
+    from bof_tpu_torch.ops import kmeans, matmul_cuda, topk_cuda
     from bof_tpu_torch.sparse import spmm_cuda
     matmul_cuda.reset_launch_counts()
     spmm_cuda.reset_launch_counts()
     kmeans.reset_launch_counts()
+    topk_cuda.reset_launch_counts()
 
 
 def _launch_counts() -> dict:
@@ -660,11 +683,13 @@ def _launch_counts() -> dict:
     rewrote as 'accum_matmul.lowp_packs'."""
     from bof_tpu_torch.ops.kmeans import lloyd_accumulate, lloyd_assign
     from bof_tpu_torch.ops.matmul_cuda import accum_matmul
+    from bof_tpu_torch.ops.topk_cuda import row_topk
     from bof_tpu_torch.sparse.spmm_cuda import spmm_ell, spmv_ell
     counts = {"accum_matmul.lowp_packs": accum_matmul.lowp_packs}
     for name, fn in (("accum_matmul", accum_matmul), ("spmm_ell", spmm_ell),
                      ("spmv_ell", spmv_ell), ("lloyd_assign", lloyd_assign),
-                     ("lloyd_accumulate", lloyd_accumulate)):
+                     ("lloyd_accumulate", lloyd_accumulate),
+                     ("row_topk", row_topk)):
         counts[name] = fn.launches
         counts.update((f"{name}[{v}]", n) for v, n in getattr(
             fn, "variant_launches", {}).items())
@@ -735,7 +760,7 @@ def _profiled(fn, argv) -> float:
               flush=True)
     for name in ("accum_tf32_kernel", "accum_lowp_kernel", "pack_kernel",
                  "spmm_ell_kernel", "spmv_ell_kernel", "accum_dgemm_kernel",
-                 "lloyd_assign_kernel") + ACC_KERNELS:
+                 "lloyd_assign_kernel", "row_topk_kernel") + ACC_KERNELS:
         hits = [(us, count) for us, count, key in rows if name in key]
         if hits:
             us = sum(h[0] for h in hits)
@@ -1509,6 +1534,376 @@ def csrgemv_phase(dev, scratch, prefix, a_sp, trans, tag="S5",
     return launches
 
 
+# --------------------------------------------------------- the applications
+
+TOPK_INNER = 20       # B8 calls a timing sample (microseconds each)
+
+
+def topk_kernel_phase(dev) -> dict:
+    """B8 (`row_topk`) against its plain version on the card, values and
+    columns bit for bit (the order is a total one): the fused XML step's
+    band (rows 512, lb_max 1024, k 5), k 1, k = lb_max, all-equal rows, a
+    -inf tail wider than the real labels, and lb_max 8192 (past shared
+    memory: the 'l2' variant).  The band is timed beside the plain
+    version, torch.topk on the masked scores (the library yardstick, never
+    called by the port) and the bound: the scores and mask read once and
+    k (value, index) pairs a row written, over 3.35 TB/s."""
+    import torch
+    from bof_tpu_torch.ops.topk_cuda import (TOPK_SMEM_COLS, row_topk,
+                                             row_topk_ref)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    out = None
+    for tag, rows, lb_max, lb, k, fill in (
+            ("band", 512, 1024, 1024, 5, "normal"),
+            ("k=1", 512, 1024, 1024, 1, "normal"),
+            ("k=lb", 512, 1024, 1024, 1024, "normal"),
+            ("ties", 512, 1024, 1024, 16, "equal"),
+            ("-inf tail", 512, 1024, 40, 64, "normal"),
+            ("lb 8192", 256, 8192, 8192, 5, "normal")):
+        s = torch.randn((rows, lb_max), generator=gen, device=dev)
+        if fill == "equal":
+            s.fill_(0.25)
+        mask = torch.zeros(lb_max, device=dev)
+        mask[lb:] = float("-inf")
+        variant = "smem" if lb_max <= TOPK_SMEM_COLS else "l2"
+        before = row_topk.variant_launches[variant]
+        got_v, got_i = row_topk(s, mask, k)
+        torch.cuda.synchronize()
+        if row_topk.variant_launches[variant] != before + 1:
+            raise AssertionError(f"B8 ({tag}): the '{variant}' count did "
+                                 "not move")
+        want_v, want_i = row_topk_ref(s, mask, k)
+        same = (torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+                and torch.equal(got_i, want_i))
+        print(f"B8 ({tag}) rows {rows} lb_max {lb_max} real labels {lb} k "
+              f"{k} ({variant}): values and columns bit-identical to the "
+              f"plain version: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"B8 ({tag}) disagrees with its plain "
+                                 "version")
+        if tag == "band":
+            x = s + mask
+            nbytes = (rows * lb_max + lb_max) * 4 + rows * k * 8
+            bound, by = _bound(nbytes, 0.0, FP32_FLOPS)
+            ms = _median_ms(lambda: row_topk(s, mask, k), inner=TOPK_INNER)
+            plain_ms = _median_ms(lambda: row_topk_ref(s, mask, k))
+            library_ms = _median_ms(lambda: torch.topk(x, k, dim=1),
+                                    inner=TOPK_INNER)
+            # the same calls on the card alone (behind a sleep kernel):
+            # a few microseconds of kernel under the host's launch cost
+            ms_q = _median_ms(lambda: row_topk(s, mask, k),
+                              inner=TOPK_INNER, queued=True)
+            library_q = _median_ms(lambda: torch.topk(x, k, dim=1),
+                                   inner=TOPK_INNER, queued=True)
+            print(f"B8 (band): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library (torch.topk of the masked scores) "
+                  f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}; the "
+                  f"kernel at {100 * bound / ms:.1f} % of it), median of 5 "
+                  f"samples of {TOPK_INNER} calls back to back (the plain "
+                  f"version: 1); on the card alone: kernel {ms_q:.4f} ms "
+                  f"({100 * bound / ms_q:.1f} % of the bound), torch.topk "
+                  f"{library_q:.4f} ms", flush=True)
+            out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
+                   "ms_queued": ms_q, "library_ms_queued": library_q}
+        del s, mask, got_v, got_i, want_v, want_i
+    return {"row_topk": out}
+
+
+def _app_report(label, wall, flops, launches, stages, peak, prefix, keys):
+    print(f"[{label}] wall {wall:.3f} s, {flops / wall / 1e9:.1f} GFLOP/s "
+          f"(the driver's formula), launches K2 {launches['spmm_ell']}, B8 "
+          f"{launches['row_topk']}, B7 {launches['lloyd_assign']} + "
+          f"{launches['lloyd_accumulate']}, peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    _stages(label, stages, prefix, keys)
+
+
+def _eig_bands(a_sp, b) -> tuple:
+    """(forward, transposed) ELL bands the one-pass operator forms in one
+    application to a V of b columns at the library's defaults: count-sorted
+    rows of each nnz-budgeted row block ranged under its entry cap, and for
+    each such band, its count-sorted columns ranged the same way."""
+    import numpy as np
+    import bof_tpu_torch as bt
+    from bof_tpu_torch.sparse.csr import fill_row_blocks
+    from bof_tpu_torch.sparse.spmm_device import ell_row_ranges
+    cfg = bt.FlashConfig()
+    entry_cap = max(1 << 14, int(cfg.hbm_budget // 6 // (b * 4)))
+    fwd = trans = 0
+    for r, e in fill_row_blocks(a_sp.indptr, cfg.max_nnzs):
+        blk = a_sp[r:e]
+        counts = np.diff(blk.indptr)
+        order = np.argsort(counts, kind="stable")
+        for s0, s1 in ell_row_ranges(counts[order], entry_cap):
+            fwd += 1
+            ccounts = np.bincount(blk[order[s0:s1]].indices,
+                                  minlength=a_sp.shape[1])
+            trans += len(ell_row_ranges(np.sort(ccounts), entry_cap))
+    return fwd, trans
+
+
+def eigensolver_phase(dev, scratch, prefix, a_sp, restarts=1) -> dict:
+    """E1: drivers.eigensolver on S3's A, block Lanczos, 64 values,
+    `restarts` restarts, one pass over A an operator application,
+    sparse_compute 'auto' (the card).  Fails unless K2 launched (forward +
+    transposed bands) x applications times, one application to 8 columns
+    of the returned V is within rtol 1e-4 (atol 1e-5 max|U|) of float64
+    scipy, sigma_i^2 is within rtol 1e-4 of |A v_i|^2 (float64) for the top
+    8, and V is orthonormal to 1e-5."""
+    import importlib
+    import numpy as np
+    import bof_tpu_torch as bt
+    from bof_tpu_torch.drivers import eigensolver as eig_driver
+    m, k = a_sp.shape
+    n_vals = 64
+    label = (f"E1 eigensolver lanczos {m}x{k} nnz={a_sp.nnz} "
+             f"n_vals={n_vals} restarts={restarts}")
+    t0 = time.perf_counter()
+    fwd, trans = _eig_bands(a_sp, n_vals)
+    print(f"[{label}] the operator forms {fwd} forward + {trans} transposed "
+          f"bands an application (recomputed in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    res = {}
+
+    def run(argv):
+        t = time.perf_counter()
+        res["out"] = eig_driver.main(argv)
+        return time.perf_counter() - t
+    argv = [prefix, str(m), str(k), str(n_vals), "--iters", str(restarts),
+            "--solver", "lanczos", *_driver_args(dev, scratch)]
+    wall, launches, stages, peak = _drive(
+        dev, run, argv, profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
+    applies = int(stages["eig.op_applies"])
+    want = (fwd + trans) * applies
+    _check_launches(label, launches, {"spmm_ell": want,
+                                      "spmm_ell[f32]": want})
+    _app_report(label, wall, 4.0 * a_sp.nnz * n_vals * restarts, launches,
+                stages, peak, "eig.",
+                ("disk_wait_s", "prep_s", "h2d_s", "d2h_s"))
+    print(f"[{label}] {applies} operator applications, K2 launches "
+          f"{launches['spmm_ell']} = ({fwd} + {trans}) x {applies}; link "
+          f"up {stages.get('eig.h2d_bytes', 0) / 2**30:.3f} GiB, down "
+          f"{stages.get('eig.d2h_bytes', 0) / 2**30:.3f} GiB", flush=True)
+    sigma, v = res["out"]
+    t0 = time.perf_counter()
+    gram = v.T.astype(np.float64) @ v.astype(np.float64)
+    orth = float(np.abs(gram - np.eye(n_vals)).max())
+    v8 = v[:, :8]
+    eig = importlib.import_module("bof_tpu_torch.apps.eigensolver")
+    ctx = _new_ctx(dev, scratch)
+    try:
+        A = bt.CsrFlashMatrix.map_files(prefix, (m, k), ctx=ctx)
+        u = eig._apply_ata_one_pass(A, v8, ctx)
+    finally:
+        ctx.destroy()
+    a64 = a_sp.astype(np.float64)
+    w64 = a64 @ v8.astype(np.float64)
+    u64 = a64.T @ w64
+    del a64
+    atol = 1e-5 * float(np.abs(u64).max())
+    u_err = float((np.abs(u - u64) / (1e-4 * np.abs(u64) + atol)).max())
+    av2 = (w64 * w64).sum(0)
+    s_err = float((np.abs(sigma[:8] ** 2 - av2) / (1e-4 * av2)).max())
+    ok = u_err <= 1.0 and s_err <= 1.0 and orth <= 1e-5
+    print(f"[{label}] sigma[:4] {sigma[:4].tolist()}; U = A^T A V on 8 "
+          f"columns of V: worst err/(1e-4*|U64| + 1e-5*max|U64|) "
+          f"{u_err:.4f}; sigma^2 against |A v|^2 (float64), top 8: worst "
+          f"err/(1e-4*|A v|^2) {s_err:.4f}; max|V^T V - I| {orth:.3g} "
+          f"(limit 1e-5); checked in {time.perf_counter() - t0:.1f} s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"[{label}] disagrees with float64")
+    return launches
+
+
+def xml_phase(dev, scratch, prefix, a_sp, n_labels=4096, k=5) -> dict:
+    """X1: drivers.xml_rank on S3's A as docs x vocab against W of
+    n_labels x 2^17 seeded N(0, 1) fp32 labels (written over a spare's
+    blocks), k 5, fused.  Fails unless, for 64 seeded documents, the scores
+    and labels meet tests/test_apps.py's _check_topk criteria (rtol 2e-4,
+    atol 1e-5 sqrt(max nnz/row) max|A| max|W|) against float64 dense
+    scores, K2 and B8 launched once a band a label block, and only
+    rows * k * 8 bytes a label block came down."""
+    import numpy as np
+    import torch
+    import bof_tpu_torch as bt
+    from bof_tpu_torch.drivers import xml_rank as xml_driver
+    docs, vocab = a_sp.shape
+    label = (f"X1 xml_rank {docs}x{vocab} nnz={a_sp.nnz} labels={n_labels} "
+             f"k={k} fused")
+    w_path = os.path.join(scratch, "W_xml.bin")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    t0 = time.perf_counter()
+    w_max = float(_write_normals(w_path, (n_labels, vocab), gen, dev,
+                                 np.float32).max())
+    print(f"[{label}] W written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cfg = bt.FlashConfig()
+    lb_max = max(k, min(n_labels, cfg.program_budget // 16 // (vocab * 4),
+                        4096))
+    blocks = -(-n_labels // lb_max)
+    bands = _bands(a_sp.indptr, max(1 << 14, cfg.hbm_budget // 6
+                                    // (lb_max * 4)), cfg.max_nnzs)
+    res = {}
+
+    def run(argv):
+        t = time.perf_counter()
+        res["out"] = xml_driver.main(argv)
+        return time.perf_counter() - t
+    argv = [prefix, str(docs), str(vocab), w_path, str(n_labels), str(k),
+            "--fused", "on", *_driver_args(dev, scratch)]
+    wall, launches, stages, peak = _drive(
+        dev, run, argv, profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
+    want = bands * blocks
+    _check_launches(label, launches, {
+        "spmm_ell": want, "spmm_ell[f32]": want, "row_topk": want,
+        "row_topk[smem]": want})
+    _app_report(label, wall, 2.0 * a_sp.nnz * n_labels, launches, stages,
+                peak, "xml_rank.", ("w_read_s", "w_h2d_s", "disk_wait_s",
+                                    "prep_s", "h2d_s", "dispatch_s", "d2h_s",
+                                    "merge_s"))
+    d2h = stages.get("xml_rank.d2h_bytes")
+    print(f"[{label}] {blocks} label blocks of {lb_max} x {bands} bands; "
+          f"K2 and B8 {want} launches each; d2h {d2h} bytes (expected "
+          f"{docs * k * 8 * blocks}: rows*k*8 a band); ELL and W uploads "
+          f"{stages.get('xml_rank.h2d_bytes', 0) / 2**30:.3f} GiB",
+          flush=True)
+    if d2h != docs * k * 8 * blocks:
+        raise AssertionError(f"[{label}] more than the top-k came down")
+    scores, labels = res["out"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng([SEED, 13])
+    rows = np.sort(rng.choice(docs, 64, replace=False))
+    a_rows = a_sp[rows].astype(np.float64)
+    w = np.memmap(w_path, np.float32, "r", shape=(n_labels, vocab))
+    s64 = np.empty((64, n_labels))
+    for l0 in range(0, n_labels, 512):
+        s64[:, l0:l0 + 512] = a_rows @ np.asarray(w[l0:l0 + 512],
+                                                  np.float64).T
+    del w
+    got_s, got_l = scores[rows].astype(np.float64), labels[rows]
+    if got_l.min() < 0 or got_l.max() >= n_labels:
+        raise AssertionError(f"[{label}] a label outside [0, {n_labels})")
+    row_max = int(np.diff(a_sp.indptr).max())
+    atol = ATOL_SCALE * row_max ** 0.5 * float(np.abs(a_sp.data).max()) \
+        * w_max
+    want_sorted = -np.sort(-s64, axis=1)[:, :k]
+    true_s = s64[np.arange(64)[:, None], got_l]
+    err = max(float((np.abs(got_s - want_sorted)
+                     / (2e-4 * np.abs(want_sorted) + atol)).max()),
+              float((np.abs(got_s - true_s)
+                     / (2e-4 * np.abs(true_s) + atol)).max()))
+    print(f"[{label}] 64 seeded documents against float64 dense scores: "
+          f"worst err/(2e-4*|s| + atol) {err:.4f} over the sorted top-{k} "
+          f"and the reported labels' true scores (atol {atol:.3g} = "
+          f"1e-5*sqrt(max nnz/row)*max|A|*max|W|); checked in "
+          f"{time.perf_counter() - t0:.1f} s {'ok' if err <= 1 else 'FAIL'}",
+          flush=True)
+    if err > 1.0:
+        raise AssertionError(f"[{label}] disagrees with float64")
+    _retire(w_path)
+    return launches
+
+
+def topic_phase(dev, scratch, prefix, a_sp, n_topics=1000, proj_dim=64,
+                iters=4, sample_rate=0.1) -> dict:
+    """T1: drivers.topic_model on S3's A, 1000 topics, proj_dim 64, the
+    ISLE sample rate 0.1, `iters` Lloyd iterations.  Fails unless 16 seeded
+    rows of the projection P = A R (read as the run wrote it) are within
+    the csrmm gate of float64, every label is in [0, n_topics), the
+    topic-word matrix is the row-normalized float64 one_hot(labels)^T A
+    within rtol 1e-4 (and each row's float32 normalizer's rounding: bof_tpu
+    sums a row in float32), K2 launched once a projection band and B7
+    launched."""
+    import importlib
+    import numpy as np
+    from bof_tpu_torch.drivers import topic_model as tm_driver
+    docs, vocab = a_sp.shape
+    label = (f"T1 topic_model {docs}x{vocab} nnz={a_sp.nnz} "
+             f"topics={n_topics} proj_dim={proj_dim} sample_rate="
+             f"{sample_rate} iters={iters}")
+    tm = importlib.import_module("bof_tpu_torch.apps.topic_model")
+    rng = np.random.default_rng([SEED, 14])
+    rows = np.sort(rng.choice(docs, N_SAMPLES, replace=False))
+    want_k2 = _csrmm_bands(a_sp.indptr, vocab, proj_dim)
+    res, seen = {}, {}
+    csrmm = tm.csrmm
+
+    def csrmm_and_sample(a, b, c, **kw):
+        # the projection as topic_model computes it, then the sampled
+        # rows of P read back from its scratch file
+        csrmm(a, b, c, **kw)
+        seen["p"] = np.stack([c.read_block(int(r), 1, 0, proj_dim)[0]
+                              for r in rows])
+
+    def run(argv):
+        t = time.perf_counter()
+        tm.csrmm = csrmm_and_sample
+        try:
+            res["out"] = tm_driver.main(argv)
+        finally:
+            tm.csrmm = csrmm
+        return time.perf_counter() - t
+    argv = [prefix, str(docs), str(vocab), str(n_topics), "--proj-dim",
+            str(proj_dim), "--iters", str(iters), "--sample-rate",
+            str(sample_rate), *_driver_args(dev, scratch)]
+    wall, launches, stages, peak = _drive(
+        dev, run, argv, profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
+    others = {name: n for name, n in launches.items()
+              if name.split("[")[0] not in ("spmm_ell", "lloyd_assign",
+                                            "lloyd_accumulate")}
+    if (launches["spmm_ell"] != want_k2 or launches["spmm_ell[f32]"]
+            != want_k2 or not launches["lloyd_assign"]
+            or not launches["lloyd_accumulate"] or any(others.values())):
+        raise AssertionError(f"[{label}] launches {launches}, expected K2 "
+                             f"{want_k2} (the projection's bands) and B7")
+    _app_report(label, wall, 2.0 * a_sp.nnz * proj_dim * (iters + 2),
+                launches, stages, peak, "topic.",
+                ("project_s", "cluster_s", "assign_s", "lift_s"))
+    _stages(label, stages, "kmeans.", ("seed_s", "disk_wait_s", "h2d_s",
+                                       "d2h_s"))
+    tw, labels = res["out"]
+    t0 = time.perf_counter()
+    r64 = (np.random.default_rng(0).standard_normal((vocab, proj_dim))
+           / np.sqrt(proj_dim)).astype(np.float32)
+    p64 = a_sp[rows].astype(np.float64) @ r64.astype(np.float64)
+    row_max = int(np.diff(a_sp.indptr).max())
+    atol = ATOL_SCALE * row_max ** 0.5 * float(np.abs(a_sp.data).max()) \
+        * float(np.abs(r64).max())
+    p_err = _verify(f"{label}: 16 rows of P = A R", [(seen["p"], p64)],
+                    atol, "1e-5*sqrt(max nnz/row)*max|A|*max|R|")
+    if labels.min() < 0 or labels.max() >= n_topics:
+        raise AssertionError(f"[{label}] a label outside [0, {n_topics})")
+    # one_hot(labels)^T A in float64: each nonzero added into its doc's
+    # topic row (np.bincount; the port's lift runs np.add.at here)
+    flat = np.repeat(labels.astype(np.int64) * vocab,
+                     np.diff(a_sp.indptr)) + a_sp.indices
+    t64 = np.bincount(flat, weights=a_sp.data.astype(np.float64),
+                      minlength=n_topics * vocab).reshape(n_topics, vocab)
+    del flat
+    norm = t64.sum(1, keepdims=True)
+    want = np.where(norm > 0, t64 / np.where(norm > 0, norm, 1.0), 0.0)
+    # bof_tpu normalizes by a float32 pairwise row sum: each row may carry
+    # its rounding, log2(vocab) * 2^-24 * sum|T| / |sum T| relative
+    cond = np.abs(t64).sum(1, keepdims=True) / np.maximum(np.abs(norm),
+                                                           1e-300)
+    rtol = 1e-4 + np.log2(vocab) * 2.0 ** -24 * cond
+    err = float((np.abs(tw - want) / (rtol * np.abs(want) + 1e-6)).max())
+    print(f"[{label}] P rows max abs err {p_err:.3g}; labels in [0, "
+          f"{n_topics}), {len(np.unique(labels))} topics used; topic-word "
+          f"against float64: worst err/(rtol*|T64| + 1e-6) {err:.4f} (rtol "
+          f"1e-4 + the float32 normalizer's rounding, at most "
+          f"{float(rtol.max()):.3g}); checked in "
+          f"{time.perf_counter() - t0:.1f} s {'ok' if err <= 1 else 'FAIL'}",
+          flush=True)
+    if err > 1.0:
+        raise AssertionError(f"[{label}] disagrees with float64")
+    return launches
+
+
 # ------------------------------------------------- fp64 gemm and k-means
 
 def f64_kernel_phase(dev) -> dict:
@@ -2215,12 +2610,13 @@ ACC_KERNELS = ("acc_hist_kernel", "acc_scan_kernel", "acc_offsets_kernel",
                "acc_scatter_kernel", "acc_sum_kernel")
 ASSIGN_KERNELS = ("tf32_split_kernel", "lloyd_assign_kernel")
 NO_SPILLS = ("accum_tf32_kernel", "accum_lowp_kernel",
-             "accum_dgemm_kernel") + ASSIGN_KERNELS + ACC_KERNELS
+             "accum_dgemm_kernel", "row_topk_kernel") + ASSIGN_KERNELS \
+    + ACC_KERNELS
 
 
 def _ptxas_report(log: str) -> None:
     """Print what ptxas says of each kernel; raise if a tensor-core kernel
-    (K1's fp32, low-precision or fp64 kernel) or a B7 kernel spills."""
+    (K1's fp32, low-precision or fp64 kernel), a B7 kernel or B8 spills."""
     entry = ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -2271,7 +2667,7 @@ def main() -> int:
     _ptxas_report(cuda_lib.BUILD_INFO.get("ptxas", ""))
 
     summary = {"accum_matmul": kernel_phase(dev), **lowp_kernel_phase(dev),
-               **ell_kernel_phase(dev)}
+               **ell_kernel_phase(dev), **topk_kernel_phase(dev)}
 
     scratch = os.environ.get("BOF_SCRATCH") or os.path.join(
         HERE, "build", "chip_smoke")
@@ -2312,6 +2708,13 @@ def main() -> int:
                              ("S9", "N", "bfloat16"), ("S9", "N", "int8")):
         runs.append(csrgemv_phase(dev, scratch, prefix, a_sp, trans, tag,
                                   xfer))
+    # the paper's three applications on S3's A
+    walls = {}
+    for tag, phase in (("E1", eigensolver_phase), ("X1", xml_phase),
+                       ("T1", topic_phase)):
+        t0 = time.perf_counter()
+        runs.append(phase(dev, scratch, prefix, a_sp))
+        walls[tag] = time.perf_counter() - t0
     for ext in (".off", ".col", ".csr"):
         os.unlink(prefix + ext)
     del a_sp
@@ -2319,7 +2722,7 @@ def main() -> int:
     t0 = time.perf_counter()
     summary["accum_matmul[f64]"] = f64_kernel_phase(dev)
     summary.update(kmeans_kernel_phase(dev))
-    walls = {"kernels f64 + B7": time.perf_counter() - t0}
+    walls["kernels f64 + B7"] = time.perf_counter() - t0
     for tag, phase in (("S10", gemm64_phase), ("S11", kmeans_phase),
                        ("S11b", kmeans_resident_phase)):
         t0 = time.perf_counter()
@@ -2369,6 +2772,8 @@ def main() -> int:
                          "bof_tpu/ops/kmeans.py:40"),
         "lloyd_accumulate": ("bof_tpu_torch/csrc/kmeans.cu",
                              "bof_tpu/ops/kmeans.py:40"),
+        "row_topk": ("bof_tpu_torch/csrc/topk.cu",
+                     "bof_tpu/apps/xml_rank.py:48"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -1,8 +1,9 @@
 """bof_tpu_torch on a CUDA card: kernel K1 (its tensor-core fp32, bf16,
 s8 and f64 variants), K2 (ELL SpMM), the ELL SpMV (on fp32, bf16 and int8
-values) and the k-means pair B7 against their plain versions, and the
-out-of-core gemm (fp32, its transfer modes and float64), csrmm, csrgemv
-and lloyds_iter through them against the same calls on the CPU.
+values), the k-means pair B7 and the row top-k B8 against their plain
+versions, and the out-of-core gemm (fp32, its transfer modes and
+float64), csrmm, csrgemv, lloyds_iter and the three applications through
+them against the same calls on the CPU.
 
 These need the card (a CUDA kernel has no CPU mode): they carry the
 `cuda` marker and skip where torch.cuda.is_available() is False.  This
@@ -33,6 +34,8 @@ from bof_tpu_torch.ops.kmeans import (lloyd_accumulate,
                                       lloyd_accumulate_ref, lloyd_assign,
                                       lloyd_assign_ref,
                                       lloyd_assign_tf32x3_ref)
+from bof_tpu_torch.ops.topk_cuda import (TOPK_SMEM_COLS, row_topk,
+                                         row_topk_ref)
 from bof_tpu_torch.sparse.spmm_cuda import (promote_vals, spmm_ell,
                                             spmm_ell_ref, spmv_ell,
                                             spmv_ell_ref)
@@ -1036,3 +1039,145 @@ def test_lloyds_iter_on_card_matches_cpu(cuda_device, tmp_path):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-5)
+
+
+def _topk_rows(rng, rows, cols, lb, case):
+    s = rng.standard_normal((rows, cols), dtype=np.float32)
+    mask = np.zeros(cols, np.float32)
+    mask[lb:] = -np.inf
+    if case == "ties":
+        s = np.round(s * 2) / 2
+    elif case == "all_equal":
+        s[:] = 0.25
+    elif case == "non_finite":
+        s[0, 3], s[1, 7], s[2, :4] = np.nan, -np.nan, np.inf
+        s[3, 5], s[4, :3] = -np.inf, [0.0, -0.0, 0.0]
+        s[5, :] = -0.0
+    return s, mask
+
+
+@pytest.mark.parametrize("rows,cols,lb,k,case", [
+    (512, 1024, 1024, 5, "random"),       # the fused step's band
+    (512, 1024, 1024, 1, "random"),
+    (64, 1024, 1000, 1024, "ties"),       # k = lb_max
+    (300, 1024, 1024, 7, "all_equal"),
+    (200, 1024, 40, 64, "random"),        # -inf tail wider than the labels
+    (40, 8192, 8192, 5, "random"),        # past shared memory: 'l2'
+    (16, 8192, 5000, 300, "ties"),
+    (33, 77, 77, 9, "non_finite"),
+    (7, 5000, 4096, 4096, "random")])
+def test_row_topk_kernel_matches_plain(cuda_device, rows, cols, lb, k, case):
+    """B8 against its plain version on the card: values and columns bit
+    for bit (the order is a total one, so there is one right answer)."""
+    rng = np.random.default_rng(rows + cols + k)
+    s, mask = _topk_rows(rng, rows, cols, lb, case)
+    s_d = torch.from_numpy(s).to(cuda_device)
+    m_d = torch.from_numpy(mask).to(cuda_device)
+    before = dict(row_topk.variant_launches)
+    got_v, got_i = row_topk(s_d, m_d, k)
+    want_v, want_i = row_topk_ref(s_d, m_d, k)
+    torch.cuda.synchronize()
+    variant = "smem" if cols <= TOPK_SMEM_COLS else "l2"
+    assert row_topk.variant_launches[variant] == before[variant] + 1
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+
+
+def test_xml_rank_on_card_matches_cpu(cuda_device, tmp_path):
+    """The fused XML path on the card (K2 + B8 a band) against the same
+    call on the CPU: scores within 2e-4, labels equal where the scores
+    stand apart, one K2 and one B8 launch a band."""
+    import scipy.sparse as sps
+    rng = np.random.default_rng(21)
+    docs, vocab, n_labels, k = 900, 300, 70, 6
+    a_sp = sps.random(docs, vocab, density=0.05, format="csr",
+                      dtype=np.float32, random_state=np.random.RandomState(2))
+    w = rng.standard_normal((n_labels, vocab), dtype=np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+            device=device, scratch_dir=str(tmp_path / device),
+            max_nnzs=4096))
+        try:
+            A = bof_tpu_torch.CsrFlashMatrix.from_scipy(a_sp, ctx=ctx)
+            W = bof_tpu_torch.mem_array((n_labels, vocab), np.float32,
+                                        data=w, ctx=ctx)
+            before = (spmm_ell.launches, row_topk.launches)
+            s, l = bof_tpu_torch.xml_rank(A, W, k, label_blk=32,
+                                          fused=True, ctx=ctx)
+            out[device] = (s.read_all(), l.read_all(),
+                           spmm_ell.launches - before[0],
+                           row_topk.launches - before[1])
+        finally:
+            ctx.destroy()
+    (gs, gl, g_k2, g_b8), (ws, wl, _, _) = out["cuda"], out["cpu"]
+    assert g_k2 == g_b8 > 0
+    np.testing.assert_allclose(gs, ws, rtol=2e-4, atol=1e-4)
+    d = np.abs(np.diff(ws, axis=1)) > 1e-5 * np.abs(ws).max()
+    apart = np.ones(ws.shape, bool)
+    apart[:, 1:] &= d
+    apart[:, :-1] &= d
+    np.testing.assert_array_equal(gl[apart], wl[apart])
+
+
+def test_eigensolver_on_card_matches_cpu(cuda_device, tmp_path):
+    """The one-pass A^T A V operator with both halves on K2, on the card
+    against the CPU (rtol 1e-4), and block Lanczos's sigmas."""
+    import importlib
+    import scipy.sparse as sps
+    eig = importlib.import_module("bof_tpu_torch.apps.eigensolver")
+    rng = np.random.default_rng(5)
+    a_sp = sps.random(2000, 600, density=0.02, format="csr",
+                      dtype=np.float32, random_state=np.random.RandomState(5))
+    v = rng.standard_normal((600, 16))
+    out = {}
+    for device in ("cpu", "cuda"):
+        ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+            device=device, scratch_dir=str(tmp_path / device),
+            max_nnzs=8192, hbm_budget=1 << 22))
+        try:
+            A = bof_tpu_torch.CsrFlashMatrix.from_scipy(a_sp, ctx=ctx)
+            before = spmm_ell.launches
+            u = eig._apply_ata_one_pass_device(A, v, ctx)
+            sigma, _ = eig.block_lanczos_svd(A, 6, tol=1e-9, ctx=ctx)
+            out[device] = (u, sigma, spmm_ell.launches - before)
+        finally:
+            ctx.destroy()
+    assert out["cuda"][2] > 0 and out["cpu"][2] == 0
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+
+
+def test_topic_model_on_card_matches_cpu(cuda_device, tmp_path):
+    """topic_model through K2 (projection) and B7 (clustering) on the card
+    against the CPU: labels equal, topic-word matrices within 1e-4."""
+    import scipy.sparse as sps
+    rows, cols = [], []
+    rs = np.random.RandomState(3)
+    for t in range(4):
+        for d in range(150):
+            for word in t * 40 + rs.randint(0, 40, 15):
+                rows.append(t * 150 + d)
+                cols.append(word)
+    a_sp = sps.csr_matrix((np.ones(len(rows), np.float32), (rows, cols)),
+                          shape=(600, 160))
+    a_sp.sum_duplicates()
+    out = {}
+    for device in ("cpu", "cuda"):
+        ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+            device=device, scratch_dir=str(tmp_path / device)))
+        try:
+            A = bof_tpu_torch.CsrFlashMatrix.from_scipy(a_sp, ctx=ctx)
+            before = (spmm_ell.launches, lloyd_assign.launches)
+            tw, labels = bof_tpu_torch.topic_model(A, 4, proj_dim=16,
+                                                   n_iters=5,
+                                                   sample_rate=0.5, ctx=ctx)
+            out[device] = (tw, labels, spmm_ell.launches - before[0],
+                           lloyd_assign.launches - before[1])
+        finally:
+            ctx.destroy()
+    assert min(out["cuda"][2:]) > 0 and max(out["cpu"][2:]) == 0
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-6)

@@ -211,3 +211,67 @@ def test_new_kernel_sources_are_built_and_in_the_digest(tmp_path):
         with open(tmp_path / name, "a") as f:
             f.write("\n// changed\n")
         assert cuda_lib._digest(copy) != base, name
+
+
+def test_apps_slice_imports_neither_jax_nor_bof_tpu():
+    """The applications, their drivers and B8's wrapper import no jax,
+    ml_dtypes or bof_tpu module; the package root exports bof_tpu's app
+    names, and bof_tpu_torch.apps all seven."""
+    code = ("import sys, bof_tpu_torch.apps, bof_tpu_torch.ops.topk_cuda, "
+            + ", ".join(f"bof_tpu_torch.drivers.{m}" for m in (
+                "eigensolver", "xml_rank", "topic_model"))
+            + "; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'ml_dtypes', 'bof_tpu')); print(bad)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    import bof_tpu_torch.apps as apps
+    assert sorted(apps.__all__) == sorted(bof_tpu.apps.__all__)
+    for name in bof_tpu.apps.__all__:
+        assert getattr(apps, name).__name__ == name
+    for name in ("block_lanczos_svd", "block_power_svd", "topic_model",
+                 "xml_rank"):
+        assert name in bof_tpu_torch.__all__
+        assert getattr(bof_tpu_torch, name) is getattr(apps, name)
+
+
+@pytest.mark.parametrize("app", ["block_lanczos_svd", "xml_rank",
+                                 "topic_model"])
+def test_apps_cuda_device_without_card_raises(tmp_path, app):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the CPU-only contract does "
+                    "not apply")
+    import scipy.sparse as sps
+    cfg = bof_tpu_torch.FlashConfig(device="cuda",
+                                    scratch_dir=str(tmp_path / "s"))
+    ctx = bof_tpu_torch.FlashContext(cfg)
+    try:
+        a = bof_tpu_torch.CsrFlashMatrix.from_scipy(
+            sps.random(40, 24, density=0.2, format="csr", dtype=np.float32,
+                       random_state=np.random.RandomState(0)), ctx=ctx)
+        w = bof_tpu_torch.mem_array((10, 24), np.float32, ctx=ctx,
+                                    data=np.ones((10, 24), np.float32))
+        s = bof_tpu_torch.mem_array((40, 3), np.float32, ctx=ctx)
+        with pytest.raises(RuntimeError, match="cuda"):
+            if app == "block_lanczos_svd":
+                bof_tpu_torch.block_lanczos_svd(a, 3, ctx=ctx)
+            elif app == "xml_rank":
+                bof_tpu_torch.xml_rank(a, w, 3, scores_out=s, ctx=ctx)
+            else:
+                bof_tpu_torch.topic_model(a, 3, proj_dim=4, ctx=ctx)
+        assert not s.read_all().any(), "nothing may run on the CPU instead"
+    finally:
+        ctx.destroy()
+
+
+def test_topk_source_is_built_and_bound():
+    """csrc/topk.cu (B8) is among the sources the build compiles and its
+    entry point is bound, the stream last."""
+    import glob
+    from bof_tpu_torch.ops import cuda_lib
+    names = {os.path.basename(p)
+             for p in glob.glob(os.path.join(cuda_lib._CSRC, "*.cu"))}
+    assert "topk.cu" in names
+    assert cuda_lib._ENTRIES["bof_row_topk"][-1] is cuda_lib._P  # stream
