@@ -91,29 +91,42 @@ def _apply_ata_one_pass(a: CsrFlashMatrix, v_np: np.ndarray,
     return U
 
 
-def _one_pass_stream(a: CsrFlashMatrix, v_dev, ctx, product,
-                     fold_u) -> np.ndarray:
-    """The one-pass device operator's skeleton (bof_tpu's, with its
+def _apply_ata_one_pass_device(a: CsrFlashMatrix, v_np: np.ndarray,
+                               ctx) -> np.ndarray:
+    """Device variant of the one-pass operator (bof_tpu's B9 step, with its
     planner): stream nnz-budgeted row blocks, band each block's rows by
     count (count-sorted ELL banding), transpose each band on the host
     (block-local CSC; the block is already in DRAM) and band its columns
-    the same way, with a float64 U on the host.
-
-    `product(panel, ja, va, counts)` is one ELL product of exactly the
-    rows of ja/va (the first `len(counts)` rows of the planner's padded
-    pair): the band's W from V (in rows_sel order), then one U partial
-    from W; `fold_u(u_part, cols_sel, U)` adds a partial into U.  Host
-    prep time goes to `eig.prep_s`, the wait for A's blocks to
-    `eig.disk_wait_s`."""
+    the same way.  Per band, W_sub = A_sub V and U_part = A_sub^T W_sub
+    are both K2 launches (`spmm_ell_block_dispatch` on exactly the band's
+    rows, each row's real slot count passed, so padding is never read),
+    W_sub stays on the card, and each U partial is downloaded and folded
+    into the float64 U on the host.  Host prep time goes to `eig.prep_s`,
+    the wait for A's blocks to `eig.disk_wait_s`."""
     import scipy.sparse as sps
 
     from ..sparse import spmm_device as sdev
     from ..sparse.csr import fill_row_blocks, stream_row_blocks
 
     cfg = ctx.config
-    m, k = a.shape
+    device = dev.resolve_device(cfg.device)
+    impl = getattr(cfg, "sparse_device_impl", "auto")
+
+    def product(panel, ja, va, counts):
+        """One ELL product of exactly the rows of ja/va."""
+        t0 = time.perf_counter()
+        ja_d = dev.to_device(ja, device)
+        va_d = dev.to_device(va, device)
+        counts_d = dev.to_device(counts, device)
+        METRICS.add("eig.h2d_s", time.perf_counter() - t0)
+        METRICS.add("eig.h2d_bytes", ja.nbytes + va.nbytes + counts.nbytes)
+        return sdev.spmm_ell_block_dispatch(panel, ja_d, va_d, impl,
+                                            counts=counts_d)
+
+    k = a.shape[1]
     ia_np = a.read_ia()
     blocks = fill_row_blocks(ia_np, cfg.max_nnzs)
+    v_dev = dev.to_device(np.ascontiguousarray(v_np, np.float32), device)
     b = v_dev.shape[1]
     entry_cap = max(1 << 14, int(cfg.hbm_budget // 6 // (b * 4)))
     sort_rows = getattr(cfg, "ell_sort_rows", True)
@@ -157,52 +170,17 @@ def _one_pass_stream(a: CsrFlashMatrix, v_dev, ctx, product,
                     sub.indptr.astype(np.int64), sub.indices, sub.data,
                     cols_sel, idx_dtype=t_idt, counts=ccounts)
                 METRICS.add("eig.prep_s", time.perf_counter() - t0)
-                fold_u(product(w, cja[:n_cols], cva[:n_cols],
-                               ccounts[cols_sel].astype(np.int32)),
-                       cols_sel, U)
+                u_part = product(w, cja[:n_cols], cva[:n_cols],
+                                 ccounts[cols_sel].astype(np.int32))
+                t0 = time.perf_counter()
+                u_np = dev.from_device(u_part)  # waits for the band's K2s
+                METRICS.add("eig.d2h_s", time.perf_counter() - t0)
+                METRICS.add("eig.d2h_bytes", u_np.nbytes)
+                U[cols_sel] += u_np
                 t0 = time.perf_counter()
         t_wait = time.perf_counter()
     METRICS.add("eig.op_applies")
     return U
-
-
-def _apply_ata_one_pass_device(a: CsrFlashMatrix, v_np: np.ndarray,
-                               ctx) -> np.ndarray:
-    """Device variant of the one-pass operator (bof_tpu's B9 step): per
-    ELL band, W_sub = A_sub V and U_part = A_sub^T W_sub are both K2
-    launches (`spmm_ell_block_dispatch`, each row's real slot count
-    passed, so padding is never read), W_sub stays on the card, and each
-    U partial is downloaded and folded into the float64 U on the host."""
-    from ..sparse import spmm_device as sdev
-
-    device = dev.resolve_device(ctx.config.device)
-    impl = getattr(ctx.config, "sparse_device_impl", "auto")
-
-    def product(panel, ja, va, counts):
-        t0 = time.perf_counter()
-        ja_d = dev.to_device(ja, device)
-        va_d = dev.to_device(va, device)
-        counts_d = dev.to_device(counts, device)
-        METRICS.add("eig.h2d_s", time.perf_counter() - t0)
-        METRICS.add("eig.h2d_bytes", ja.nbytes + va.nbytes + counts.nbytes)
-        return sdev.spmm_ell_block_dispatch(panel, ja_d, va_d, impl,
-                                            counts=counts_d)
-
-    def fold_u(u_part, cols_sel, U):
-        t0 = time.perf_counter()
-        u_np = dev.from_device(u_part)  # waits for the band's two K2s
-        METRICS.add("eig.d2h_s", time.perf_counter() - t0)
-        METRICS.add("eig.d2h_bytes", u_np.nbytes)
-        U[cols_sel] += u_np
-
-    v_dev = dev.to_device(np.ascontiguousarray(v_np, np.float32), device)
-    return _one_pass_stream(a, v_dev, ctx, product, fold_u)
-
-
-def _apply_ata_one_pass_sharded(a: CsrFlashMatrix, v_np: np.ndarray,
-                                mesh, ctx) -> np.ndarray:
-    """bof_tpu's mesh-sharded one-pass operator: not ported yet."""
-    raise _no_mesh("the sharded one-pass operator")
 
 
 def block_power_svd(a: CsrFlashMatrix, n_vals: int, n_iters: int = 12,

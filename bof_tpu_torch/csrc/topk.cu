@@ -32,7 +32,15 @@
 // winners fall strictly from round to round, so nothing is marked removed
 // and the input is never written.  Rows of up to TOPK_SMEM_COLS columns
 // keep their keys in shared memory (16 KiB); wider rows read s and mask
-// again (from L2) when a thread looks again.  Any k from 1 to cols.
+// again (from L2) when a thread looks again.  Any k from 1 to cols.  The
+// shared-memory keys pay for themselves: the 'l2' body at every width is
+// 8.8 % slower at the band (512 x 1024, k 5: 0.00638 against 0.00582 ms on
+// the card alone), 16 % at k 64 and 17 % at k 1024 (0.657 against 0.561
+// ms; tools/torch_b8_variants.py, H100 80GB HBM3 at 700 W).
+//
+// NaN: the card's fp32 add returns the canonical NaN (bits 0x7FFFFFFF), so
+// under a mask a -NaN score ranks first as +NaN, where lax.top_k on the
+// CPU keeps -NaN and ranks it last; without a mask x is s's own bits.
 #include <cuda_runtime.h>
 
 #include <climits>

@@ -11,7 +11,9 @@ row's keys live ('smem' up to `TOPK_SMEM_COLS` columns, 'l2' beyond).
 
 The order is lax.top_k's on the CPU: XLA's total order of floats (+NaN
 above +inf, -NaN below -inf, +0 above -0), the lower column first among
-equal values; the values returned are the masked scores' own bits.
+equal values; the values returned are the masked scores' own bits.  On
+the card the mask's add returns the canonical +NaN for a -NaN score, so
+there it ranks first (a deliberate difference, ROADMAP C).
 """
 from __future__ import annotations
 

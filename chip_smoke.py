@@ -109,9 +109,12 @@ Steps, each of which raises (exit code != 0) when it fails:
    against float64 dense scores (test_apps.py's _check_topk criteria);
    T1, topic model (`drivers.topic_model`, 1000 topics, proj_dim 64,
    sample rate 0.1, 4 iterations): 16 rows of P = A R within the csrmm
-   gate, labels in range, the topic-word matrix the row-normalized
-   float64 one_hot(labels)^T A within rtol 1e-4 (and each row's float32
-   normalizer's rounding), K2 once a projection band, B7 launched.  Each
+   gate, the full assignment's labels of those rows and of 65536 more
+   equal to the plain version's on the same P and centers but at
+   near-ties, labels in range, the unnormalized lift float64
+   one_hot(labels)^T A within rtol 1e-4, the topic-word matrix that lift
+   over its float32 row sums within one rounding, K2 once a projection
+   band, B7 launched.  Each
    prints its wall, GFLOP/s (the driver's formula), stage seconds and
    peak device memory.
 
@@ -121,8 +124,8 @@ Steps, each of which raises (exit code != 0) when it fails:
    element within bof_tpu's scaled bound 1e-12 * k * max|A row| *
    max|B col| * |alpha|, two launches bit-identical; B7 (`lloyd_assign`,
    `lloyd_accumulate`) against its plain version at S11's block (bn
-   131072, d 128, k 1024), at 1000x33x7 and at 65537x130x1000 (labels
-   equal but at float64 near-ties, mind, counts, sums; the assign also
+   131072, d 128, k 1024), at 1000x33x7, at 65537x130x1000 and at T1's
+   sample 104857x64x1000 (labels equal but at float64 near-ties, mind, counts, sums; the assign also
    against its plain 3xTF32 emulation, two launches bit-identical); the
    accumulate also on S11's block
    with all points in one center and with half the centers empty, and at
@@ -182,6 +185,7 @@ SEED = 20261016
 RTOL = 2e-4            # the repo's fp32 tolerance (accumulation order)
 ATOL_SCALE = 1e-5      # atol = ATOL_SCALE * sqrt(k) * max|op(A)| * max|op(B)| * |alpha|
 N_SAMPLES = 16
+ASSIGN_ROWS = 65536  # T1: consecutive rows of P whose labels are checked
 CHUNK = 2048           # rows per chunk when streaming operands from disk
 MIN_FREE = 40 << 30    # the peak: S3's A (1.65 GB), B (2 GiB) and C
 #   (16 GiB) beside the spares of S1 (12 GiB) and S2 (2.25 GiB); S10 and
@@ -1813,14 +1817,20 @@ def topic_phase(dev, scratch, prefix, a_sp, n_topics=1000, proj_dim=64,
     """T1: drivers.topic_model on S3's A, 1000 topics, proj_dim 64, the
     ISLE sample rate 0.1, `iters` Lloyd iterations.  Fails unless 16 seeded
     rows of the projection P = A R (read as the run wrote it) are within
-    the csrmm gate of float64, every label is in [0, n_topics), the
-    topic-word matrix is the row-normalized float64 one_hot(labels)^T A
-    within rtol 1e-4 (and each row's float32 normalizer's rounding: bof_tpu
-    sums a row in float32), K2 launched once a projection band and B7
-    launched."""
+    the csrmm gate of float64; the full assignment's labels of those rows
+    and of ASSIGN_ROWS seeded consecutive rows (P read back as that pass
+    reads it) equal the plain version's (`lloyd_assign_ref` against the
+    centers the pass was given) but at float64 near-ties; every label is
+    in [0, n_topics); the unnormalized lift is float64 one_hot(labels)^T A
+    within rtol 1e-4, atol 1e-6; the topic-word matrix is that lift over
+    its float32 row sums within one rounding (2^-24 relative), zero on
+    the rows whose float32 sum is <= 0; K2 launched once a projection band
+    and B7 launched."""
     import importlib
     import numpy as np
+    import torch
     from bof_tpu_torch.drivers import topic_model as tm_driver
+    from bof_tpu_torch.ops import kmeans as km
     docs, vocab = a_sp.shape
     label = (f"T1 topic_model {docs}x{vocab} nnz={a_sp.nnz} "
              f"topics={n_topics} proj_dim={proj_dim} sample_rate="
@@ -1828,9 +1838,11 @@ def topic_phase(dev, scratch, prefix, a_sp, n_topics=1000, proj_dim=64,
     tm = importlib.import_module("bof_tpu_torch.apps.topic_model")
     rng = np.random.default_rng([SEED, 14])
     rows = np.sort(rng.choice(docs, N_SAMPLES, replace=False))
+    r0 = int(rng.integers(0, docs - ASSIGN_ROWS))
     want_k2 = _csrmm_bands(a_sp.indptr, vocab, proj_dim)
     res, seen = {}, {}
-    csrmm = tm.csrmm
+    csrmm, lloyds_iter, lift_topics = tm.csrmm, km.lloyds_iter, \
+        tm.lift_topics
 
     def csrmm_and_sample(a, b, c, **kw):
         # the projection as topic_model computes it, then the sampled
@@ -1839,13 +1851,27 @@ def topic_phase(dev, scratch, prefix, a_sp, n_topics=1000, proj_dim=64,
         seen["p"] = np.stack([c.read_block(int(r), 1, 0, proj_dim)[0]
                               for r in rows])
 
+    def lloyds_and_sample(points, centers, labels_out=None, **kw):
+        # the full assignment: the centers it is given and a run of P's
+        # rows as it reads them
+        if labels_out is not None and points.shape[0] == docs:
+            seen["centers"] = np.array(centers, np.float32)
+            seen["p_run"] = points.read_block(r0, ASSIGN_ROWS, 0, proj_dim)
+        return lloyds_iter(points, centers, labels_out=labels_out, **kw)
+
+    def lift_and_keep(*args, **kw):
+        seen["lift"] = lift_topics(*args, **kw)
+        return seen["lift"]
+
     def run(argv):
         t = time.perf_counter()
-        tm.csrmm = csrmm_and_sample
+        tm.csrmm, km.lloyds_iter, tm.lift_topics = (
+            csrmm_and_sample, lloyds_and_sample, lift_and_keep)
         try:
             res["out"] = tm_driver.main(argv)
         finally:
-            tm.csrmm = csrmm
+            tm.csrmm, km.lloyds_iter, tm.lift_topics = (csrmm, lloyds_iter,
+                                                        lift_topics)
         return time.perf_counter() - t
     argv = [prefix, str(docs), str(vocab), str(n_topics), "--proj-dim",
             str(proj_dim), "--iters", str(iters), "--sample-rate",
@@ -1877,6 +1903,15 @@ def topic_phase(dev, scratch, prefix, a_sp, n_topics=1000, proj_dim=64,
                     atol, "1e-5*sqrt(max nnz/row)*max|A|*max|R|")
     if labels.min() < 0 or labels.max() >= n_topics:
         raise AssertionError(f"[{label}] a label outside [0, {n_topics})")
+    # B7 at this path's shapes (d 64, k 1000): the full assignment's
+    # labels against the plain version on the same P rows and centers
+    idx = np.concatenate([np.arange(r0, r0 + ASSIGN_ROWS), rows])
+    p_t = torch.from_numpy(np.concatenate([seen["p_run"], seen["p"]])).to(dev)
+    c_t = torch.from_numpy(seen["centers"]).to(dev)
+    want_l, _ = km.lloyd_assign_ref(p_t, c_t, (c_t * c_t).sum(1))
+    differ = _near_ties(f"{label}: assignment", p_t, c_t.double(),
+                        torch.from_numpy(labels[idx]).to(dev), want_l)
+    del p_t, c_t, want_l
     # one_hot(labels)^T A in float64: each nonzero added into its doc's
     # topic row (np.bincount; the port's lift runs np.add.at here)
     flat = np.repeat(labels.astype(np.int64) * vocab,
@@ -1884,22 +1919,36 @@ def topic_phase(dev, scratch, prefix, a_sp, n_topics=1000, proj_dim=64,
     t64 = np.bincount(flat, weights=a_sp.data.astype(np.float64),
                       minlength=n_topics * vocab).reshape(n_topics, vocab)
     del flat
-    norm = t64.sum(1, keepdims=True)
-    want = np.where(norm > 0, t64 / np.where(norm > 0, norm, 1.0), 0.0)
-    # bof_tpu normalizes by a float32 pairwise row sum: each row may carry
-    # its rounding, log2(vocab) * 2^-24 * sum|T| / |sum T| relative
-    cond = np.abs(t64).sum(1, keepdims=True) / np.maximum(np.abs(norm),
-                                                           1e-300)
-    rtol = 1e-4 + np.log2(vocab) * 2.0 ** -24 * cond
-    err = float((np.abs(tw - want) / (rtol * np.abs(want) + 1e-6)).max())
-    print(f"[{label}] P rows max abs err {p_err:.3g}; labels in [0, "
-          f"{n_topics}), {len(np.unique(labels))} topics used; topic-word "
-          f"against float64: worst err/(rtol*|T64| + 1e-6) {err:.4f} (rtol "
-          f"1e-4 + the float32 normalizer's rounding, at most "
-          f"{float(rtol.max()):.3g}); checked in "
-          f"{time.perf_counter() - t0:.1f} s {'ok' if err <= 1 else 'FAIL'}",
-          flush=True)
-    if err > 1.0:
+    lift = seen["lift"]
+    l_err = float((np.abs(lift - t64) / (1e-4 * np.abs(t64) + 1e-6)).max())
+    # the normalization apart: each row over its float32 sum (bof_tpu's
+    # arithmetic), one float32 rounding of the quotient
+    norm32 = lift.sum(axis=1, keepdims=True)
+    q = lift.astype(np.float64) / np.where(norm32 > 0, norm32, 1.0)
+    kept = (norm32 > 0)[:, 0]
+    n_err = float((np.abs(tw[kept] - q[kept])
+                   / (2.0 ** -24 * np.abs(q[kept]) + 1e-30)).max())
+    zero_ok = not np.any(tw[~kept])
+    # where float32 and float64 disagree on a row sum's sign, the float64
+    # sum must lie within the float32 sum's rounding of 0
+    norm64 = t64.sum(1)
+    flip = kept != (norm64 > 0)
+    room = np.log2(vocab) * 2.0 ** -24 * np.abs(t64).sum(1)
+    flips_ok = bool((np.abs(norm64[flip]) <= room[flip]).all())
+    ok = l_err <= 1 and n_err <= 1 and zero_ok and flips_ok
+    print(f"[{label}] P rows max abs err {p_err:.3g}; the full assignment's "
+          f"labels of {len(idx)} rows against lloyd_assign_ref: {differ} "
+          f"differ (all near-ties); labels in [0, {n_topics}), "
+          f"{len(np.unique(labels))} topics used; unnormalized lift against "
+          f"float64: worst err/(1e-4*|T64| + 1e-6) {l_err:.4f}; topic-word "
+          f"against lift / float32 row sum: worst err/(2^-24*|q|) "
+          f"{n_err:.4f}; rows zeroed (row sum <= 0): {int((~kept).sum())} "
+          f"by float32, {int((norm64 <= 0).sum())} by float64, "
+          f"{int(flip.sum())} differ (each within the float32 sum's "
+          f"rounding of 0: {flips_ok}), zeroed rows all 0: {zero_ok}; "
+          f"checked in {time.perf_counter() - t0:.1f} s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
         raise AssertionError(f"[{label}] disagrees with float64")
     return launches
 
@@ -2099,9 +2148,10 @@ def _accumulate_check(label, p, labels, k) -> float:
 
 def kmeans_kernel_phase(dev) -> dict:
     """B7 against its plain version on the card at S11's streamed block
-    (bn 131072, d 128, k 1024), at a ragged 1000x33x7 and at 65537x130x1000
+    (bn 131072, d 128, k 1024), at a ragged 1000x33x7, at 65537x130x1000
     (d not a multiple of 4: the split pass's padded copy; k not a multiple
-    of the 256-center tile): labels equal but at near-ties (float64 gap
+    of the 256-center tile) and at T1's sample 104857x64x1000 (d 64: two
+    32-float K slices on the aligned route): labels equal but at near-ties (float64 gap
     between the two centers <= 1e-5 * (|p|^2 + max|c|^2)), mind within
     1e-5 * (|p|^2 + max|c|^2), and the same against the plain 3xTF32
     emulation; two assign launches bit-identical; on the kernel's
@@ -2128,7 +2178,10 @@ def kmeans_kernel_phase(dev) -> dict:
     out = {"lloyd_assign": {"max_abs_err": 0.0},
            "lloyd_accumulate": {"max_abs_err": 0.0}}
     tc = out["lloyd_accumulate"]
-    for bn, d, k in ((131072, 128, 1024), (1000, 33, 7), (65537, 130, 1000)):
+    # S11's block, two ragged shapes, and T1's sample (2^20 / 10 rows of
+    # the d 64 projection on its 1000 topics)
+    for bn, d, k in ((131072, 128, 1024), (1000, 33, 7), (65537, 130, 1000),
+                     (104857, 64, 1000)):
         p, true = _blobs(gen, dev, bn, d, k, 1.0)
         c = true + 0.5 * torch.randn((k, d), generator=gen, device=dev)
         cn = (c * c).sum(1)

@@ -1083,6 +1083,31 @@ def test_row_topk_kernel_matches_plain(cuda_device, rows, cols, lb, k, case):
     assert torch.equal(got_i, want_i)
 
 
+def test_row_topk_masked_negative_nan_comes_back_canonical(cuda_device):
+    """A deliberate difference from lax.top_k on the CPU (ROADMAP C): the
+    card's fp32 add returns the canonical NaN (bits 0x7FFFFFFF), so under
+    a mask a -NaN score comes back +NaN and ranks first, where the CPU
+    keeps -NaN and ranks it last (test_torch_apps.py's non_finite case).
+    Without a mask nothing is added: the kernel keeps the score's own
+    bits and ranks -NaN last, as the CPU does."""
+    neg_nan = np.array([0xFFC00000], np.uint32).view(np.float32)[0]
+    s = np.arange(16, dtype=np.float32)[None, :].copy()
+    s[0, 7] = neg_nan
+    s_d = torch.from_numpy(s).to(cuda_device)
+    m_d = torch.zeros(16, device=cuda_device)
+    v, i = row_topk(s_d, m_d, 16)
+    want_v, want_i = row_topk_ref(s_d, m_d, 16)
+    assert torch.equal(v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(i, want_i)
+    bits = v.view(torch.int32).cpu().numpy().view(np.uint32)
+    assert bits[0, 0] == 0x7FFFFFFF and int(i[0, 0]) == 7
+    v, i = row_topk(s_d, None, 16)
+    bits = v.view(torch.int32).cpu().numpy().view(np.uint32)
+    assert bits[0, 15] == 0xFFC00000 and int(i[0, 15]) == 7
+    assert i[0, :15].tolist() == list(range(15, 7, -1)) + list(range(6, -1,
+                                                                     -1))
+
+
 def test_xml_rank_on_card_matches_cpu(cuda_device, tmp_path):
     """The fused XML path on the card (K2 + B8 a band) against the same
     call on the CPU: scores within 2e-4, labels equal where the scores
