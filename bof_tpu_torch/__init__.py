@@ -21,7 +21,13 @@ What is ported so far:
   (`block_lanczos_svd`, `block_power_svd`, both halves of its one-pass
   operator on K2), extreme multi-label ranking (`xml_rank`: K2, then the
   CUDA row top-k B8, ops/topk_cuda.py) and topic modeling (`topic_model`
-  on csrmm and k-means), with their CLI drivers.
+  on csrmm and k-means), with their CLI drivers;
+- the data-processing primitives: the out-of-core sample sort `bof_sort`
+  (its device block sorter the CUDA stable radix sort B10,
+  ops/sort_cuda.py), `bof_map` (the caller's torch function on the
+  card) and `bof_reduce`, the flash memory functions (`flash_memset`,
+  `flash_memcpy`, `flash_truncate`) and multi-field sort keys
+  (`lex_composite`), with the sort and map/reduce drivers.
 ROADMAP.md lists what follows.
 """
 from .config import DEFAULT_CONFIG, FlashConfig, config_from_reference
@@ -30,10 +36,13 @@ from .core import (FlashArray, TiledFlashArray, flash_empty, flash_free,
                    map_array, map_tiled_array, mem_array)
 from .core.tiled_array import repack, unpack
 from .io import MemStore, StrideInfo
-from .ops import gemm, gemm_in_mem
+from .lib_funcs import flash_memcpy, flash_memset, flash_truncate
+from .ops import bof_map, bof_reduce, bof_sort, gemm, gemm_in_mem
+from .utils.lexkey import lex_composite
 from .ops.gemm64 import gemm64
 from .ops.kmeans import kmeans_fit, lloyds_iter
-from .sparse import CsrFlashMatrix, csrcsc, csrgemv, csrmm
+from .sparse import (CsrFlashMatrix, csrcsc, csrcsc_scratch, csrgemv,
+                     csrmm)
 from .apps import (block_lanczos_svd, block_power_svd, topic_model,
                    xml_rank)
 
@@ -44,7 +53,10 @@ __all__ = [
     "FlashContext", "flash_destroy", "flash_setup", "get_context",
     "FlashArray", "TiledFlashArray", "flash_empty", "flash_free",
     "map_array", "map_tiled_array", "mem_array", "MemStore", "StrideInfo",
-    "repack", "unpack", "gemm", "gemm64", "gemm_in_mem", "kmeans_fit",
-    "lloyds_iter", "CsrFlashMatrix", "csrcsc", "csrgemv", "csrmm",
+    "flash_memcpy", "flash_memset", "flash_truncate",
+    "repack", "unpack", "bof_map", "bof_reduce", "bof_sort", "gemm",
+    "gemm64", "gemm_in_mem", "lex_composite", "kmeans_fit",
+    "lloyds_iter", "CsrFlashMatrix", "csrcsc", "csrcsc_scratch", "csrgemv",
+    "csrmm",
     "block_lanczos_svd", "block_power_svd", "topic_model", "xml_rank",
 ]

@@ -13,10 +13,12 @@ FlashFileHandle/IoExecutor pair plays (reference: flash_file_handle.cpp,
 io_executor.cpp).
 
 Bound: the engine and pin-cache entry points, the two host helpers of
-the sparse planners (`ell_fill`, `counting_argsort_i32`) and the transfer
+the sparse planners (`ell_fill`, `counting_argsort_i32`), the transfer
 modes' host prep (`quantize_i8`, `cast_bf16`, and `ell_fill`'s bf16 value
-mode).  The engine's sort-merge/fold/fp64-slicing helpers join with the
-modules that call them (ROADMAP A11, A13).
+mode) and the host block sort's run merge (`merge_sorted_runs`, which
+`utils/hostpar.parallel_sort` calls).  The engine's fp64-slicing pair
+(`bof_split_f64_i8`, `bof_fold_i32_f64`) stays unbound: it served only
+the Ozaki emulation that K1's fp64 variant replaces.
 
 bfloat16 has no numpy dtype without ml_dtypes, which the port does not
 use: a bf16 array here is its 16 bits as np.uint16, and
@@ -144,6 +146,10 @@ def load_library():
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_void_p]
         lib.bof_counting_argsort_i32.restype = ctypes.c_int
+        lib.bof_merge_sorted_runs.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int]
+        lib.bof_merge_sorted_runs.restype = ctypes.c_int
         lib.bof_quantize_i8.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.c_longlong]
         lib.bof_quantize_i8.restype = ctypes.c_double
@@ -190,6 +196,37 @@ def alloc_aligned(nbytes: int, alignment: int = SECTOR_LEN) -> np.ndarray:
     raw = np.empty(nbytes + alignment, dtype=np.uint8)
     off = (-raw.ctypes.data) % alignment
     return raw[off:off + nbytes]
+
+
+_SORT_KINDS = {
+    np.dtype(np.float32): 0, np.dtype(np.float64): 1,
+    np.dtype(np.int64): 2, np.dtype(np.uint64): 3,
+    np.dtype(np.int32): 4, np.dtype(np.uint32): 5,
+    np.dtype(np.int16): 6, np.dtype(np.uint16): 7,
+    np.dtype(np.int8): 8, np.dtype(np.uint8): 9,
+}
+
+
+def merge_sorted_runs(x: np.ndarray, bounds: np.ndarray) -> bool:
+    """In-place parallel merge of adjacent PRE-SORTED runs of a
+    contiguous 1-D array — the native half of the parallel block sort
+    (utils/hostpar.parallel_sort; the reference's __gnu_parallel::sort
+    role, include/tasks/sort_task.h:8,37).  The runs come from numpy's
+    np.sort on Python threads.  Float NaNs order last, matching np.sort.
+    Returns False when the engine or dtype can't take it — the caller
+    falls back to np.sort."""
+    lib = load_library()
+    if lib is None or not x.flags["C_CONTIGUOUS"] or x.ndim != 1:
+        return False
+    kind = _SORT_KINDS.get(x.dtype)
+    if kind is None:
+        return False
+    b = np.ascontiguousarray(bounds, np.int64)
+    if b.ndim != 1 or b.size < 2 or b[0] != 0 or b[-1] != x.size \
+            or (np.diff(b) < 0).any():
+        raise ValueError(f"bad run bounds {b} for {x.size} elements")
+    return lib.bof_merge_sorted_runs(x.ctypes.data, b.ctypes.data,
+                                     b.size - 1, kind) == 0
 
 
 def counting_argsort_i32(keys: np.ndarray, k: int):

@@ -8,8 +8,8 @@ digest of the flags and of every `csrc/*.cu` and `*.cuh`, and serialized
 by a flock.  Nothing is linked beyond nvcc's defaults: the TMA tensor
 maps' encoder is fetched from the driver at run time.  A failed
 build raises.  The kernel wrappers (`ops/matmul_cuda.py`, `ops/kmeans.py`,
-`ops/topk_cuda.py`, `sparse/spmm_cuda.py`) take their entry points from
-`build()`.
+`ops/topk_cuda.py`, `ops/sort_cuda.py`, `sparse/spmm_cuda.py`) take their
+entry points from `build()`.
 """
 from __future__ import annotations
 
@@ -50,8 +50,11 @@ _ENTRIES = {
     "bof_spmv_ell": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _F, _LL, _LL, _I,
                      _P],
     "bof_row_topk": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    "bof_sort_block": [_P, _P, _P, _P, _LL, _I, _P],
+    "bof_sort_block_scratch_ints": [_LL],
 }
-_SIZES = {"bof_lloyd_accumulate_scratch_ints"}  # return a size, long long
+# return a size, long long
+_SIZES = {"bof_lloyd_accumulate_scratch_ints", "bof_sort_block_scratch_ints"}
 
 _lib = None
 _lib_lock = threading.Lock()

@@ -6,8 +6,10 @@ product and takes `jax.lax.top_k` of each row.  Here the product is kernel
 K2 (`sparse/spmm_cuda.py`) and the top-k is the hand-written CUDA kernel
 `bof_row_topk` (`csrc/topk.cu`), which `row_topk` launches on a CUDA tensor;
 a CPU tensor takes the plain version `row_topk_ref`.  `row_topk.launches`
-counts the kernel's launches, and `.variant_launches` them by where the
-row's keys live ('smem' up to `TOPK_SMEM_COLS` columns, 'l2' beyond).
+counts the kernel's launches, and `.variant_launches` them by the body
+that ran (`topk_variant`: 'reg', a warp a row with the keys in registers,
+up to `TOPK_REG_COLS` columns; 'smem', a block a row with the keys in
+shared memory, up to `TOPK_SMEM_COLS`; 'l2' beyond).
 
 The order is lax.top_k's on the CPU: XLA's total order of floats (+NaN
 above +inf, -NaN below -inf, +0 above -0), the lower column first among
@@ -22,8 +24,16 @@ import torch
 from ..sparse.spmm_cuda import _launch
 from .cuda_lib import build
 
+TOPK_REG_COLS = 1024   # csrc/topk.cu's TOPK_REG_COLS
 TOPK_SMEM_COLS = 4096  # csrc/topk.cu's TOPK_SMEM_COLS
-TOPK_VARIANTS = ("smem", "l2")
+TOPK_VARIANTS = ("reg", "smem", "l2")
+
+
+def topk_variant(cols: int) -> str:
+    """The body csrc/topk.cu runs for rows of `cols` columns."""
+    if cols <= TOPK_REG_COLS:
+        return "reg"
+    return "smem" if cols <= TOPK_SMEM_COLS else "l2"
 
 
 def _check(s, mask, k):
@@ -76,8 +86,7 @@ def row_topk(s: torch.Tensor, mask, k: int):
             cols, k)
     if rows:
         row_topk.launches += 1
-        row_topk.variant_launches[
-            "smem" if cols <= TOPK_SMEM_COLS else "l2"] += 1
+        row_topk.variant_launches[topk_variant(cols)] += 1
     return vals, idx
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive bof_tpu_torch's out-of-core SGEMM and sparse paths, in fp32 and
 in their link-compressed transfer modes, the paper's three applications,
-then its float64 gemm and its out-of-core k-means, once on one CUDA card.
+then its float64 gemm, its out-of-core k-means, sample sort and
+map/reduce, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -95,9 +96,17 @@ Steps, each of which raises (exit code != 0) when it fails:
 9b. B8 (`row_topk`, the fused XML step's masked row top-k) against its
    plain version, values and columns bit for bit: the band (rows 512,
    lb_max 1024, k 5; timed beside the plain version, torch.topk and the
-   bound), k 1, k = lb_max, all-equal rows, a -inf tail wider than the
-   real labels, and lb_max 8192 (past shared memory); ptxas must report
-   no spills for it (run with the kernel checks of step 4);
+   bound), X1's band (rows 2048; timed on the card alone), k 1, k =
+   lb_max, all-equal rows, a -inf tail wider than the real labels (the
+   register body), lb_max 4096 ('smem') and lb_max 8192 ('l2'); then B10
+   (`sort_block`, the sample sort's device block sort) against its plain
+   version for every element type it takes (float32, float16, int32,
+   uint32, int16, uint16, int8, uint8, bool) at 2^24 and at 1,000,003
+   elements with +-0, +-inf, signed NaNs with payloads and duplicates:
+   bit for bit, two launches bit-identical, the input unchanged; at 2^24
+   float32 timed beside the plain version, torch.sort(stable=True) and
+   the bound; ptxas must report no spills for either (run with the
+   kernel checks of step 4);
 9c. the applications on S3's A, each through its driver: E1, block
    Lanczos (`drivers.eigensolver`, 64 values, 1 restart, one pass):
    K2 launched (forward + transposed bands) x applications times, one
@@ -148,7 +157,15 @@ Steps, each of which raises (exit code != 0) when it fails:
    upload) and streamed (a host budget below the panel): the same centers
    and labels, 1 and 4 panels over the link;
 14. `drivers.gemm_run` on the card for float32 and float64 with
-   --ld-pad 5: ALL PASS, every K1 launch on the dtype's variant.
+   --ld-pad 5: ALL PASS, every K1 launch on the dtype's variant;
+15. S12, `drivers.sort` on 2^29 seeded float32 elements (2 GiB, with +-0,
+   +-inf, signed NaNs with payloads and duplicates) with sort_compute
+   'device' set on its context: B10 once a phase-1 block (32) and once a
+   non-empty phase-3 bucket, the output bit for bit the input's stable
+   sort by B10's keys (torch.sort on the card of the regenerated input);
+16. S13, `drivers.map_reduce` on 2^29 seeded |N(0, 1)| float32 elements:
+   torch.sqrt on the card in 32 blocks, the output np.sqrt of the input
+   bit for bit, the sum within rtol 1e-12 of float64 in block order.
 
 Operands are written from seeded generators under `$BOF_SCRATCH`
 (default `build/chip_smoke` in this checkout), which must be a real
@@ -159,9 +176,10 @@ writes (a deleted file's blocks are not given back) against a 45 GiB
 disk image, and S1-S9 alone use about 36 GiB of it.  The spares are
 deleted at the end.  TF32 is switched off, so every torch matmul here is
 full fp32 (but for the one timing that asks for it).
-With BOF_SMOKE_PROFILE=1 the S1, S2, S3, E1, X1, T1, S10 and S11 calls
-run under torch.profiler and the device time by kernel (and a launch, for K1, K2,
-the SpMV, B7 and B8) and the device's busy share are printed.
+With BOF_SMOKE_PROFILE=1 the S1, S2, S3, E1, X1, T1, S10, S11, S12 and
+S13 calls run under torch.profiler and the device time by kernel (and a
+launch, for K1, K2, the SpMV, B7, B8 and B10) and the device's busy share
+are printed.
 
 The line before the last is the kernel summary as JSON, one entry a
 kernel variant the main paths launched (each one's time, plain and
@@ -673,12 +691,13 @@ def _write_operands(dev, scratch, specs, rng) -> list:
 
 
 def _reset_launch_counts():
-    from bof_tpu_torch.ops import kmeans, matmul_cuda, topk_cuda
+    from bof_tpu_torch.ops import kmeans, matmul_cuda, sort_cuda, topk_cuda
     from bof_tpu_torch.sparse import spmm_cuda
     matmul_cuda.reset_launch_counts()
     spmm_cuda.reset_launch_counts()
     kmeans.reset_launch_counts()
     topk_cuda.reset_launch_counts()
+    sort_cuda.reset_launch_counts()
 
 
 def _launch_counts() -> dict:
@@ -687,13 +706,14 @@ def _launch_counts() -> dict:
     rewrote as 'accum_matmul.lowp_packs'."""
     from bof_tpu_torch.ops.kmeans import lloyd_accumulate, lloyd_assign
     from bof_tpu_torch.ops.matmul_cuda import accum_matmul
+    from bof_tpu_torch.ops.sort_cuda import sort_block
     from bof_tpu_torch.ops.topk_cuda import row_topk
     from bof_tpu_torch.sparse.spmm_cuda import spmm_ell, spmv_ell
     counts = {"accum_matmul.lowp_packs": accum_matmul.lowp_packs}
     for name, fn in (("accum_matmul", accum_matmul), ("spmm_ell", spmm_ell),
                      ("spmv_ell", spmv_ell), ("lloyd_assign", lloyd_assign),
                      ("lloyd_accumulate", lloyd_accumulate),
-                     ("row_topk", row_topk)):
+                     ("row_topk", row_topk), ("sort_block", sort_block)):
         counts[name] = fn.launches
         counts.update((f"{name}[{v}]", n) for v, n in getattr(
             fn, "variant_launches", {}).items())
@@ -701,18 +721,18 @@ def _launch_counts() -> dict:
 
 
 @contextlib.contextmanager
-def _transfer_modes(driver, xfer, c_xfer):
-    """The driver's runs with FlashConfig.transfer_dtype and
-    c_transfer_dtype set on its context, as bof_tpu's bench sets them
-    (bench.py:2281-2282; the drivers have no flag for them)."""
+def _configured(driver, **fields):
+    """The driver's runs with these FlashConfig fields set on its context,
+    as bof_tpu's bench sets the transfer modes (bench.py:2281-2282): the
+    drivers have no flag for the modes or for sort_compute."""
     make = driver.make_context
 
-    def with_modes(args):
+    def with_fields(args):
         ctx = make(args)
-        ctx.config.transfer_dtype = xfer
-        ctx.config.c_transfer_dtype = c_xfer
+        for name, value in fields.items():
+            setattr(ctx.config, name, value)
         return ctx
-    driver.make_context = with_modes
+    driver.make_context = with_fields
     try:
         yield
     finally:
@@ -764,7 +784,8 @@ def _profiled(fn, argv) -> float:
               flush=True)
     for name in ("accum_tf32_kernel", "accum_lowp_kernel", "pack_kernel",
                  "spmm_ell_kernel", "spmv_ell_kernel", "accum_dgemm_kernel",
-                 "lloyd_assign_kernel", "row_topk_kernel") + ACC_KERNELS:
+                 "lloyd_assign_kernel", "row_topk_kernel",
+                 "row_topk_reg_kernel") + ACC_KERNELS + SORT_KERNELS:
         hits = [(us, count) for us, count, key in rows if name in key]
         if hits:
             us = sum(h[0] for h in hits)
@@ -888,7 +909,8 @@ def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta,
                 "--scratch", scratch]
         if beta == 0.0:
             argv.append("--create-c")
-        with _transfer_modes(gemm_driver, xfer, c_xfer):
+        with _configured(gemm_driver, transfer_dtype=xfer,
+                         c_transfer_dtype=c_xfer):
             wall, launches, stages, peak = _drive(
                 dev, gemm_driver.main, argv,
                 profile=(bool(os.environ.get("BOF_SMOKE_PROFILE"))
@@ -1369,7 +1391,8 @@ def csrmm_fig6_phase(dev, scratch, prefix, a_sp, modes, n=1 << 12) -> list:
         label = f"{tag} {shape} transfer={xfer} c_transfer={c_xfer}"
         argv = [prefix, str(m), str(k), b_path, str(n), c_path,
                 "--create-c", *_driver_args(dev, scratch)]
-        with _transfer_modes(csrmm_driver, xfer, c_xfer):
+        with _configured(csrmm_driver, transfer_dtype=xfer,
+                         c_transfer_dtype=c_xfer):
             wall, launches, stages, peak = _drive(
                 dev, csrmm_driver.main, argv,
                 profile=(bool(os.environ.get("BOF_SMOKE_PROFILE"))
@@ -1462,7 +1485,8 @@ def csrmm_trans_phase(dev, scratch, modes, m=65536, k=262144, n=999,
         argv = [prefix, str(m), str(k), b_path, str(n), c_path, "--ta", "T",
                 "--order-b", "C", "--alpha", repr(alpha), "--beta",
                 repr(beta), *_driver_args(dev, scratch)]
-        with _transfer_modes(csrmm_driver, xfer, c_xfer):
+        with _configured(csrmm_driver, transfer_dtype=xfer,
+                         c_transfer_dtype=c_xfer):
             wall, launches, stages, peak = _drive(dev, csrmm_driver.main,
                                                   argv)
         vkind = ELL_OF[xfer]
@@ -1505,7 +1529,8 @@ def csrgemv_phase(dev, scratch, prefix, a_sp, trans, tag="S5",
         want_bands = _bands(a_sp.indptr, 1 << 22, bt.FlashConfig().max_nnzs)
     argv = [prefix, str(m), str(k), x_path, y_path, "--trans", trans,
             *_driver_args(dev, scratch)]
-    with _transfer_modes(csrgemv_driver, xfer, "float32"):
+    with _configured(csrgemv_driver, transfer_dtype=xfer,
+                     c_transfer_dtype="float32"):
         wall, launches, stages, peak = _drive(dev, csrgemv_driver.main,
                                               argv)
     if trans == "N":
@@ -1546,31 +1571,35 @@ TOPK_INNER = 20       # B8 calls a timing sample (microseconds each)
 def topk_kernel_phase(dev) -> dict:
     """B8 (`row_topk`) against its plain version on the card, values and
     columns bit for bit (the order is a total one): the fused XML step's
-    band (rows 512, lb_max 1024, k 5), k 1, k = lb_max, all-equal rows, a
-    -inf tail wider than the real labels, and lb_max 8192 (past shared
-    memory: the 'l2' variant).  The band is timed beside the plain
-    version, torch.topk on the masked scores (the library yardstick, never
-    called by the port) and the bound: the scores and mask read once and
-    k (value, index) pairs a row written, over 3.35 TB/s."""
+    band (rows 512, lb_max 1024, k 5) and X1's (rows 2048), k 1, k =
+    lb_max, all-equal rows, a -inf tail wider than the real labels (all
+    on the register body), lb_max 4096 (the 'smem' body) and lb_max 8192
+    (the 'l2' body).  The band is timed beside the plain version,
+    torch.topk on the masked scores (the library yardstick, never called
+    by the port) and the bound: the scores and mask read once and k
+    (value, index) pairs a row written, over 3.35 TB/s; X1's band on the
+    card alone too."""
     import torch
-    from bof_tpu_torch.ops.topk_cuda import (TOPK_SMEM_COLS, row_topk,
-                                             row_topk_ref)
+    from bof_tpu_torch.ops.topk_cuda import (row_topk, row_topk_ref,
+                                             topk_variant)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 8)
-    out = None
+    out = x1 = None
     for tag, rows, lb_max, lb, k, fill in (
             ("band", 512, 1024, 1024, 5, "normal"),
             ("k=1", 512, 1024, 1024, 1, "normal"),
             ("k=lb", 512, 1024, 1024, 1024, "normal"),
             ("ties", 512, 1024, 1024, 16, "equal"),
             ("-inf tail", 512, 1024, 40, 64, "normal"),
+            ("X1 band", 2048, 1024, 1000, 5, "normal"),
+            ("lb 4096", 256, 4096, 4096, 5, "normal"),
             ("lb 8192", 256, 8192, 8192, 5, "normal")):
         s = torch.randn((rows, lb_max), generator=gen, device=dev)
         if fill == "equal":
             s.fill_(0.25)
         mask = torch.zeros(lb_max, device=dev)
         mask[lb:] = float("-inf")
-        variant = "smem" if lb_max <= TOPK_SMEM_COLS else "l2"
+        variant = topk_variant(lb_max)
         before = row_topk.variant_launches[variant]
         got_v, got_i = row_topk(s, mask, k)
         torch.cuda.synchronize()
@@ -1611,8 +1640,124 @@ def topk_kernel_phase(dev) -> dict:
             out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
                    "ms_queued": ms_q, "library_ms_queued": library_q}
+        if tag == "X1 band":
+            x = s + mask
+            nbytes = (rows * lb_max + lb_max) * 4 + rows * k * 8
+            bound_x1, _ = _bound(nbytes, 0.0, FP32_FLOPS)
+            x1_q = _median_ms(lambda: row_topk(s, mask, k), inner=TOPK_INNER,
+                              queued=True)
+            x1_lib = _median_ms(lambda: torch.topk(x, k, dim=1),
+                                inner=TOPK_INNER, queued=True)
+            print(f"B8 (X1 band, 2048 x 1024, k 5) on the card alone: kernel "
+                  f"{x1_q:.4f} ms ({100 * bound_x1 / x1_q:.1f} % of the "
+                  f"{bound_x1:.4f} ms bound), torch.topk {x1_lib:.4f} ms",
+                  flush=True)
+            x1 = {"x1_band_ms_queued": x1_q,
+                  "x1_band_library_ms_queued": x1_lib,
+                  "x1_band_bound_ms": bound_x1}
         del s, mask, got_v, got_i, want_v, want_i
-    return {"row_topk": out}
+    return {"row_topk": {**out, **x1}}
+
+
+B10_SPECIALS = {  # +-0, +-inf, NaNs of both signs with payloads
+    4: [-0x80000000, 0, 0x7F800000, -0x00800000, 0x7FC00000, -0x00400000,
+        0x7FC00123, -0x007FFFFF, 0x7F800777],
+    2: [-0x8000, 0, 0x7C00, -0x0400, 0x7E00, -0x0200, 0x7E12, -0x03FF,
+        0x7C07]}
+
+
+def _b10_bits(gen, dev, n, dtype):
+    """n seeded elements of numpy dtype `dtype` as a tensor of their bits
+    (int32, int16 or uint8), made on the card: floats N(0, 1) with a
+    quarter rounded to 0.01 (duplicates) and one in each 64 set to +-0,
+    +-inf or a NaN of either sign with a payload; integers uniform over their
+    range with a quarter drawn from 64 values; bool 0/1."""
+    import numpy as np
+    import torch
+    dt = np.dtype(dtype)
+    if dt.kind == "f":
+        tdt = torch.float32 if dt.itemsize == 4 else torch.float16
+        x = torch.randn(n, generator=gen, device=dev).to(tdt)
+        q = n // 4
+        x[:q] = torch.round(x[:q] * 100) / 100
+        bits = x.view(torch.int32 if dt.itemsize == 4 else torch.int16)
+        sp = torch.tensor(B10_SPECIALS[dt.itemsize], dtype=bits.dtype,
+                          device=dev)
+        m = n // 64  # one a 64-element stretch: distinct places, so the
+        #   assignment is deterministic
+        at = torch.arange(m, device=dev) * 64 + torch.randint(
+            0, 64, (m,), generator=gen, device=dev)
+        bits[at] = sp[torch.randint(0, len(sp), (m,), generator=gen,
+                                    device=dev)]
+        return bits
+    if dt == np.bool_:
+        return torch.randint(0, 2, (n,), generator=gen, device=dev,
+                             dtype=torch.uint8)
+    tdt = {4: torch.int32, 2: torch.int16, 1: torch.uint8}[dt.itemsize]
+    wide = torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen,
+                         device=dev)
+    bits = (wide & ((1 << (8 * dt.itemsize)) - 1)).to(tdt)
+    q = n // 4
+    bits[:q] = bits[q:q + 64][torch.randint(0, 64, (q,), generator=gen,
+                                            device=dev)]
+    return bits
+
+
+def sort_kernel_phase(dev) -> dict:
+    """B10 (`sort_block`) against its plain version on the card for every
+    element type it takes, at 2^24 elements and at a ragged 1,000,003
+    (`_b10_bits`: floats with +-0, +-inf, signed NaNs with payloads and
+    duplicates): bit for bit, two launches bit-identical, the input not
+    written.  At 2^24 float32 the kernel, the plain version, the library
+    yardstick torch.sort(stable=True) (never called by the port; CUB's
+    radix sort, which puts -0.0 before +0.0) and the bound (the block read
+    once and written once over 3.35 TB/s); the kernel's time at 2^24 for
+    every other element type too."""
+    import numpy as np
+    import torch
+    from bof_tpu_torch.ops.sort_cuda import (SORT_KINDS, sort_block,
+                                             sort_block_ref)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    out = None
+    for dt in SORT_KINDS:
+        for n in (1 << 24, 1_000_003):
+            bits = _b10_bits(gen, dev, n, dt)
+            keep = bits.clone()
+            before = sort_block.launches
+            got = sort_block(bits, dt)
+            again = sort_block(bits, dt)
+            want = sort_block_ref(bits, dt)
+            torch.cuda.synchronize()
+            same = (torch.equal(got, want) and torch.equal(again, want)
+                    and torch.equal(bits, keep)
+                    and sort_block.launches == before + 2)
+            line = (f"B10 {dt.name} n {n}: bit-identical to the plain "
+                    f"version, twice, input unchanged: {same}")
+            if n == 1 << 24:
+                ms = _median_ms(lambda: sort_block(bits, dt), reps=3)
+                line += f"; kernel {ms:.4f} ms"
+            print(line, flush=True)
+            if not same:
+                raise AssertionError(f"B10 ({dt.name}, n {n}) disagrees with "
+                                     "its plain version")
+            if dt == np.float32 and n == 1 << 24:
+                x = bits.view(torch.float32)
+                bound, by = _bound(2 * n * 4, 0.0, FP32_FLOPS)
+                ms = _median_ms(lambda: sort_block(bits, dt))
+                plain_ms = _median_ms(lambda: sort_block_ref(bits, dt))
+                library_ms = _median_ms(lambda: torch.sort(x, stable=True))
+                print(f"B10 (float32, 2^24): kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, library (torch.sort, stable) "
+                      f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+                      f"the kernel at {100 * bound / ms:.1f} % of it), "
+                      "median of 5 samples of one call", flush=True)
+                out = {"ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound,
+                       "bound_by": by, "max_abs_err": 0.0}
+            del bits, keep, got, again, want
+    torch.cuda.empty_cache()
+    return {"sort_block": out}
 
 
 def _app_report(label, wall, flops, launches, stages, peak, prefix, keys):
@@ -1764,7 +1909,7 @@ def xml_phase(dev, scratch, prefix, a_sp, n_labels=4096, k=5) -> dict:
     want = bands * blocks
     _check_launches(label, launches, {
         "spmm_ell": want, "spmm_ell[f32]": want, "row_topk": want,
-        "row_topk[smem]": want})
+        "row_topk[reg]": want})
     _app_report(label, wall, 2.0 * a_sp.nnz * n_labels, launches, stages,
                 peak, "xml_rank.", ("w_read_s", "w_h2d_s", "disk_wait_s",
                                     "prep_s", "h2d_s", "dispatch_s", "d2h_s",
@@ -2659,17 +2804,163 @@ def gemm_run_phase(dev, scratch) -> None:
               f"{launches['accum_matmul']}, all {variant}", flush=True)
 
 
+def _write_bits(path, bits):
+    """`bits` (a card tensor) to `path` over a spare's blocks, in chunks."""
+    _reuse(path, bits.numel() * bits.element_size())
+    with open(path, "r+b") as f:
+        for c0 in range(0, bits.numel(), 1 << 24):
+            bits[c0:c0 + (1 << 24)].cpu().numpy().tofile(f)
+
+
+def sort_phase(dev, scratch, n=1 << 29) -> dict:
+    """S12: drivers.sort on 2^29 seeded float32 elements (2 GiB: N(0, 1)
+    with duplicates, +-0, +-inf and NaNs of both signs with payloads,
+    `_b10_bits`), sort_compute 'device', the default sort_blk_elems (32
+    blocks), O_DIRECT, the 8 GiB pin cache; input and output written over
+    spares.  Fails unless B10 launched once a phase-1 block and once a
+    non-empty phase-3 bucket, and the output is, bit for bit, the input
+    regenerated on the card and stably sorted by B10's keys (the whole
+    out-of-core sort is stable under them) by torch.sort."""
+    import numpy as np
+    import torch
+    import bof_tpu_torch as bt
+    from bof_tpu_torch.drivers import sort as sort_driver
+    from bof_tpu_torch.ops.sort_cuda import canonical_keys
+    label = f"S12 sort n={n} float32 sort_compute=device"
+    src, dst = (os.path.join(scratch, f"sort_{x}.bin") for x in ("in", "out"))
+    gen = torch.Generator(device=dev)
+    t0 = time.perf_counter()
+    gen.manual_seed(SEED + 12)
+    _write_bits(src, _b10_bits(gen, dev, n, np.float32))
+    _reuse(dst, n * 4)
+    torch.cuda.empty_cache()
+    print(f"[{label}] input written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def run(argv):
+        t = time.perf_counter()
+        with _configured(sort_driver, sort_compute="device"):
+            sort_driver.main(argv)
+        return time.perf_counter() - t
+    wall, launches, stages, peak = _drive(
+        dev, run, [src, dst, str(n), *_driver_args(dev, scratch)],
+        profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
+    blocks = int(stages["sort.blocks"])
+    buckets = int(stages.get("sort.buckets", 0))
+    _check_launches(label, launches, {"sort_block": blocks + buckets})
+    if blocks != -(-n // bt.FlashConfig().sort_blk_elems):
+        raise AssertionError(f"[{label}] {blocks} blocks, expected "
+                             f"{n} / sort_blk_elems")
+    print(f"[{label}] wall {wall:.3f} s, {16.0 * n / wall / 1e9:.2f} GB/s "
+          f"(the driver's formula, 4 * n * 4 bytes), B10 launches "
+          f"{launches['sort_block']} = {blocks} blocks + {buckets} buckets, "
+          f"peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    _stages(label, stages, "sort.", ("phase1_s", "phase2_s", "phase3_s",
+                                     "block_sort_s", "h2d_s"))
+    t0 = time.perf_counter()
+    gen.manual_seed(SEED + 12)
+    bits = _b10_bits(gen, dev, n, np.float32)
+    order = torch.sort(canonical_keys(bits, np.float32), stable=True).indices
+    want = bits[order]
+    del order, bits
+    got = torch.from_numpy(np.fromfile(dst, np.int32)).to(dev)
+    same = bool(torch.equal(got, want))
+    del got, want
+    torch.cuda.empty_cache()
+    print(f"[{label}] output bit for bit the stable sort of the input by "
+          f"B10's keys: {same} (checked in {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if not same:
+        raise AssertionError(f"[{label}] the output is not the stable sort")
+    for path in (src, dst):
+        _retire(path)
+    return launches
+
+
+def map_phase(dev, scratch, n=1 << 29) -> dict:
+    """S13: drivers.map_reduce on 2^29 seeded |N(0, 1)| float32 elements
+    (2 GiB, written over a spare; no NaNs, whose payload the card's sqrt
+    would make canonical): torch.sqrt on the card in 32 blocks (B11, the
+    caller's torch ops: no kernel of the port launches), then the host sum.
+    Fails unless the output is np.sqrt of the input bit for bit and the
+    sum is within rtol 1e-12 of the float64 sum in the reference's block
+    order."""
+    import numpy as np
+    import torch
+    import bof_tpu_torch as bt
+    from bof_tpu_torch.drivers import map_reduce as mr_driver
+    blk = bt.FlashConfig().map_blk_elems
+    label = f"S13 map_reduce n={n} float32 sqrt + sum"
+    src, dst = (os.path.join(scratch, f"map_{x}.bin") for x in ("in", "out"))
+    gen = torch.Generator(device=dev)
+    t0 = time.perf_counter()
+    gen.manual_seed(SEED + 13 * 2)
+    _write_bits(src, torch.randn(n, generator=gen, device=dev).abs_()
+                .view(torch.int32))
+    _reuse(dst, n * 4)
+    torch.cuda.empty_cache()
+    print(f"[{label}] input written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    res = {}
+
+    def run(argv):
+        t = time.perf_counter()
+        res["sum"] = mr_driver.main(argv)
+        return time.perf_counter() - t
+    wall, launches, stages, peak = _drive(
+        dev, run, [src, dst, str(n), *_driver_args(dev, scratch)],
+        profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
+    if any(launches.values()):
+        raise AssertionError(f"[{label}] a port kernel launched: {launches}")
+    print(f"[{label}] wall {wall:.3f} s (map and reduce), "
+          f"{12.0 * n / wall / 1e9:.2f} GB/s (the driver's formulas: 2 * n * "
+          f"4 bytes mapped, n * 4 reduced), peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    _stages(label, stages, "map.", ("h2d_s", "fn_d2h_s"))
+    t0 = time.perf_counter()
+    gen.manual_seed(SEED + 13 * 2)
+    x = torch.randn(n, generator=gen, device=dev).abs_()
+    total = 0.0
+    same = True
+    with open(dst, "rb") as f:
+        for b0 in range(0, n, blk):
+            want = np.sqrt(x[b0:b0 + blk].cpu().numpy())
+            got = np.fromfile(f, np.float32, count=blk)
+            same = same and np.array_equal(got.view(np.uint32),
+                                           want.view(np.uint32))
+            total = total + want.sum(dtype=np.float64)
+    del x
+    torch.cuda.empty_cache()
+    rel = abs(res["sum"] - total) / abs(total)
+    ok = same and rel <= 1e-12
+    print(f"[{label}] output np.sqrt of the input bit for bit: {same}; sum "
+          f"{float(res['sum'])!r} against float64 in block order "
+          f"{float(total)!r} (rel "
+          f"{rel:.3g}, limit 1e-12); checked in "
+          f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"[{label}] disagrees with numpy")
+    for path in (src, dst):
+        _retire(path)
+    return launches
+
+
 ACC_KERNELS = ("acc_hist_kernel", "acc_scan_kernel", "acc_offsets_kernel",
                "acc_scatter_kernel", "acc_sum_kernel")
 ASSIGN_KERNELS = ("tf32_split_kernel", "lloyd_assign_kernel")
+SORT_KERNELS = ("sort_hist_kernel", "sort_scan_kernel",
+                "sort_scatter_kernel")
 NO_SPILLS = ("accum_tf32_kernel", "accum_lowp_kernel",
-             "accum_dgemm_kernel", "row_topk_kernel") + ASSIGN_KERNELS \
-    + ACC_KERNELS
+             "accum_dgemm_kernel", "row_topk_kernel",
+             "row_topk_reg_kernel") + ASSIGN_KERNELS + ACC_KERNELS \
+    + SORT_KERNELS
 
 
 def _ptxas_report(log: str) -> None:
     """Print what ptxas says of each kernel; raise if a tensor-core kernel
-    (K1's fp32, low-precision or fp64 kernel), a B7 kernel or B8 spills."""
+    (K1's fp32, low-precision or fp64 kernel), a B7 kernel, B8 or B10
+    spills."""
     entry = ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -2720,7 +3011,8 @@ def main() -> int:
     _ptxas_report(cuda_lib.BUILD_INFO.get("ptxas", ""))
 
     summary = {"accum_matmul": kernel_phase(dev), **lowp_kernel_phase(dev),
-               **ell_kernel_phase(dev), **topk_kernel_phase(dev)}
+               **ell_kernel_phase(dev), **topk_kernel_phase(dev),
+               **sort_kernel_phase(dev)}
 
     scratch = os.environ.get("BOF_SCRATCH") or os.path.join(
         HERE, "build", "chip_smoke")
@@ -2785,6 +3077,11 @@ def main() -> int:
     t0 = time.perf_counter()
     gemm_run_phase(dev, scratch)
     walls["gemm_run"] = time.perf_counter() - t0
+    # the sort and map/reduce primitives, over spares
+    for tag, phase in (("S12", sort_phase), ("S13", map_phase)):
+        t0 = time.perf_counter()
+        runs.append(phase(dev, scratch))
+        walls[tag] = time.perf_counter() - t0
     shutil.rmtree(os.path.join(scratch, "spare"))
     print("phase walls (s, data making and checks included): " + ", ".join(
         f"{tag} {sec:.1f}" for tag, sec in walls.items()), flush=True)
@@ -2827,6 +3124,8 @@ def main() -> int:
                              "bof_tpu/ops/kmeans.py:40"),
         "row_topk": ("bof_tpu_torch/csrc/topk.cu",
                      "bof_tpu/apps/xml_rank.py:48"),
+        "sort_block": ("bof_tpu_torch/csrc/sort.cu",
+                       "bof_tpu/ops/sort.py:135"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -670,11 +670,15 @@ def test_row_topk_without_mask_and_its_checks():
 
 
 def test_row_topk_wrapper_knows_the_kernels_smem_width():
-    """The wrapper's `TOPK_SMEM_COLS` (which variant a launch counts as) is
-    the CUDA source's."""
+    """The wrapper's `TOPK_SMEM_COLS` and `TOPK_REG_COLS` (which variant a
+    launch counts as) are the CUDA source's."""
     with open(os.path.join(REPO, "bof_tpu_torch", "csrc", "topk.cu")) as f:
-        m = re.search(r"constexpr int TOPK_SMEM_COLS = (\d+);", f.read())
-    assert int(m.group(1)) == topk_cuda.TOPK_SMEM_COLS
+        src = f.read()
+    for name in ("TOPK_SMEM_COLS", "TOPK_REG_COLS"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert int(m.group(1)) == getattr(topk_cuda, name), name
+    assert [topk_cuda.topk_variant(c) for c in (1, 1024, 1025, 4096, 4097)] \
+        == ["reg", "reg", "smem", "smem", "l2"]
 
 
 # ------------------------------------------------- several cards: not yet

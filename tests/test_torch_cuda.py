@@ -1,9 +1,10 @@
 """bof_tpu_torch on a CUDA card: kernel K1 (its tensor-core fp32, bf16,
 s8 and f64 variants), K2 (ELL SpMM), the ELL SpMV (on fp32, bf16 and int8
-values), the k-means pair B7 and the row top-k B8 against their plain
-versions, and the out-of-core gemm (fp32, its transfer modes and
-float64), csrmm, csrgemv, lloyds_iter and the three applications through
-them against the same calls on the CPU.
+values), the k-means pair B7, the row top-k B8 and the block sort B10
+against their plain versions, and the out-of-core gemm (fp32, its
+transfer modes and float64), csrmm, csrgemv, lloyds_iter, the three
+applications, the sample sort and map through them against the same
+calls on the CPU (map's torch.sqrt against np.sqrt bit for bit).
 
 These need the card (a CUDA kernel has no CPU mode): they carry the
 `cuda` marker and skip where torch.cuda.is_available() is False.  This
@@ -34,8 +35,10 @@ from bof_tpu_torch.ops.kmeans import (lloyd_accumulate,
                                       lloyd_accumulate_ref, lloyd_assign,
                                       lloyd_assign_ref,
                                       lloyd_assign_tf32x3_ref)
-from bof_tpu_torch.ops.topk_cuda import (TOPK_SMEM_COLS, row_topk,
-                                         row_topk_ref)
+from bof_tpu_torch.ops.sort_cuda import (SORT_KINDS, bits_of,
+                                         canonical_keys, sort_block,
+                                         sort_block_ref)
+from bof_tpu_torch.ops.topk_cuda import row_topk, row_topk_ref, topk_variant
 from bof_tpu_torch.sparse.spmm_cuda import (promote_vals, spmm_ell,
                                             spmm_ell_ref, spmv_ell,
                                             spmv_ell_ref)
@@ -1065,10 +1068,18 @@ def _topk_rows(rng, rows, cols, lb, case):
     (40, 8192, 8192, 5, "random"),        # past shared memory: 'l2'
     (16, 8192, 5000, 300, "ties"),
     (33, 77, 77, 9, "non_finite"),
-    (7, 5000, 4096, 4096, "random")])
+    (7, 5000, 4096, 4096, "random"),
+    (2048, 1024, 1024, 5, "random"),      # X1's band
+    (512, 1022, 1000, 5, "ties"),         # cols % 4: the register body's
+    (100, 1023, 1023, 64, "random"),      #   4-byte loads
+    (9, 1024, 1024, 1024, "all_equal"),   # k = cols on the register body
+    (45, 1024, 700, 40, "non_finite"),
+    (5, 4096, 4096, 5, "random"),         # 'smem' past the register body
+    (3, 1, 1, 1, "random")])
 def test_row_topk_kernel_matches_plain(cuda_device, rows, cols, lb, k, case):
     """B8 against its plain version on the card: values and columns bit
-    for bit (the order is a total one, so there is one right answer)."""
+    for bit (the order is a total one, so there is one right answer), on
+    each of its bodies ('reg' up to 1024 columns, 'smem', 'l2')."""
     rng = np.random.default_rng(rows + cols + k)
     s, mask = _topk_rows(rng, rows, cols, lb, case)
     s_d = torch.from_numpy(s).to(cuda_device)
@@ -1077,10 +1088,70 @@ def test_row_topk_kernel_matches_plain(cuda_device, rows, cols, lb, k, case):
     got_v, got_i = row_topk(s_d, m_d, k)
     want_v, want_i = row_topk_ref(s_d, m_d, k)
     torch.cuda.synchronize()
-    variant = "smem" if cols <= TOPK_SMEM_COLS else "l2"
+    variant = topk_variant(cols)
     assert row_topk.variant_launches[variant] == before[variant] + 1
     assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
     assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("k", [5, 1024])
+def test_row_topk_register_body_takes_an_unaligned_row_base(cuda_device, k):
+    """Rows that start off a 16-byte boundary (a view one float into a
+    buffer) take the register body's 4-byte loads: the same bits."""
+    rng = np.random.default_rng(k)
+    s, mask = _topk_rows(rng, 300, 1024, 1000, "ties")
+    flat = torch.empty(300 * 1024 + 1, device=cuda_device)
+    s_d = flat[1:].view(300, 1024)
+    s_d.copy_(torch.from_numpy(s))
+    m_d = torch.from_numpy(mask).to(cuda_device)
+    got_v, got_i = row_topk(s_d, m_d, k)
+    want_v, want_i = row_topk_ref(s_d, m_d, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_i, want_i)
+
+
+def _b10_input(rng, n, dtype):
+    """Seeded elements with duplicates and, for floats, +-0.0, +-inf and
+    NaNs of both signs with payloads."""
+    dt = np.dtype(dtype)
+    if dt == np.bool_:
+        return rng.random(n) > 0.5
+    if dt.kind in "iu":
+        info = np.iinfo(dt)
+        x = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+        x[: n // 2] = x[rng.integers(0, 64, n // 2)]  # duplicates
+        return x
+    x = np.round(rng.standard_normal(n), 2).astype(dt)
+    ub = np.uint32 if dt.itemsize == 4 else np.uint16
+    specials = ([0x80000000, 0, 0x7F800000, 0xFF800000, 0x7FC00000,
+                 0xFFC00000, 0x7FC00123, 0xFF800001] if dt.itemsize == 4 else
+                [0x8000, 0, 0x7C00, 0xFC00, 0x7E00, 0xFE00, 0x7E12, 0xFC01])
+    at = rng.choice(n, n // 8, replace=False)
+    x.view(ub)[at] = np.array(specials, ub)[rng.integers(0, 8, len(at))]
+    return x
+
+
+@pytest.mark.parametrize("n", [1, 8191, 8193, 1_000_003])
+@pytest.mark.parametrize("dtype", sorted(SORT_KINDS, key=str))
+def test_sort_block_kernel_matches_plain(cuda_device, dtype, n):
+    """B10 against its plain version on the card, bit for bit, for each
+    element type, on tiles' edges and a ragged length; two launches give
+    the same bits, and the input is not written."""
+    rng = np.random.default_rng(n)
+    x = _b10_input(rng, n, dtype)
+    t = bits_of(x).to(cuda_device)
+    keep = t.clone()
+    before = sort_block.launches
+    got = sort_block(t, dtype)
+    again = sort_block(t, dtype)
+    want = sort_block_ref(t, dtype)
+    torch.cuda.synchronize()
+    assert sort_block.launches == before + 2
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert torch.equal(t, keep)
+    keys = canonical_keys(got, dtype)
+    assert bool((keys[1:] >= keys[:-1]).all())
 
 
 def test_row_topk_masked_negative_nan_comes_back_canonical(cuda_device):
@@ -1206,3 +1277,38 @@ def test_topic_model_on_card_matches_cpu(cuda_device, tmp_path):
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4,
                                atol=1e-6)
+
+
+def test_sort_and_map_on_card_match_cpu(cuda_device, tmp_path):
+    """The out-of-core sort with sort_compute='device' (B10 on every phase-1
+    block and phase-3 bucket) gives the CPU's bits, with -0.0/+0.0 and
+    signed NaNs in it; bof_map's torch.sqrt on the card is np.sqrt bit for
+    bit (correctly rounded there), and a 64-bit map stays on the host."""
+    rng = np.random.default_rng(31)
+    x = _b10_input(rng, 200_003, np.float32)
+    pos = np.abs(rng.standard_normal(100_001)).astype(np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+            device=device, scratch_dir=str(tmp_path / device),
+            sort_compute="device"))
+        try:
+            src = bof_tpu_torch.mem_array(x.shape, x.dtype, data=x.copy(),
+                                          ctx=ctx)
+            dst = bof_tpu_torch.mem_array(x.shape, x.dtype, ctx=ctx)
+            before = sort_block.launches
+            bof_tpu_torch.bof_sort(src, dst, blk_elems=30_000, ctx=ctx)
+            launches = sort_block.launches - before
+            ps = bof_tpu_torch.mem_array(pos.shape, pos.dtype, data=pos,
+                                         ctx=ctx)
+            pd = bof_tpu_torch.mem_array(pos.shape, pos.dtype, ctx=ctx)
+            bof_tpu_torch.bof_map(ps, pd, torch.sqrt, blk_elems=30_000,
+                                  ctx=ctx)
+            out[device] = (dst.read_all(), pd.read_all(), launches)
+        finally:
+            ctx.destroy()
+    assert out["cpu"][2] == 0 and out["cuda"][2] >= 7  # 7 blocks + buckets
+    np.testing.assert_array_equal(out["cuda"][0].view(np.uint32),
+                                  out["cpu"][0].view(np.uint32))
+    np.testing.assert_array_equal(out["cuda"][1].view(np.uint32),
+                                  np.sqrt(pos).view(np.uint32))

@@ -275,3 +275,46 @@ def test_topk_source_is_built_and_bound():
              for p in glob.glob(os.path.join(cuda_lib._CSRC, "*.cu"))}
     assert "topk.cu" in names
     assert cuda_lib._ENTRIES["bof_row_topk"][-1] is cuda_lib._P  # stream
+
+
+def test_sort_map_slice_imports_neither_jax_nor_bof_tpu():
+    """The sort, map/reduce and lib-func modules, their drivers and B10's
+    wrapper import no jax, ml_dtypes or bof_tpu module; the package root
+    exports every name bof_tpu's root does, as ops/ does bof_tpu.ops's, each
+    bound to the port's own function."""
+    code = ("import sys, bof_tpu_torch.ops.sort, bof_tpu_torch.ops.map_reduce,"
+            " bof_tpu_torch.ops.sort_cuda, bof_tpu_torch.lib_funcs, "
+            "bof_tpu_torch.types, bof_tpu_torch.utils.hostpar, "
+            "bof_tpu_torch.drivers.sort, bof_tpu_torch.drivers.map_reduce; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'ml_dtypes', 'bof_tpu')); print(bad)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    assert set(bof_tpu.__all__) <= set(bof_tpu_torch.__all__)
+    for name in bof_tpu.__all__:
+        obj = getattr(bof_tpu_torch, name)
+        assert obj.__module__.split(".")[0] == "bof_tpu_torch", name
+    import bof_tpu_torch.ops as ops
+    assert sorted(ops.__all__) == sorted(bof_tpu.ops.__all__)
+    for name in ("bof_sort", "bof_map", "bof_reduce"):
+        assert getattr(ops, name) is getattr(bof_tpu_torch, name)
+
+
+def test_b10_source_is_built_and_bound():
+    """csrc/sort.cu (B10) is among the sources the build compiles, in the
+    digest, and its entry points are bound; its wrapper counts launches."""
+    import glob
+    from bof_tpu_torch.ops import cuda_lib, sort_cuda
+    sources = [os.path.basename(p) for p in
+               glob.glob(os.path.join(cuda_lib._CSRC, "*.cu"))]
+    assert "sort.cu" in sources
+    assert "bof_sort_block" in cuda_lib._ENTRIES
+    assert "bof_sort_block_scratch_ints" in cuda_lib._SIZES
+    before = sort_cuda.sort_block.launches
+    x = torch.tensor([3, -1, 2], dtype=torch.int32)
+    got = sort_cuda.sort_block(x, np.int32)
+    assert got.tolist() == [-1, 2, 3]
+    assert sort_cuda.sort_block.launches == before  # CPU: plain version

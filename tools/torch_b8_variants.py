@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
-"""Time B8's two row-key placements on one CUDA card.
+"""Time B8's bodies against each other and against its first design on
+one CUDA card.
 
     python3 tools/torch_b8_variants.py [--reps 7] [--rounds 2]
-        [--inner 50]
+        [--inner 50] [--first-design FILE]
 
-`bof_tpu_torch/csrc/topk.cu` keeps a row's keys in shared memory up to
-TOPK_SMEM_COLS columns ('smem') and re-reads s and the mask from L2 when
-a thread looks again past it ('l2').  This builds the committed source
-and a textual edit of it that takes the 'l2' body at every width
-('l2_only'), each by nvcc for sm_90a into its own library under the
-port's build root, both at once.  At the fused XML step's bands (rows 512
-and 2048, lb_max 1024, k 5) and at k 64 and k = lb_max 1024, each runs
-`bof_row_topk` on seeded normal scores under a -inf tail of 24 columns;
-both must give the plain version's (`row_topk_ref`) values and columns
-bit for bit.  Times are the median of `--reps` CUDA-event samples of
-`--inner` calls back to back, each sample queued behind a sleep kernel
-(so they time the card alone), in `--rounds` rounds that alternate the
-variants' order, beside the bound: the scores and mask read once and k
-(value, index) pairs a row written, over 3.35 TB/s.  Prints the card's
-name and power limit, what ptxas notes of each build, one line a
-measurement and one JSON line.  Needs a card and nvcc; exits 2 without
-them.
+`bof_tpu_torch/csrc/topk.cu` takes rows of up to TOPK_REG_COLS columns
+through its register body (a warp a row, the keys in registers), rows
+of up to TOPK_SMEM_COLS through a block a row with the keys in shared
+memory ('smem'), and wider rows through the same block re-reading s and
+the mask from L2 ('l2').  This builds the committed source, a textual
+edit of it that sends every row past the register body to 'l2'
+('no_smem'), one whose register body takes each lane's maxima by a tree
+over an array of its 32 packed entries instead of one running maximum
+('tree_max'), and the first design, a block a row at every width (FILE,
+else `git show` of topk.cu from commit 35228ab), each by nvcc for sm_90a
+into its own library under the port's build root, all at once.  At the
+fused XML step's bands (rows 512 and 2048, lb_max 1024, k 5), at k 64
+and k = lb_max 1024, and at 512 x 4096 k 5 (where 'smem' and 'l2'
+differ), each runs `bof_row_topk` on seeded normal scores under a -inf
+tail of 24 columns; every one must give the plain version's
+(`row_topk_ref`) values and columns bit for bit.  Times are the median
+of `--reps` CUDA-event samples of `--inner` calls back to back, each
+sample queued behind a sleep kernel (so they time the card alone), in
+`--rounds` rounds that alternate the variants' order, beside the bound:
+the scores and mask read once and k (value, index) pairs a row written,
+over 3.35 TB/s.  Prints the card's name and power limit, what ptxas
+notes of each build, one line a measurement and one JSON line.  Needs a
+card and nvcc; exits 2 without them.
 """
 from __future__ import annotations
 
@@ -37,15 +44,91 @@ sys.path.insert(0, HERE)
 CSRC = os.path.join(HERE, "bof_tpu_torch", "csrc")
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
 SHAPES = ((512, 1024, 5), (2048, 1024, 5), (512, 1024, 64),
-          (512, 1024, 1024))
+          (512, 1024, 1024), (512, 4096, 5))
 SMEM_BRANCH = "  if (cols <= TOPK_SMEM_COLS)\n"
+# 'tree_max': the register body's lane maxima taken over an array of the
+# 32 packed entries by a tree of pairwise maxima, in place of one running
+# maximum (shorter dependency chains, more registers)
+BODY = "// The register body: a warp a row (see the header)."
+TREE_FUNCS = """// p[j] = max(p[j], p[j + H]) for j < H (in registers)
+template <int H>
+__device__ __forceinline__ void fold_half(long long (&p)[TOPK_REG_SLOTS]) {
+#pragma unroll
+  for (int j = 0; j < H; ++j) p[j] = max64(p[j], p[j + H]);
+}
+
+__device__ __forceinline__ long long tree_max(
+    long long (&p)[TOPK_REG_SLOTS]) {
+  fold_half<16>(p);
+  fold_half<8>(p);
+  fold_half<4>(p);
+  fold_half<2>(p);
+  fold_half<1>(p);
+  return p[0];
+}
+
+"""
+FIRST_MAX = """  long long best = LLONG_MIN;  // below every packed entry
+#pragma unroll
+  for (int j = 0; j < TOPK_REG_SLOTS; ++j)
+    best = max64(best, pack(key[j], col_of(j)));
+"""
+TREE_FIRST_MAX = """  long long p[TOPK_REG_SLOTS];
+#pragma unroll
+  for (int j = 0; j < TOPK_REG_SLOTS; ++j) p[j] = pack(key[j], col_of(j));
+  long long best = tree_max(p);
+"""
+LOOK_AGAIN = """      const long long w = best;
+      best = LLONG_MIN;
+#pragma unroll
+      for (int j = 0; j < TOPK_REG_SLOTS; ++j) {
+        const long long p = pack(key[j], col_of(j));
+        if (p < w) best = max64(best, p);
+      }
+"""
+TREE_LOOK_AGAIN = """#pragma unroll
+      for (int j = 0; j < TOPK_REG_SLOTS; ++j) {
+        const long long e = pack(key[j], col_of(j));
+        p[j] = e < best ? e : LLONG_MIN;
+      }
+      best = tree_max(p);
+"""
+FIRST_COMMIT = "35228ab"  # the block-a-row design is this commit's
+FIRST = "first_design"
 
 
-def _variants(src: str) -> dict:
-    if src.count(SMEM_BRANCH) != 1:
-        raise RuntimeError("variant edit does not apply: the 'smem' branch")
+def _first_design(path) -> str:
+    """The first design's topk.cu: from `path`, else from git."""
+    if path:
+        with open(path) as f:
+            return f.read()
+    res = subprocess.run(
+        ["git", "-C", HERE, "show",
+         f"{FIRST_COMMIT}:bof_tpu_torch/csrc/topk.cu"],
+        capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError("the first design needs --first-design FILE (git "
+                           f"show {FIRST_COMMIT}:bof_tpu_torch/csrc/topk.cu "
+                           f"failed: {res.stderr.strip()})")
+    return res.stdout
+
+
+def _edit(text: str, *pairs) -> str:
+    """text with each (old, new) replaced; each old must occur once."""
+    for old, new in pairs:
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant edit does not apply: {old[:60]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def _variants(src: str, first_path) -> dict:
     return {"committed": src,
-            "l2_only": src.replace(SMEM_BRANCH, "  if (false)\n")}
+            "no_smem": _edit(src, (SMEM_BRANCH, "  if (false)\n")),
+            "tree_max": _edit(src, (BODY, TREE_FUNCS + BODY),
+                              (FIRST_MAX, TREE_FIRST_MAX),
+                              (LOOK_AGAIN, TREE_LOOK_AGAIN)),
+            FIRST: _first_design(first_path)}
 
 
 def _build(sources: dict, root: str) -> dict:
@@ -100,6 +183,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--inner", type=int, default=50)
+    ap.add_argument("--first-design", default=None,
+                    help="the first design's source (default: from git)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -108,7 +193,7 @@ def main(argv=None) -> int:
     from bof_tpu_torch.io.native import build_root
     from bof_tpu_torch.ops.topk_cuda import row_topk_ref
     with open(os.path.join(CSRC, "topk.cu")) as f:
-        sources = _variants(f.read())
+        sources = _variants(f.read(), args.first_design)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
