@@ -35,7 +35,8 @@ SORT_KINDS = {
     np.dtype(np.int16): 4, np.dtype(np.uint16): 5,
     np.dtype(np.int8): 6, np.dtype(np.uint8): 7, np.dtype(np.bool_): 7,
 }
-SORT_MAX_ELEMS = 2 ** 31 - 8193  # csrc/sort.cu: int positions, 8192-tiles
+SORT_TILE = 7680  # csrc/sort.cu: SORT_THREADS * SORT_ITEMS, a block's tile
+SORT_MAX_ELEMS = 2 ** 31 - SORT_TILE  # int positions over whole tiles
 _NP_BITS = {4: np.int32, 2: np.int16, 1: np.uint8}
 _TORCH_BITS = {4: torch.int32, 2: torch.int16, 1: torch.uint8}
 
@@ -114,10 +115,12 @@ def sort_block(bits: torch.Tensor, dtype) -> torch.Tensor:
         return out
     lib = build()
     scratch = torch.empty_like(bits) if bits.element_size() > 1 else out
-    hist = torch.empty(lib.bof_sort_block_scratch_ints(n), dtype=torch.int32,
+    # the status words, digit counts and starts, tile counters (zeroed on
+    # the stream by the kernel's own memset)
+    work = torch.empty(lib.bof_sort_block_scratch_ints(n), dtype=torch.int32,
                        device=bits.device)
     _launch(lib.bof_sort_block, bits.device, out.data_ptr(), bits.data_ptr(),
-            scratch.data_ptr(), hist.data_ptr(), n, kind)
+            scratch.data_ptr(), work.data_ptr(), n, kind)
     sort_block.launches += 1
     return out
 

@@ -102,11 +102,16 @@ Steps, each of which raises (exit code != 0) when it fails:
    (`sort_block`, the sample sort's device block sort) against its plain
    version for every element type it takes (float32, float16, int32,
    uint32, int16, uint16, int8, uint8, bool) at 2^24 and at 1,000,003
-   elements with +-0, +-inf, signed NaNs with payloads and duplicates:
-   bit for bit, two launches bit-identical, the input unchanged; at 2^24
-   float32 timed beside the plain version, torch.sort(stable=True) and
-   the bound; ptxas must report no spills for either (run with the
-   kernel checks of step 4);
+   elements with +-0, +-inf, signed NaNs with payloads and duplicates,
+   and at 2^24 float32 and uint8 on skewed and ordered inputs (all
+   equal, +-0.0 alternating, sorted, reverse sorted, two values
+   alternating, all NaNs): bit for bit, two launches bit-identical, the
+   input unchanged; at 2^24 float32 timed as a lone call and on the card
+   alone (random and all equal, with the histogram's and the passes'
+   device time) beside the plain version, torch.sort(stable=True), the
+   bound and the one-sweep design's floors (a pass, and all nine reads or
+   writes of the block); ptxas must report no spills for either (run
+   with the kernel checks of step 4);
 9c. the applications on S3's A, each through its driver: E1, block
    Lanczos (`drivers.eigensolver`, 64 values, 1 restart, one pass):
    K2 launched (forward + transposed bands) x applications times, one
@@ -1703,59 +1708,147 @@ def _b10_bits(gen, dev, n, dtype):
     return bits
 
 
+B10_SKEWED = ("all_equal", "zeros_alternating", "sorted", "reverse",
+              "two_alternating", "all_nans")
+
+
+def _b10_skewed(gen, dev, n, dtype, case):
+    """n elements of float32 or uint8 (as int32 or uint8 bits, made on the
+    card) in one of B10's skewed or ordered cases: all equal, +-0.0
+    alternating, already sorted and reverse sorted (`_b10_bits` in B10's
+    order), two values alternating, all NaNs of both signs with payloads
+    (the last two float cases float32 only)."""
+    import numpy as np
+    import torch
+    from bof_tpu_torch.ops.sort_cuda import sort_block_ref
+    f32 = np.dtype(dtype) == np.float32
+    tdt = torch.int32 if f32 else torch.uint8
+    if case == "all_equal":
+        return torch.full((n,), 0x3FC00000 if f32 else 200, dtype=tdt,
+                          device=dev)  # 1.5
+    if case == "zeros_alternating":
+        bits = torch.zeros(n, dtype=tdt, device=dev)
+        bits[::2] = -0x80000000
+        return bits
+    if case == "two_alternating":
+        bits = torch.full((n,), 0x40200000 if f32 else 250, dtype=tdt,
+                          device=dev)  # 2.5
+        bits[1::2] = -0x40800000 if f32 else 5  # -1.0
+        return bits
+    if case == "all_nans":
+        bits = torch.randint(1, 0x800000, (n,), generator=gen, device=dev,
+                             dtype=tdt) | 0x7F800000
+        neg = torch.rand(n, generator=gen, device=dev) < 0.5
+        return torch.where(neg, bits | -0x80000000, bits)
+    bits = sort_block_ref(_b10_bits(gen, dev, n, dtype), dtype)
+    return bits if case == "sorted" else bits.flip(0)
+
+
 def sort_kernel_phase(dev) -> dict:
     """B10 (`sort_block`) against its plain version on the card for every
     element type it takes, at 2^24 elements and at a ragged 1,000,003
     (`_b10_bits`: floats with +-0, +-inf, signed NaNs with payloads and
-    duplicates): bit for bit, two launches bit-identical, the input not
-    written.  At 2^24 float32 the kernel, the plain version, the library
+    duplicates), and at 2^24 float32 and uint8 on the skewed and ordered
+    inputs of `_b10_skewed`: bit for bit, two launches bit-identical, the
+    input not written.  At 2^24 float32 the kernel (a lone call and on
+    the card alone, behind a sleep kernel; on the random and the all-equal
+    input), its kernels' device times, the plain version, the library
     yardstick torch.sort(stable=True) (never called by the port; CUB's
-    radix sort, which puts -0.0 before +0.0) and the bound (the block read
-    once and written once over 3.35 TB/s); the kernel's time at 2^24 for
-    every other element type too."""
+    radix sort, which puts -0.0 before +0.0), the bound (the block read
+    once and written once over 3.35 TB/s) and the one-sweep design's
+    floors (a pass reads and writes the block once; the histogram reads it
+    once more); the kernel's time at 2^24 for every other element type
+    too."""
     import numpy as np
     import torch
     from bof_tpu_torch.ops.sort_cuda import (SORT_KINDS, sort_block,
                                              sort_block_ref)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 10)
+
+    def check(label, bits, dt):
+        keep = bits.clone()
+        before = sort_block.launches
+        got = sort_block(bits, dt)
+        again = sort_block(bits, dt)
+        want = sort_block_ref(bits, dt)
+        torch.cuda.synchronize()
+        same = (torch.equal(got, want) and torch.equal(again, want)
+                and torch.equal(bits, keep)
+                and sort_block.launches == before + 2)
+        print(f"B10 {label}: bit-identical to the plain version, twice, "
+              f"input unchanged: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"B10 ({label}) disagrees with its plain "
+                                 "version")
+
     out = None
+    n = 1 << 24
     for dt in SORT_KINDS:
-        for n in (1 << 24, 1_000_003):
-            bits = _b10_bits(gen, dev, n, dt)
-            keep = bits.clone()
-            before = sort_block.launches
-            got = sort_block(bits, dt)
-            again = sort_block(bits, dt)
-            want = sort_block_ref(bits, dt)
-            torch.cuda.synchronize()
-            same = (torch.equal(got, want) and torch.equal(again, want)
-                    and torch.equal(bits, keep)
-                    and sort_block.launches == before + 2)
-            line = (f"B10 {dt.name} n {n}: bit-identical to the plain "
-                    f"version, twice, input unchanged: {same}")
-            if n == 1 << 24:
+        for m in (n, 1_000_003):
+            bits = _b10_bits(gen, dev, m, dt)
+            check(f"{dt.name} n {m}", bits, dt)
+            if m == n:
                 ms = _median_ms(lambda: sort_block(bits, dt), reps=3)
-                line += f"; kernel {ms:.4f} ms"
-            print(line, flush=True)
-            if not same:
-                raise AssertionError(f"B10 ({dt.name}, n {n}) disagrees with "
-                                     "its plain version")
-            if dt == np.float32 and n == 1 << 24:
+                print(f"B10 {dt.name} n {m}: kernel {ms:.4f} ms", flush=True)
+            if dt == np.float32 and m == n:
                 x = bits.view(torch.float32)
                 bound, by = _bound(2 * n * 4, 0.0, FP32_FLOPS)
+                pass_floor = 2 * n * 4 / HBM_BPS * 1e3
+                design_floor = (2 * 4 + 1) * n * 4 / HBM_BPS * 1e3
                 ms = _median_ms(lambda: sort_block(bits, dt))
+                ms_queued = _median_ms(lambda: sort_block(bits, dt),
+                                       inner=10, queued=True)
+                by_kernel = _device_ms_by_kernel(
+                    lambda: sort_block(bits, dt), SORT_KERNELS)
                 plain_ms = _median_ms(lambda: sort_block_ref(bits, dt))
                 library_ms = _median_ms(lambda: torch.sort(x, stable=True))
-                print(f"B10 (float32, 2^24): kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, library (torch.sort, stable) "
-                      f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
-                      f"the kernel at {100 * bound / ms:.1f} % of it), "
-                      "median of 5 samples of one call", flush=True)
+                library_queued = _median_ms(
+                    lambda: torch.sort(x, stable=True), inner=10,
+                    queued=True)
+                print(f"B10 (float32, 2^24): kernel {ms:.4f} ms a lone call, "
+                      f"{ms_queued:.4f} ms on the card alone (hist "
+                      f"{by_kernel['sort_hist_kernel']:.4f} ms + 4 passes "
+                      f"{by_kernel['sort_onesweep_kernel']:.4f} ms, "
+                      f"torch.profiler); plain {plain_ms:.4f} ms, library "
+                      f"(torch.sort, stable) {library_ms:.4f} ms, alone "
+                      f"{library_queued:.4f} ms; bound {bound:.4f} ms "
+                      f"({by}; the kernel at {100 * bound / ms_queued:.1f} "
+                      f"% of it alone), this design's floor {pass_floor:.4f}"
+                      f" ms a pass, {design_floor:.4f} ms in all (9 reads "
+                      "or writes of the block); medians of 5 samples",
+                      flush=True)
                 out = {"ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound,
-                       "bound_by": by, "max_abs_err": 0.0}
-            del bits, keep, got, again, want
+                       "bound_by": by, "max_abs_err": 0.0,
+                       "ms_queued": ms_queued,
+                       "library_ms_queued": library_queued,
+                       "pass_floor_ms": pass_floor,
+                       "design_floor_ms": design_floor,
+                       "hist_ms": by_kernel["sort_hist_kernel"],
+                       "onesweep_ms": by_kernel["sort_onesweep_kernel"]}
+            del bits
+    for dt in (np.float32, np.uint8):
+        for case in B10_SKEWED:
+            if dt != np.float32 and case in ("zeros_alternating",
+                                             "all_nans"):
+                continue
+            bits = _b10_skewed(gen, dev, n, dt, case)
+            check(f"{np.dtype(dt).name} n {n} {case}", bits, dt)
+            if case == "all_equal":
+                ms = _median_ms(lambda: sort_block(bits, dt))
+                ms_queued = _median_ms(lambda: sort_block(bits, dt),
+                                       inner=10, queued=True)
+                print(f"B10 {np.dtype(dt).name} n {n} all equal: kernel "
+                      f"{ms:.4f} ms a lone call, {ms_queued:.4f} ms on the "
+                      "card alone", flush=True)
+                if dt == np.float32:
+                    out["ms_all_equal"] = ms
+                    out["ms_all_equal_queued"] = ms_queued
+                    print(f"B10 (float32, 2^24) alone: random "
+                          f"{out['ms_queued']:.4f} ms, all equal "
+                          f"{ms_queued:.4f} ms", flush=True)
+            del bits
     torch.cuda.empty_cache()
     return {"sort_block": out}
 
@@ -2949,8 +3042,7 @@ def map_phase(dev, scratch, n=1 << 29) -> dict:
 ACC_KERNELS = ("acc_hist_kernel", "acc_scan_kernel", "acc_offsets_kernel",
                "acc_scatter_kernel", "acc_sum_kernel")
 ASSIGN_KERNELS = ("tf32_split_kernel", "lloyd_assign_kernel")
-SORT_KERNELS = ("sort_hist_kernel", "sort_scan_kernel",
-                "sort_scatter_kernel")
+SORT_KERNELS = ("sort_hist_kernel", "sort_onesweep_kernel")
 NO_SPILLS = ("accum_tf32_kernel", "accum_lowp_kernel",
              "accum_dgemm_kernel", "row_topk_kernel",
              "row_topk_reg_kernel") + ASSIGN_KERNELS + ACC_KERNELS \

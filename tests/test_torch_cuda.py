@@ -35,7 +35,7 @@ from bof_tpu_torch.ops.kmeans import (lloyd_accumulate,
                                       lloyd_accumulate_ref, lloyd_assign,
                                       lloyd_assign_ref,
                                       lloyd_assign_tf32x3_ref)
-from bof_tpu_torch.ops.sort_cuda import (SORT_KINDS, bits_of,
+from bof_tpu_torch.ops.sort_cuda import (SORT_KINDS, SORT_TILE, bits_of,
                                          canonical_keys, sort_block,
                                          sort_block_ref)
 from bof_tpu_torch.ops.topk_cuda import row_topk, row_topk_ref, topk_variant
@@ -1132,15 +1132,10 @@ def _b10_input(rng, n, dtype):
     return x
 
 
-@pytest.mark.parametrize("n", [1, 8191, 8193, 1_000_003])
-@pytest.mark.parametrize("dtype", sorted(SORT_KINDS, key=str))
-def test_sort_block_kernel_matches_plain(cuda_device, dtype, n):
-    """B10 against its plain version on the card, bit for bit, for each
-    element type, on tiles' edges and a ragged length; two launches give
-    the same bits, and the input is not written."""
-    rng = np.random.default_rng(n)
-    x = _b10_input(rng, n, dtype)
-    t = bits_of(x).to(cuda_device)
+def _b10_same_bits_each_time(t, dtype):
+    """B10 twice on the card tensor t: both give sort_block_ref's bits, the
+    input is not written, one launch a call, and the keys come out
+    non-decreasing."""
     keep = t.clone()
     before = sort_block.launches
     got = sort_block(t, dtype)
@@ -1152,6 +1147,74 @@ def test_sort_block_kernel_matches_plain(cuda_device, dtype, n):
     assert torch.equal(t, keep)
     keys = canonical_keys(got, dtype)
     assert bool((keys[1:] >= keys[:-1]).all())
+
+
+# B10's tile (csrc/sort.cu; tests/test_torch_sort_map.py holds it to the
+# source): one element, a tile's edges, 2^18 + 1 (35 tiles, the last
+# ragged, so a look-back walks over many) and a ragged length
+@pytest.mark.parametrize("n", [1, SORT_TILE - 1, SORT_TILE, SORT_TILE + 1,
+                               (1 << 18) + 1, 1_000_003])
+@pytest.mark.parametrize("dtype", sorted(SORT_KINDS, key=str))
+def test_sort_block_kernel_matches_plain(cuda_device, dtype, n):
+    """B10 against its plain version on the card, bit for bit, for each
+    element type, on tiles' edges and ragged lengths; two launches give
+    the same bits, and the input is not written."""
+    rng = np.random.default_rng(n)
+    x = _b10_input(rng, n, dtype)
+    _b10_same_bits_each_time(bits_of(x).to(cuda_device), dtype)
+
+
+def _b10_skewed(case, n, dtype, rng):
+    """n elements of numpy dtype `dtype` in one of B10's skewed or ordered
+    cases: all equal, +-0.0 alternating (floats), already sorted and
+    reverse sorted (in B10's order), two values alternating, all NaNs of
+    both signs with payloads (floats)."""
+    dt = np.dtype(dtype)
+    if case == "all_equal":
+        return np.full(n, True if dt == np.bool_ else (
+            1.5 if dt.kind == "f" else (-3 if dt.kind == "i" else 200)), dt)
+    if case == "zeros_alternating":
+        x = np.zeros(n, dt)
+        x[::2] = -0.0
+        return x
+    if case == "two_alternating":
+        a, b = ((True, False) if dt == np.bool_ else (2.5, -1.0)
+                if dt.kind == "f" else (5, -7) if dt.kind == "i" else
+                (250, 5))
+        x = np.full(n, a, dt)
+        x[1::2] = b
+        return x
+    if case == "all_nans":
+        ub, sign, exp, mant = ((np.uint32, 1 << 31, 0x7F800000, 0x7FFFFF)
+                               if dt.itemsize == 4 else
+                               (np.uint16, 1 << 15, 0x7C00, 0x3FF))
+        payload = rng.integers(1, mant + 1, n).astype(ub)
+        signs = (rng.random(n) < 0.5).astype(ub) * ub(sign)
+        return (signs | ub(exp) | payload).view(dt)
+    x = _b10_input(rng, n, dtype)
+    order = torch.sort(canonical_keys(bits_of(x), dt), stable=True).indices
+    x = x[order.numpy()]
+    return x if case == "sorted" else x[::-1].copy()
+
+
+B10_SKEWED = [(dt, case) for dt in sorted(SORT_KINDS, key=str)
+              for case in ("all_equal", "zeros_alternating", "sorted",
+                           "reverse", "two_alternating", "all_nans")
+              if dt.kind == "f" or case not in ("zeros_alternating",
+                                                "all_nans")]
+
+
+@pytest.mark.parametrize("dtype,case", B10_SKEWED)
+def test_sort_block_kernel_on_skewed_and_ordered_inputs(cuda_device, dtype,
+                                                        case):
+    """B10 bit for bit against its plain version where one digit holds a
+    whole tile or every tile (all equal; +-0.0 alternating, where only
+    stability decides the bits; all NaNs, which share one key), where the
+    input is already in order or in reverse, and where two values
+    alternate; twice, the input unwritten, the keys non-decreasing."""
+    rng = np.random.default_rng(len(case))
+    x = _b10_skewed(case, 1_000_003, dtype, rng)
+    _b10_same_bits_each_time(bits_of(x).to(cuda_device), dtype)
 
 
 def test_row_topk_masked_negative_nan_comes_back_canonical(cuda_device):

@@ -23,6 +23,9 @@ run in the port's bof_map, and a value fn captures is read on every call
 (bof_tpu's jit keeps its first trace's).
 """
 import dataclasses
+import importlib.util
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -485,6 +488,58 @@ def test_device_sort_is_bof_tpus_device_sort_bit_for_bit(ctxs, rng, dtype):
     _same_bits(got, stable)
     ref, got = _sort_both(ctxs, x, blk_elems=4000, descending=True)
     _same_bits(got, ref)
+
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_sort_max_elems_is_the_kernel_tile():
+    """sort_block's tile and limit are csrc/sort.cu's: the kernel indexes
+    with ints over whole tiles of SORT_THREADS * SORT_ITEMS elements, so it
+    takes at most 2^31 - SORT_TILE of them, and refuses more itself."""
+    with open(os.path.join(_ROOT, "bof_tpu_torch", "csrc", "sort.cu")) as f:
+        src = f.read()
+    threads = int(re.search(r"constexpr int SORT_THREADS = (\d+);",
+                            src).group(1))
+    items = int(re.search(r"constexpr int SORT_ITEMS = (\d+);", src).group(1))
+    assert "constexpr int SORT_TILE = SORT_THREADS * SORT_ITEMS;" in src
+    assert "if (n > (1LL << 31) - SORT_TILE)" in src
+    assert sort_cuda.SORT_TILE == threads * items
+    assert sort_cuda.SORT_MAX_ELEMS == 2 ** 31 - threads * items
+
+
+def test_b10_variant_tool_edits_apply_to_the_committed_kernel(tmp_path):
+    """tools/torch_b10_variants.py times textual variants of csrc/sort.cu
+    (the measurements PERF.md cites): each edit must still find its text
+    in the committed source, once; the first design comes from the file
+    it is given; ptxas's notes are read a kernel at a time."""
+    spec = importlib.util.spec_from_file_location(
+        "b10_variants", os.path.join(_ROOT, "tools", "torch_b10_variants.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with open(os.path.join(tool.CSRC, "sort.cu")) as f:
+        src = f.read()
+    first = tmp_path / "first.cu"
+    first.write_text("// the first design\n")
+    variants = tool._variants(src, str(first))
+    assert set(variants) == set(tool.NAMES)
+    assert variants["committed"] == src
+    assert variants[tool.FIRST] == "// the first design\n"
+    assert "constexpr int SORT_ITEMS = 12;" in variants["items_12"]
+    assert "constexpr int SORT_THREADS = 256;" in variants["threads_256"]
+    assert "__match_any_sync(FULL, d);" in variants["match_any"]
+    assert "st.release.gpu" in variants["release_acquire"]
+    assert len(set(variants.values())) == len(tool.NAMES)
+    log = ("ptxas info    : Compiling entry function "
+           "'_ZN12_GLOBAL__N_120sort_onesweep_kernelILi0EEEvPKjPjPKiPyPiii'"
+           " for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN...\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 56 registers, 25604 bytes smem\n")
+    assert tool._ptxas_notes(log) == [
+        "sort_onesweep_kernel<f32>: 56 registers, 25604 bytes smem; "
+        "0 bytes spill stores, 0 bytes spill loads"]
 
 
 def test_sort_device_mode_without_a_card_raises(tmp_path, rng):
