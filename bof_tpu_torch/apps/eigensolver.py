@@ -20,7 +20,10 @@ device buffer of exactly the band's rows, the band's transpose (built on
 the host) multiplies W, and each U partial comes down to a float64 U on the
 host.  The host algebra is bof_tpu's, line for line.
 
-`mesh=` (several cards) is not ported yet: ROADMAP A14.
+With `mesh=` (a `DeviceMesh`, parallel.make_mesh) every operator
+application runs row-sharded over the mesh's ranks: by default as two
+`csrmm_sharded` passes, or with one_pass=True as the one streaming pass
+with both halves sharded (`_apply_ata_one_pass_sharded`).
 """
 from __future__ import annotations
 
@@ -28,17 +31,13 @@ import time
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..context import get_context
 from ..core.flash_array import flash_empty, flash_free, mem_array
 from ..ops import device as dev
 from ..sparse import CsrFlashMatrix, csrcsc_scratch, csrmm
 from ..utils import LOG, METRICS, Timer
-
-
-def _no_mesh(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A14: "
-                               "multi-GPU)")
 
 
 def _apply_ata_one_pass(a: CsrFlashMatrix, v_np: np.ndarray,
@@ -91,38 +90,26 @@ def _apply_ata_one_pass(a: CsrFlashMatrix, v_np: np.ndarray,
     return U
 
 
-def _apply_ata_one_pass_device(a: CsrFlashMatrix, v_np: np.ndarray,
-                               ctx) -> np.ndarray:
-    """Device variant of the one-pass operator (bof_tpu's B9 step, with its
-    planner): stream nnz-budgeted row blocks, band each block's rows by
-    count (count-sorted ELL banding), transpose each band on the host
-    (block-local CSC; the block is already in DRAM) and band its columns
-    the same way.  Per band, W_sub = A_sub V and U_part = A_sub^T W_sub
-    are both K2 launches (`spmm_ell_block_dispatch` on exactly the band's
-    rows, each row's real slot count passed, so padding is never read),
-    W_sub stays on the card, and each U partial is downloaded and folded
-    into the float64 U on the host.  Host prep time goes to `eig.prep_s`,
-    the wait for A's blocks to `eig.disk_wait_s`."""
+def _one_pass_stream(a: CsrFlashMatrix, v_np: np.ndarray, ctx, device,
+                     fwd_product, t_product, finalize=None) -> np.ndarray:
+    """The one-pass device operator's loop (bof_tpu's B9 step with its
+    planner), shared by the one-card and the sharded operators: stream
+    nnz-budgeted row blocks, band each block's rows by count (count-sorted
+    ELL banding), transpose each band on the host (block-local CSC; the
+    block is already in DRAM) and band its columns the same way.  Per
+    band, `fwd_product(v_dev, ja, va, counts)` gives W_sub = A_sub V on
+    the card (a row a band row, padding rows past them ignored), and per
+    column band `t_product(w, cja, cva, ccounts)` gives (lo, hi, u) with u
+    the float64 host rows of A_sub^T W_sub for the band's columns
+    [lo, hi), folded into the float64 U on the host.  `finalize(U)` (the
+    identity by default) is the operator's value.  Host prep time goes to
+    `eig.prep_s`, the wait for A's blocks to `eig.disk_wait_s`."""
     import scipy.sparse as sps
 
     from ..sparse import spmm_device as sdev
     from ..sparse.csr import fill_row_blocks, stream_row_blocks
 
     cfg = ctx.config
-    device = dev.resolve_device(cfg.device)
-    impl = getattr(cfg, "sparse_device_impl", "auto")
-
-    def product(panel, ja, va, counts):
-        """One ELL product of exactly the rows of ja/va."""
-        t0 = time.perf_counter()
-        ja_d = dev.to_device(ja, device)
-        va_d = dev.to_device(va, device)
-        counts_d = dev.to_device(counts, device)
-        METRICS.add("eig.h2d_s", time.perf_counter() - t0)
-        METRICS.add("eig.h2d_bytes", ja.nbytes + va.nbytes + counts.nbytes)
-        return sdev.spmm_ell_block_dispatch(panel, ja_d, va_d, impl,
-                                            counts=counts_d)
-
     k = a.shape[1]
     ia_np = a.read_ia()
     blocks = fill_row_blocks(ia_np, cfg.max_nnzs)
@@ -153,11 +140,11 @@ def _apply_ata_one_pass_device(a: CsrFlashMatrix, v_np: np.ndarray,
                                           rows_sel, idx_dtype=fwd_idt,
                                           counts=counts)
             METRICS.add("eig.prep_s", time.perf_counter() - t0)
-            w = product(v_dev, ja_e[:n_sel], va_e[:n_sel],
-                        counts[rows_sel].astype(np.int32))
+            w = fwd_product(v_dev, ja_e[:n_sel], va_e[:n_sel],
+                            counts[rows_sel].astype(np.int32))
             # transpose the selected rows in DRAM; the CSC's row indices
-            # are positions within rows_sel, exactly W's rows (W has
-            # n_sel rows, so every index is below its height)
+            # are positions within rows_sel, exactly W's rows (W has at
+            # least n_sel rows, so every index is below its height)
             t0 = time.perf_counter()
             sub = blk_sp[rows_sel].tocsc()
             ccounts = np.diff(sub.indptr)
@@ -170,17 +157,124 @@ def _apply_ata_one_pass_device(a: CsrFlashMatrix, v_np: np.ndarray,
                     sub.indptr.astype(np.int64), sub.indices, sub.data,
                     cols_sel, idx_dtype=t_idt, counts=ccounts)
                 METRICS.add("eig.prep_s", time.perf_counter() - t0)
-                u_part = product(w, cja[:n_cols], cva[:n_cols],
-                                 ccounts[cols_sel].astype(np.int32))
-                t0 = time.perf_counter()
-                u_np = dev.from_device(u_part)  # waits for the band's K2s
-                METRICS.add("eig.d2h_s", time.perf_counter() - t0)
-                METRICS.add("eig.d2h_bytes", u_np.nbytes)
-                U[cols_sel] += u_np
+                lo, hi, u_np = t_product(w, cja[:n_cols], cva[:n_cols],
+                                         ccounts[cols_sel].astype(np.int32))
+                U[cols_sel[lo:hi]] += u_np
                 t0 = time.perf_counter()
         t_wait = time.perf_counter()
     METRICS.add("eig.op_applies")
-    return U
+    return U if finalize is None else finalize(U)
+
+
+def _ell_product(panel, ja, va, counts, device, impl):
+    """One ELL product (K2) of exactly the rows of ja/va on `device`."""
+    from ..sparse import spmm_device as sdev
+    t0 = time.perf_counter()
+    ja_d = dev.to_device(ja, device)
+    va_d = dev.to_device(va, device)
+    counts_d = dev.to_device(counts, device)
+    METRICS.add("eig.h2d_s", time.perf_counter() - t0)
+    METRICS.add("eig.h2d_bytes", ja.nbytes + va.nbytes + counts.nbytes)
+    return sdev.spmm_ell_block_dispatch(panel, ja_d, va_d, impl,
+                                        counts=counts_d)
+
+
+def _download_u(u_part) -> np.ndarray:
+    t0 = time.perf_counter()
+    u_np = dev.from_device(u_part)  # waits for the band's K2s
+    METRICS.add("eig.d2h_s", time.perf_counter() - t0)
+    METRICS.add("eig.d2h_bytes", u_np.nbytes)
+    return u_np
+
+
+def _apply_ata_one_pass_device(a: CsrFlashMatrix, v_np: np.ndarray,
+                               ctx) -> np.ndarray:
+    """Device variant of the one-pass operator on one card: per band,
+    W_sub = A_sub V and U_part = A_sub^T W_sub are both K2 launches on
+    exactly the band's rows (each row's real slot count passed, so padding
+    is never read); W_sub stays on the card, and each U partial is
+    downloaded and folded into the float64 U on the host."""
+    device = dev.resolve_device(ctx.config.device)
+    impl = getattr(ctx.config, "sparse_device_impl", "auto")
+
+    def fwd(v_dev, ja, va, counts):
+        return _ell_product(v_dev, ja, va, counts, device, impl)
+
+    def trans(w, cja, cva, ccounts):
+        u = _download_u(_ell_product(w, cja, cva, ccounts, device, impl))
+        return 0, len(u), u
+
+    return _one_pass_stream(a, v_np, ctx, device, fwd, trans)
+
+
+def _replicate_step(mesh):
+    """rows -> every rank's rows stacked, rank order: bof_tpu's reshard of
+    a row-sharded array to replicated, one all-gather."""
+    from ..parallel import mesh as pmesh
+    n_dev = pmesh.n_ranks(mesh)
+
+    def replicate(x_loc):
+        out = x_loc.new_empty((n_dev * x_loc.shape[0],) + x_loc.shape[1:])
+        pmesh.all_gather(out, x_loc.contiguous())
+        return out
+
+    return replicate
+
+
+def _apply_ata_one_pass_sharded(a: CsrFlashMatrix, v_np: np.ndarray,
+                                mesh, ctx) -> np.ndarray:
+    """One-pass U = A^T (A V) with both ELL halves row-sharded over the
+    mesh (`_one_pass_stream`'s loop): each band's rows, padded to a
+    multiple of the ranks, split into one contiguous run a rank, and K2
+    runs on the rank's run (the csrmm_sharded layout); one all-gather
+    makes the band's W whole on every rank; the transposed half splits
+    the band's columns the same way against that W, and each rank folds
+    its columns' float64 partials into its own U.  Every row of every
+    partial is computed by exactly one rank, so one float64 all-reduce at
+    the end sums the ranks' U into the operator's value, and A's bytes
+    still cross the disk once per rank and application.  fp64 values
+    raise (the kernels are fp32)."""
+    from ..parallel import mesh as pmesh
+    from ..parallel.csrmm_sp import sharded_spmm_step
+
+    if not dev.dtype_native_on_device(a.vals.dtype):
+        raise ValueError(
+            f"sharded one_pass cannot represent {a.vals.dtype} on the "
+            "card; use one_pass without a mesh (exact host path)")
+    device = pmesh.mesh_device(mesh)
+    step = sharded_spmm_step(mesh)
+    replicate = _replicate_step(mesh)
+
+    def own(ja, va, counts):
+        """This rank's run [lo, hi) of the band's rows, on the card."""
+        lo, hi, run = pmesh.row_run(mesh, len(counts))
+        t0 = time.perf_counter()
+        parts = [dev.to_device(x[lo:hi], device) for x in (ja, va, counts)]
+        METRICS.add("eig.h2d_s", time.perf_counter() - t0)
+        METRICS.add("eig.h2d_bytes", sum(x[lo:hi].nbytes
+                                         for x in (ja, va, counts)))
+        return lo, hi, run, parts
+
+    def fwd(v_dev, ja, va, counts):
+        lo, hi, run, (ja_d, va_d, cnt_d) = own(ja, va, counts)
+        w_loc = torch.zeros((run, v_dev.shape[1]), dtype=torch.float32,
+                            device=device)
+        if hi > lo:
+            w_loc[:hi - lo] = step(v_dev, ja_d, va_d, cnt_d)
+        return replicate(w_loc)  # the band's W, whole on every rank
+
+    def trans(w, cja, cva, ccounts):
+        lo, hi, _, (ja_d, va_d, cnt_d) = own(cja, cva, ccounts)
+        if hi <= lo:
+            return lo, lo, np.zeros((0, w.shape[1]), np.float64)
+        return lo, hi, _download_u(step(w, ja_d, va_d, cnt_d))
+
+    def finalize(U):
+        u_dev = dev.to_device(U, device)
+        pmesh.all_reduce(u_dev)
+        return dev.from_device(u_dev)
+
+    return _one_pass_stream(a, v_np, ctx, device, fwd, trans, finalize)
 
 
 def block_power_svd(a: CsrFlashMatrix, n_vals: int, n_iters: int = 12,
@@ -269,12 +363,17 @@ def block_lanczos_svd(a: CsrFlashMatrix, n_vals: int,
     `state_path` makes the restart loop checkpointable: each completed
     cycle atomically saves (rnd, panel, theta, Y) in bof_tpu's format,
     and a rerun resumes from the last finished cycle.  The file is
-    removed on convergence.  `mesh` (several cards) is not ported yet.
+    removed on convergence.
+
+    With `mesh` (parallel.make_mesh), every operator application runs
+    row-sharded over the mesh: by default the two csrmm passes
+    (`csrmm_sharded`, into W and U panels every rank sees), with an
+    explicit one_pass=True the single streaming pass with both ELL halves
+    sharded (`_apply_ata_one_pass_sharded`).  The host Krylov algebra is
+    unchanged and runs on every rank on the same (replicated) values.
 
     Returns (sigma (L,) descending, V (k, L))."""
     import os
-    if mesh is not None:
-        raise _no_mesh("block_lanczos_svd mesh=")
     ctx = ctx or a.ctx or get_context()
     if n_restarts < 1:
         raise ValueError("n_restarts must be >= 1")
@@ -286,32 +385,61 @@ def block_lanczos_svd(a: CsrFlashMatrix, n_vals: int,
     timer = Timer()
 
     if one_pass is None:
-        one_pass = True  # bof_tpu: mesh is None or several processes
+        one_pass = mesh is None  # bof_tpu's single-process rule
     at = W = None
-    if one_pass:
+    if one_pass and mesh is not None:
+        def apply_op(v_np: np.ndarray) -> np.ndarray:
+            return _apply_ata_one_pass_sharded(a, v_np, mesh, ctx)
+    elif one_pass:
         def apply_op(v_np: np.ndarray) -> np.ndarray:
             """B v = A^T (A v) in one streaming pass over A."""
             return _apply_ata_one_pass(a, v_np, ctx)
     else:
         at = csrcsc_scratch(a, ctx=ctx)  # A^T, materialized once
-        W = flash_empty((m, b), np.float32, ctx=ctx)
+        if mesh is not None:
+            from ..parallel import csrmm_sharded
+            from ..parallel.mesh import shared_empty, shared_free
+
+            def _empty(shape):
+                return shared_empty(shape, np.float32, mesh, ctx)
+
+            def _free(arr):
+                shared_free(arr, mesh)
+
+            def _spmm(mat, x, out):
+                csrmm_sharded(mat, x, out, mesh=mesh, ctx=ctx)
+        else:
+            def _empty(shape):
+                return flash_empty(shape, np.float32, ctx=ctx)
+
+            def _free(arr):
+                flash_free(arr)
+
+            def _spmm(mat, x, out):
+                csrmm(mat, x, out, ctx=ctx)
+        W = _empty((m, b))
 
         def apply_op(v_np: np.ndarray) -> np.ndarray:
             """B v = A^T (A v), (k, w) -> (k, w) float64, w <= b."""
             w = v_np.shape[1]
             Vp = mem_array((k, w), np.float32,
                            data=v_np.astype(np.float32), ctx=ctx)
-            Wp = (W if w == b
-                  else flash_empty((m, w), np.float32, ctx=ctx))
-            Up = mem_array((k, w), np.float32, ctx=ctx)
+            Wp = W if w == b else _empty((m, w))
+            # U is read whole after every rank wrote its rows: a shared
+            # panel under a mesh, host memory on one card
+            Up = (_empty((k, w)) if mesh is not None
+                  else mem_array((k, w), np.float32, ctx=ctx))
             try:
-                csrmm(a, Vp, Wp, ctx=ctx)
-                csrmm(at, Wp, Up, ctx=ctx)
+                _spmm(a, Vp, Wp)
+                _spmm(at, Wp, Up)
+                u = Up.read_all().astype(np.float64)
             finally:
                 if Wp is not W:
-                    flash_free(Wp)
+                    _free(Wp)
+                if mesh is not None:
+                    _free(Up)
             METRICS.add("eig.op_applies")
-            return Up.read_all().astype(np.float64)
+            return u
 
     def orthonormalize(R: np.ndarray, basis: Optional[np.ndarray]):
         """Two-pass block Gram-Schmidt against `basis`, then QR; random
@@ -403,7 +531,7 @@ def block_lanczos_svd(a: CsrFlashMatrix, n_vals: int,
         return sigma, ritz_Y.astype(np.float32)
     finally:
         if W is not None:
-            flash_free(W)
+            _free(W)
         if at is not None:
             for arr in (at.ia, at.ja, at.vals):
                 flash_free(arr)

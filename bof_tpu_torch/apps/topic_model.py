@@ -12,7 +12,11 @@ composition in its spectral form:
 
 Every heavy pass streams the CSR matrix; only (topics x vocab) and
 (docs x dim) panels are materialized (the latter on flash scratch).
-`mesh=` (several cards) is not ported yet: ROADMAP A14.
+With `mesh=` (a `DeviceMesh`, parallel.make_mesh) the projection runs
+as `csrmm_sharded` and the Lloyd steps data-parallel over the mesh's
+ranks (`kmeans_fit_sharded`, or `lloyds_iter_ooc_sharded` after a
+sampled fit); the P and label panels are then scratch files every rank
+sees, and every rank returns the same result.
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ def topic_model(a: CsrFlashMatrix, n_topics: int, proj_dim: int = 64,
     sample and assigns the full corpus in one streaming pass — the
     paper's ISLE runs use sample rate 0.1 (Table 5).  `state_path`
     checkpoints the clustering stage (kmeans_fit's state, bof_tpu's
-    format).  `mesh` (several cards) is not ported yet."""
+    format).  With `mesh`, the projection runs row-sharded and the Lloyd
+    steps data-parallel over the mesh (parallel/)."""
     ctx = ctx or a.ctx or get_context()
     docs, vocab = a.shape
     rng = np.random.default_rng(seed)
@@ -59,20 +64,27 @@ def topic_model_with_basis(a: CsrFlashMatrix, basis: np.ndarray,
                            ctx=None) -> Tuple[np.ndarray, np.ndarray]:
     """`topic_model` on a given (vocab, dim) projection basis.  Stage
     seconds go to METRICS as `topic.{project,cluster,assign,lift}_s`."""
-    if mesh is not None:
-        raise NotImplementedError("topic_model mesh= is not ported yet "
-                                  "(ROADMAP A14: multi-GPU)")
     ctx = ctx or a.ctx or get_context()
     docs, vocab = a.shape
     proj_dim = basis.shape[1]
     timer = Timer()
 
     R = mem_array((vocab, proj_dim), np.float32, data=basis, ctx=ctx)
-    P = flash_empty((docs, proj_dim), np.float32, ctx=ctx)
-    labels = flash_empty((docs,), np.int32, ctx=ctx)
+    if mesh is None:
+        P = flash_empty((docs, proj_dim), np.float32, ctx=ctx)
+        labels = flash_empty((docs,), np.int32, ctx=ctx)
+    else:
+        from ..parallel import (csrmm_sharded, kmeans_fit_sharded,
+                                lloyds_iter_ooc_sharded)
+        from ..parallel.mesh import shared_empty, shared_free
+        P = shared_empty((docs, proj_dim), np.float32, mesh, ctx)
+        labels = shared_empty((docs,), np.int32, mesh, ctx)
     try:
         t0 = time.perf_counter()
-        csrmm(a, R, P, ctx=ctx)                      # project docs
+        if mesh is not None:                         # project docs
+            csrmm_sharded(a, R, P, mesh=mesh, ctx=ctx)
+        else:
+            csrmm(a, R, P, ctx=ctx)
         METRICS.add("topic.project_s", time.perf_counter() - t0)
         LOG.debug("topic_model: projected in %.0f ms", timer.elapsed_ms())
         t0 = time.perf_counter()
@@ -92,9 +104,18 @@ def topic_model_with_basis(a: CsrFlashMatrix, basis: np.ndarray,
                                     state_path=state_path, ctx=ctx)
             t1 = time.perf_counter()
             METRICS.add("topic.cluster_s", t1 - t0)
-            _, inertia, _ = lloyds_iter(P, centers, labels_out=labels,
-                                        ctx=ctx)
+            if mesh is not None:
+                _, inertia, _ = lloyds_iter_ooc_sharded(
+                    P, centers, labels_out=labels, mesh=mesh, ctx=ctx)
+            else:
+                _, inertia, _ = lloyds_iter(P, centers, labels_out=labels,
+                                            ctx=ctx)
             METRICS.add("topic.assign_s", time.perf_counter() - t1)
+        elif mesh is not None:
+            _, inertia = kmeans_fit_sharded(P, n_topics, n_iters=n_iters,
+                                            seed=seed, labels_out=labels,
+                                            mesh=mesh, ctx=ctx)
+            METRICS.add("topic.cluster_s", time.perf_counter() - t0)
         else:
             _, inertia = kmeans_fit(P, n_topics, n_iters=n_iters,
                                     seed=seed, n_init=3,
@@ -116,8 +137,12 @@ def topic_model_with_basis(a: CsrFlashMatrix, basis: np.ndarray,
                   timer.elapsed_ms(), inertia)
         return tw.astype(np.float32), lab_np
     finally:
-        flash_free(P)
-        flash_free(labels)
+        if mesh is None:
+            flash_free(P)
+            flash_free(labels)
+        else:
+            shared_free(P, mesh)
+            shared_free(labels, mesh)
 
 
 def lift_topics(a: CsrFlashMatrix, labels_np: np.ndarray, n_topics: int,

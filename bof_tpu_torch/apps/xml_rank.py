@@ -21,7 +21,14 @@ Two execution paths, as in bof_tpu:
   label block, S_b = A @ W_b^T lands on flash scratch via one csrmm pass,
   then the running (docs x k) top-k panels merge per doc block on the host.
 
-`mesh=` (several cards) is not ported yet: ROADMAP A14.
+With `mesh=` (a `DeviceMesh`, parallel.make_mesh) the scoring pass runs
+row-sharded over the mesh's ranks: on the fused path each rank runs K2
+and B8 on its run of each band's rows and two all-gathers bring the
+band's (rows x k) scores and labels to every rank (nothing wider
+crosses); on the
+composition path `csrmm_sharded` writes the score panel.  Rank 0 merges
+the top-k panels, which every rank sees (shared scratch by default, or
+the caller's files), and a barrier ends the call.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import time
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..context import get_context
 from ..core.flash_array import FlashArray, flash_empty, flash_free
@@ -48,6 +56,30 @@ def _topk_step(b_panel, ja_ell, va_ell, counts, label_mask, k: int):
     from ..sparse.spmm_device import spmm_ell_block
     s = spmm_ell_block(b_panel, ja_ell, va_ell, counts=counts)
     return row_topk(s, label_mask, k)
+
+
+def _topk_band_sharded(mesh, b_panel, ja_loc, va_loc, counts_loc,
+                       label_mask, k: int, run: int):
+    """bof_tpu's `_topk_step_sharded` on one band: K2, then B8, on this
+    rank's run of the band's rows (`row_run`), then all-gathers of the
+    (run x k) scores and label offsets, so every rank holds the band's
+    results in row order (rows past the band are padding)."""
+    from ..parallel.mesh import all_gather, n_ranks
+    device = b_panel.device
+    vals = torch.full((run, k), -float("inf"), dtype=torch.float32,
+                      device=device)
+    idx = torch.zeros((run, k), dtype=torch.int32, device=device)
+    if ja_loc.shape[0]:
+        v, i = _topk_step(b_panel, ja_loc, va_loc, counts_loc, label_mask,
+                          k)
+        vals[:v.shape[0]] = v
+        idx[:i.shape[0]] = i
+    n_dev = n_ranks(mesh)
+    out_v = vals.new_empty((n_dev * run, k))
+    out_i = idx.new_empty((n_dev * run, k))
+    all_gather(out_v, vals)
+    all_gather(out_i, idx)
+    return out_v, out_i
 
 
 def _label_axis(w: FlashArray) -> Tuple[int, int]:
@@ -100,16 +132,24 @@ def _merge_topk(scores: FlashArray, labels: FlashArray, r0: int,
 
 def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
                     scores: FlashArray, labels: FlashArray,
-                    lb_max: int, ctx) -> None:
+                    lb_max: int, ctx, mesh=None) -> None:
     """Fused device path: per ELL band one K2 and one B8 launch, only
     (rows x k) crossing the link; no score panel beyond one band's
-    (rows x lb_max) buffer on the card.  Stage seconds and link bytes go
-    to METRICS under `xml_rank.*`."""
+    (rows x lb_max) buffer on the card.  With `mesh`, each rank takes its
+    run of the band's rows and all-gathers of the (rows x k) results give
+    every rank the band (`_topk_band_sharded`); rank 0 merges.
+    Stage seconds and link bytes go to METRICS under `xml_rank.*`."""
     from ..sparse import spmm_device as sdev
     from ..sparse.csr import fill_row_blocks, stream_row_blocks
 
     cfg = ctx.config
-    device = dev.resolve_device(cfg.device)
+    if mesh is None:
+        device = dev.resolve_device(cfg.device)
+        merges = True
+    else:
+        from ..parallel import mesh as pmesh
+        device = pmesh.mesh_device(mesh)
+        merges = pmesh.flat_rank(mesh) == 0
     docs, vocab = a.shape
     n_labels, _ = _label_axis(w)
     lb_max = max(lb_max, k)  # the top-k needs k <= the label axis
@@ -167,27 +207,35 @@ def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
                 cnt = counts[rows_sel].astype(np.int32)
                 t1 = time.perf_counter()
                 METRICS.add("xml_rank.prep_s", t1 - t0)
-                ja_d = dev.to_device(ja_ell[:n_sel], device)
+                lo, hi = 0, n_sel
+                if mesh is not None:
+                    lo, hi, run = pmesh.row_run(mesh, n_sel)
+                ja_d = dev.to_device(ja_ell[lo:hi], device)
                 va_d, _, va_bytes = sdev.upload_ell_vals(
-                    va_ell[:n_sel], device)
-                cnt_d = dev.to_device(cnt, device)
+                    va_ell[lo:hi], device)
+                cnt_d = dev.to_device(cnt[lo:hi], device)
                 t2 = time.perf_counter()
                 METRICS.add("xml_rank.h2d_s", t2 - t1)
                 METRICS.add("xml_rank.h2d_bytes",
-                            ja_d.nbytes + va_bytes + cnt.nbytes)
-                vals, idx = _topk_step(b_panel, ja_d, va_d, cnt_d, mask_dev,
-                                       k)
+                            ja_d.nbytes + va_bytes + cnt_d.nbytes)
+                if mesh is None:
+                    vals, idx = _topk_step(b_panel, ja_d, va_d, cnt_d,
+                                           mask_dev, k)
+                else:
+                    vals, idx = _topk_band_sharded(
+                        mesh, b_panel, ja_d, va_d, cnt_d, mask_dev, k, run)
                 t3 = time.perf_counter()
                 METRICS.add("xml_rank.dispatch_s", t3 - t2)
-                vals_np = dev.from_device(vals)  # waits for K2 and B8
-                idx_np = dev.from_device(idx)
+                vals_np = dev.from_device(vals)[:n_sel]  # waits for K2, B8
+                idx_np = dev.from_device(idx)[:n_sel]
                 t0 = time.perf_counter()
                 METRICS.add("xml_rank.d2h_s", t0 - t3)
                 METRICS.add("xml_rank.d2h_bytes",
                             vals_np.nbytes + idx_np.nbytes)
                 s_stage[rows_sel] = vals_np
                 l_stage[rows_sel] = idx_np + b0
-            _merge_topk(scores, labels, r, s_stage, l_stage, k, first)
+            if merges:
+                _merge_topk(scores, labels, r, s_stage, l_stage, k, first)
             t_wait = time.perf_counter()
             METRICS.add("xml_rank.merge_s", t_wait - t0)
         del b_panel
@@ -208,10 +256,10 @@ def xml_rank(a: CsrFlashMatrix, w: FlashArray, k: int,
     `fused` selects the fused K2 + B8 path (default: on, unless the
     link/problem heuristic picks host sparse compute — the same placement
     logic as csrmm — or the W panel would not fit a third of the device
-    budget).  `mesh` (several cards) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError("xml_rank mesh= is not ported yet "
-                                  "(ROADMAP A14: multi-GPU)")
+    budget).  With `mesh` (parallel.make_mesh) the scoring pass runs
+    row-sharded over the mesh, fused by default; in a world of several
+    ranks, rank 0 writes the output panels, which must then be files
+    every rank sees (the default scratch panels are)."""
     ctx = ctx or a.ctx or w.ctx or get_context()
     cfg = ctx.config
     docs, vocab = a.shape
@@ -228,8 +276,16 @@ def xml_rank(a: CsrFlashMatrix, w: FlashArray, k: int,
     lb_max = max(lb_max, 1)
     db = doc_blk or max(1, min(docs, (32 << 20) // max(4 * (lb_max + k), 1)))
 
-    scores = scores_out or flash_empty((docs, k), np.float32, ctx=ctx)
-    labels = labels_out or flash_empty((docs, k), np.int32, ctx=ctx)
+    if mesh is None:
+        def _empty(shape, dtype):
+            return flash_empty(shape, dtype, ctx=ctx)
+    else:
+        from ..parallel import mesh as pmesh
+
+        def _empty(shape, dtype):
+            return pmesh.shared_empty(shape, dtype, mesh, ctx)
+    scores = scores_out or _empty((docs, k), np.float32)
+    labels = labels_out or _empty((docs, k), np.int32)
     if scores.shape != (docs, k) or labels.shape != (docs, k):
         raise ValueError("output panels must be (docs, k)")
 
@@ -240,17 +296,21 @@ def xml_rank(a: CsrFlashMatrix, w: FlashArray, k: int,
         # at huge vocab fall back to the composition path, whose csrmm
         # K-splits oversized panels
         fused = (vocab * max(lb_max, k) * 4 <= cfg.hbm_budget // 3
-                 and _resolve_sparse_compute(cfg, docs, vocab, lb_max,
-                                             a.nnz) != "host")
+                 and (mesh is not None
+                      or _resolve_sparse_compute(cfg, docs, vocab, lb_max,
+                                                 a.nnz) != "host"))
     if fused:
-        _xml_rank_fused(a, w, k, scores, labels, lb_max, ctx)
+        _xml_rank_fused(a, w, k, scores, labels, lb_max, ctx, mesh=mesh)
         scores.store.flush()
         labels.store.flush()
+        if mesh is not None and pmesh.n_ranks(mesh) > 1:
+            pmesh.barrier()  # rank 0's panels are on disk
         LOG.debug("xml_rank[fused]: %d docs x %d labels top-%d in %.0f ms",
                   docs, n_labels, k, timer.elapsed_ms())
         return scores, labels
 
-    s_blk = flash_empty((docs, lb_max), np.float32, ctx=ctx)
+    s_blk = _empty((docs, lb_max), np.float32)
+    merges = mesh is None or pmesh.flat_rank(mesh) == 0
     try:
         for b0 in range(0, n_labels, lb_max):
             lb = min(lb_max, n_labels - b0)
@@ -258,8 +318,13 @@ def xml_rank(a: CsrFlashMatrix, w: FlashArray, k: int,
             s_view = (s_blk if lb == lb_max else
                       FlashArray(s_blk.store, (docs, lb), np.float32, "R",
                                  ld=lb_max, ctx=ctx))
-            csrmm(a, wt, s_view, ctx=ctx)  # S_b = A @ W_b^T, out of core
-
+            if mesh is not None:  # S_b = A @ W_b^T, row-sharded
+                from ..parallel import csrmm_sharded
+                csrmm_sharded(a, wt, s_view, mesh=mesh, ctx=ctx)
+            else:  # one card's out-of-core pass
+                csrmm(a, wt, s_view, ctx=ctx)
+            if not merges:
+                continue
             first = b0 == 0
             lab_ids = np.arange(b0, b0 + lb, dtype=np.int32)
             for r0 in range(0, docs, db):
@@ -274,7 +339,10 @@ def xml_rank(a: CsrFlashMatrix, w: FlashArray, k: int,
                   timer.elapsed_ms(), -(-n_labels // lb_max))
         return scores, labels
     finally:
-        flash_free(s_blk)
+        if mesh is None:
+            flash_free(s_blk)
+        else:
+            pmesh.shared_free(s_blk, mesh)  # after every rank's merge
 
 
 def xml_rank_in_mem(a_sp, w_np: np.ndarray, k: int

@@ -15,6 +15,11 @@
 // gemm_blk_size the pipeline uses); a larger K is refused.  The epilogue
 // rounds twice, __fadd_rn(c, __fmul_rn(scale, float(acc))), as XLA's
 // multiply then add do, so the plain version can match it bit for bit.
+// Its int32 output ('s8' into an int32 C, bof_tpu/parallel/mesh.py:109
+// sharded_accum_step_q's per-device partial) stores C += the exact int32
+// sum with no rescale, so the partials of several cards can be summed
+// exactly before the one rescale: the same kernel body, only the
+// epilogue's type and arithmetic differ.
 //
 // Layouts are K1's eight storage-major ones: A (M,K) or (K,M)
 // with a_km, B (K,N) or (N,K) with b_nk, C (M,N) or (N,M) with c_nm.
@@ -188,6 +193,23 @@ __device__ __forceinline__ float epilogue(float scale, int acc, float c) {
   return __fadd_rn(c, __fmul_rn(scale, __int2float_rn(acc)));
 }
 
+// the int32 output: C += acc, exact while the sum fits in int32
+__device__ __forceinline__ int epilogue(float, int acc, int c) {
+  return c + acc;
+}
+
+// one thread's two adjacent C elements, as one 8-byte access
+template <typename Out>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<int> {
+  using type = int2;
+};
+
 // --------------------------------------------------------------- kernels
 
 // The pack pass for one operand of `rows` x K logical elements (rows of C
@@ -253,12 +275,13 @@ pack_kernel(const T* __restrict__ src, long long lds, T* __restrict__ dst,
 }
 
 // D (M x N, row-major, ldd) += alpha * P Q^T, where P (M x K) and Q (N x K)
-// are K-major and read through tensor maps in KIND's element type.
-template <int KIND>
+// are K-major and read through tensor maps in KIND's element type; D is
+// fp32, or int32 for S8's exact sum (alpha unused).
+template <int KIND, typename Out>
 __global__ void __launch_bounds__(THREADS, 1)
 accum_lowp_kernel(const __grid_constant__ CUtensorMap p_map,
                   const __grid_constant__ CUtensorMap q_map,
-                  float* __restrict__ d, long long ldd, float alpha, int M,
+                  Out* __restrict__ d, long long ldd, float alpha, int M,
                   int N, int K) {
   using Acc = typename Traits<KIND>::Acc;
   constexpr int KE = KB / sizeof(typename Traits<KIND>::Elem);  // K a stage
@@ -356,21 +379,22 @@ accum_lowp_kernel(const __grid_constant__ CUtensorMap p_map,
       ldd % 2 == 0 && reinterpret_cast<uintptr_t>(d) % 8 == 0;
 #pragma unroll
   for (int j0 = 0; j0 < BN / 8; j0 += EPI_CHUNKS) {
-    float cv[2][EPI_CHUNKS][2];
+    using P2 = typename Pair<Out>::type;
+    Out cv[2][EPI_CHUNKS][2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = row0 + 8 * i;
-      const float* drow = d + (long long)min(row, M - 1) * ldd;
+      const Out* drow = d + (long long)min(row, M - 1) * ldd;
 #pragma unroll
       for (int jj = 0; jj < EPI_CHUNKS; ++jj) {
         const int col = col0 + 8 * (j0 + jj);
         if (row < M && pairs && col + 1 < N) {
-          const float2 v = *reinterpret_cast<const float2*>(drow + col);
+          const P2 v = *reinterpret_cast<const P2*>(drow + col);
           cv[i][jj][0] = v.x;
           cv[i][jj][1] = v.y;
         } else {
-          cv[i][jj][0] = row < M && col < N ? drow[col] : 0.f;
-          cv[i][jj][1] = row < M && col + 1 < N ? drow[col + 1] : 0.f;
+          cv[i][jj][0] = row < M && col < N ? drow[col] : Out(0);
+          cv[i][jj][1] = row < M && col + 1 < N ? drow[col + 1] : Out(0);
         }
       }
     }
@@ -378,15 +402,17 @@ accum_lowp_kernel(const __grid_constant__ CUtensorMap p_map,
     for (int i = 0; i < 2; ++i) {
       const int row = row0 + 8 * i;
       if (row >= M) continue;
-      float* drow = d + (long long)row * ldd;
+      Out* drow = d + (long long)row * ldd;
 #pragma unroll
       for (int jj = 0; jj < EPI_CHUNKS; ++jj) {
         const int j = j0 + jj, col = col0 + 8 * j;
-        const float v0 = epilogue(alpha, acc[4 * j + 2 * i], cv[i][jj][0]);
-        const float v1 =
-            epilogue(alpha, acc[4 * j + 2 * i + 1], cv[i][jj][1]);
+        const Out v0 = epilogue(alpha, acc[4 * j + 2 * i], cv[i][jj][0]);
+        const Out v1 = epilogue(alpha, acc[4 * j + 2 * i + 1], cv[i][jj][1]);
         if (pairs && col + 1 < N) {
-          *reinterpret_cast<float2*>(drow + col) = make_float2(v0, v1);
+          P2 v;
+          v.x = v0;
+          v.y = v1;
+          *reinterpret_cast<P2*>(drow + col) = v;
         } else {
           if (col < N) drow[col] = v0;
           if (col + 1 < N) drow[col + 1] = v1;
@@ -450,8 +476,8 @@ bool kmajor_map(CUtensorMap* map, const void* base, int rows, int K,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int KIND>
-int launch(float* c, const void* a, const void* b, float alpha, int M, int N,
+template <int KIND, typename Out>
+int launch(Out* c, const void* a, const void* b, float alpha, int M, int N,
            int K, bool a_kmajor, bool b_kmajor, bool c_nm, long long lda,
            long long ldb, long long ldc, void* a_ws, void* b_ws,
            long long ldw, cudaStream_t s) {
@@ -474,12 +500,12 @@ int launch(float* c, const void* a, const void* b, float alpha, int M, int N,
       !kmajor_map<KIND>(&qm, q, rows_q, K, ldq, BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t rc = cudaFuncSetAttribute(
-      accum_lowp_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM);
+      accum_lowp_kernel<KIND, Out>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const long long tiles =
       (long long)((rows_p + BM - 1) / BM) * ((rows_q + BN - 1) / BN);
-  accum_lowp_kernel<KIND><<<(unsigned)tiles, THREADS, SMEM, s>>>(
+  accum_lowp_kernel<KIND, Out><<<(unsigned)tiles, THREADS, SMEM, s>>>(
       pm, qm, c, ldc, alpha, rows_p, rows_q, K);
   return static_cast<int>(cudaGetLastError());
 }
@@ -517,4 +543,20 @@ extern "C" int bof_accum_matmul_lowp(float* c, const void* a, const void* b,
                             c_nm != 0, lda, ldb, ldc, a_ws, b_ws, ldw, s)
              : launch<S8>(c, a, b, alpha, M, N, K, a_kmajor, b_kmajor,
                           c_nm != 0, lda, ldb, ldc, a_ws, b_ws, ldw, s);
+}
+
+// 's8' with an int32 C: C_storage += op(A) op(B), the int8 products summed
+// exactly in int32 and added to C in int32 (exact while the result fits).
+// Arguments as bof_accum_matmul_lowp's, without alpha and kind.
+extern "C" int bof_accum_matmul_s8_i32(int* c, const void* a, const void* b,
+                                       int M, int N, int K, int a_km,
+                                       int b_nk, int c_nm, long long lda,
+                                       long long ldb, long long ldc,
+                                       void* a_ws, void* b_ws, long long ldw,
+                                       void* stream) {
+  if (K > (1 << 17)) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0 || N <= 0 || K <= 0) return 0;  // nothing to add
+  return launch<S8>(c, a, b, 1.f, M, N, K, !a_km, b_nk != 0, c_nm != 0, lda,
+                    ldb, ldc, a_ws, b_ws, ldw,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -37,12 +37,18 @@ def main(argv=None) -> float:
                         "parity: fp64 runs the exact host block products)")
     p.add_argument("--create-c", action="store_true")
     p.add_argument("--sharded", action="store_true",
-                   help="row-shard the block products over several cards: "
-                        "not ported yet (ROADMAP A14), raises")
+                   help="row-shard the block products over every rank "
+                        "('N' only): torchrun --nproc-per-node N for N "
+                        "cards, one rank without torchrun")
     args = p.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("csrmm --sharded is not ported yet "
-                                  "(ROADMAP A14: multi-GPU)")
+    if args.sharded and args.ta == "T":
+        p.error("--sharded supports transa='N' only")
+    if args.sharded and args.dtype == "float64":
+        p.error("--sharded is device-only and cannot represent float64 "
+                "exactly; use the single-host path")
+    if args.sharded and args.pmem:
+        p.error("--sharded writes each rank's C rows into C's file; --pmem "
+                "keeps C in one process's memory")
     ctx = make_context(args)
     try:
         m, k, n = args.m, args.k, args.n
@@ -70,8 +76,13 @@ def main(argv=None) -> float:
                    nbytes=(A.nnz * float(nnz_bytes)
                            + (b_rows + c_rows) * n * float(dt.itemsize))) \
                 as t:
-            csrmm(A, B, C, alpha=args.alpha, beta=args.beta,
-                  transa=args.ta, ctx=ctx)
+            if args.sharded:
+                from ..parallel import csrmm_sharded, make_mesh
+                csrmm_sharded(A, B, C, alpha=args.alpha, beta=args.beta,
+                              mesh=make_mesh(device=args.device), ctx=ctx)
+            else:
+                csrmm(A, B, C, alpha=args.alpha, beta=args.beta,
+                      transa=args.ta, ctx=ctx)
         if args.pmem:
             out = C.read_all()
             if args.order_b == "C":  # file layout follows --order-b

@@ -30,28 +30,32 @@ def main(argv=None):
                    help="lanczos checkpoint file: interrupted runs resume "
                         "from the last completed restart cycle")
     p.add_argument("--sharded", action="store_true",
-                   help="every operator application over several cards: "
-                        "not ported yet (ROADMAP A14), raises")
+                   help="shard every operator application over every rank "
+                        "(uses the csrmm composition): torchrun "
+                        "--nproc-per-node N for N cards, one rank without "
+                        "torchrun")
     p.add_argument("--two-pass", action="store_true",
                    help="apply A^T A as csrcsc + two csrmm passes (the "
                         "reference's 'T' dispatch structure) instead of "
                         "the default single streaming pass over A")
     args = p.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("eigensolver --sharded is not ported yet "
-                                  "(ROADMAP A14: multi-GPU)")
     ctx = make_context(args)
     try:
         A = CsrFlashMatrix.map_files(args.a_prefix, (args.m, args.k),
                                      ctx=ctx)
-        one_pass = not args.two_pass
         with Timed("eigensolver",
                    flops=4.0 * A.nnz * args.n_vals * args.iters):
+            mesh = None
+            if args.sharded:
+                from ..parallel import make_mesh
+                mesh = make_mesh(device=args.device)
+            one_pass = False if args.sharded else not args.two_pass
             if args.solver == "lanczos":
                 sigma, v = block_lanczos_svd(A, args.n_vals,
                                              n_restarts=args.iters,
                                              state_path=args.state,
-                                             one_pass=one_pass, ctx=ctx)
+                                             one_pass=one_pass, mesh=mesh,
+                                             ctx=ctx)
             else:
                 sigma, v = block_power_svd(A, args.n_vals,
                                            n_iters=args.iters,

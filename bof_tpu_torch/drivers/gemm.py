@@ -2,7 +2,12 @@
 
     python -m bof_tpu_torch.drivers.gemm A.bin B.bin C.bin m n k \
         [--ta N|T] [--tb N|T] [--order R|C] [--alpha 1] [--beta 0] \
-        [--blk 8192] [--device cuda|cpu]
+        [--blk 8192] [--device cuda|cpu] [--sharded]
+
+With --sharded every superblock is sharded over the ranks of a mesh
+(parallel.gemm_sharded): `torchrun --nproc-per-node N -m
+bof_tpu_torch.drivers.gemm ... --sharded` for N cards, one rank without
+torchrun.
 """
 from __future__ import annotations
 
@@ -42,11 +47,19 @@ def main(argv=None) -> float:
                    choices=["float32", "float64"],
                    help="float64 runs K1's 'f64' variant (DMMA) on the "
                         "card (FP_DOUBLE_PRECISION parity)")
+    p.add_argument("--sharded", action="store_true",
+                   help="shard every superblock over the ranks of a mesh "
+                        "(torch.distributed reduce-scatter; torchrun for "
+                        "several cards)")
     p.add_argument("--resume-journal", default=None,
                    help="journal file for superblock-granular "
                         "kill-and-resume; requires beta=0; removed on "
                         "completion")
     args = p.parse_args(argv)
+    if args.resume_journal and args.sharded:
+        # argument validation must precede map_array: --create-c would
+        # otherwise create/truncate the C file before the usage error
+        p.error("--resume-journal applies to the single-card path")
     ctx = make_context(args)
     m, n, k = args.m, args.n, args.k
     dt = np.dtype(args.dtype)
@@ -74,9 +87,15 @@ def main(argv=None) -> float:
             C = map_array(args.c_path, (m, n), dt, args.order,
                           create=args.create_c, ctx=ctx, ld=args.ldc)
         with Timed("gemm", flops=2.0 * m * n * k) as t:
-            gemm(A, B, C, alpha=args.alpha, beta=args.beta,
-                 transa=args.ta, transb=args.tb, blk=args.blk, ctx=ctx,
-                 resume_journal=args.resume_journal)
+            if args.sharded:
+                from ..parallel import gemm_sharded, make_mesh
+                gemm_sharded(A, B, C, alpha=args.alpha, beta=args.beta,
+                             transa=args.ta, transb=args.tb, blk=args.blk,
+                             mesh=make_mesh(device=args.device), ctx=ctx)
+            else:
+                gemm(A, B, C, alpha=args.alpha, beta=args.beta,
+                     transa=args.ta, transb=args.tb, blk=args.blk, ctx=ctx,
+                     resume_journal=args.resume_journal)
         print(f"checksum "
               f"{checksum(C.read_block(0, min(m, 128), 0, min(n, 128)))}")
     finally:

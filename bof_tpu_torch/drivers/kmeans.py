@@ -26,8 +26,9 @@ def main(argv=None):
     p.add_argument("--labels-out", default=None)
     p.add_argument("--in-mem", action="store_true")
     p.add_argument("--sharded", action="store_true",
-                   help="data-parallel Lloyd over several cards: not "
-                        "ported yet (ROADMAP A14), raises")
+                   help="data-parallel Lloyd over every rank: torchrun "
+                        "--nproc-per-node N for N cards, one rank without "
+                        "torchrun")
     p.add_argument("--state", default=None,
                    help="checkpoint file: interrupted fits resume from "
                         "the last completed iteration")
@@ -36,11 +37,11 @@ def main(argv=None):
                    help="point dtype (FP_DOUBLE_PRECISION parity: fp64 "
                         "runs the exact host Lloyd step, ops/kmeans.py)")
     args = p.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("kmeans --sharded is not ported yet "
-                                  "(ROADMAP A14: multi-GPU)")
     n, d, k = args.n, args.d, args.k
     dt = np.dtype(args.dtype)
+    if args.sharded and args.dtype == "float64":
+        p.error("--sharded is device-only and cannot represent float64 "
+                "exactly; use the single-host path")
     if args.in_mem:
         pts = np.fromfile(args.points_path, dt, count=n * d).reshape(n, d)
         rng = np.random.default_rng(args.seed)
@@ -57,9 +58,16 @@ def main(argv=None):
             labels = map_array(args.labels_out, (n,), np.int32, create=True,
                                ctx=ctx)
         with Timed("kmeans", flops=2.0 * n * d * k * args.iters):
-            centers, inertia = kmeans_fit(P, k, n_iters=args.iters,
-                                          seed=args.seed, labels_out=labels,
-                                          state_path=args.state, ctx=ctx)
+            if args.sharded:
+                from ..parallel import kmeans_fit_sharded, make_mesh
+                centers, inertia = kmeans_fit_sharded(
+                    P, k, n_iters=args.iters, seed=args.seed,
+                    labels_out=labels, mesh=make_mesh(device=args.device),
+                    ctx=ctx)
+            else:
+                centers, inertia = kmeans_fit(
+                    P, k, n_iters=args.iters, seed=args.seed,
+                    labels_out=labels, state_path=args.state, ctx=ctx)
         print(f"inertia {inertia}")
     finally:
         ctx.destroy()

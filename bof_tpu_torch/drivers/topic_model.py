@@ -28,28 +28,32 @@ def main(argv=None):
     p.add_argument("--state", default=None,
                    help="checkpoint file for the clustering stage")
     p.add_argument("--sharded", action="store_true",
-                   help="projection + Lloyd steps over several cards: not "
-                        "ported yet (ROADMAP A14), raises")
+                   help="projection + Lloyd steps over every rank: "
+                        "torchrun --nproc-per-node N for N cards, one rank "
+                        "without torchrun")
     p.add_argument("--out", default=None,
                    help="write (n_topics x vocab) fp32 topic-word matrix")
     args = p.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("topic_model --sharded is not ported yet "
-                                  "(ROADMAP A14: multi-GPU)")
     ctx = make_context(args)
     try:
         A = CsrFlashMatrix.map_files(args.a_prefix, (args.docs, args.vocab),
                                      ctx=ctx)
+        mesh = None
+        if args.sharded:
+            from ..parallel import make_mesh
+            mesh = make_mesh(device=args.device)
         with Timed("topic_model", flops=2.0 * A.nnz * args.proj_dim
                    * (args.iters + 2)):
             tw, labels = topic_model(A, args.n_topics,
                                      proj_dim=args.proj_dim,
                                      n_iters=args.iters,
                                      sample_rate=args.sample_rate,
-                                     state_path=args.state, ctx=ctx)
+                                     state_path=args.state, mesh=mesh,
+                                     ctx=ctx)
         print(f"topics {tw.shape} label-histogram "
               f"{np.bincount(labels, minlength=args.n_topics).tolist()}")
-        if args.out:
+        # every rank holds the same result; one writes it
+        if args.out and (mesh is None or mesh.get_rank() == 0):
             tw.tofile(args.out)
     finally:
         ctx.destroy()

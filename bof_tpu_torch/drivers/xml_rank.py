@@ -31,15 +31,13 @@ def main(argv=None):
                    help="write (docs x k) int32 top-k label ids")
     p.add_argument("--label-blk", type=int, default=None)
     p.add_argument("--sharded", action="store_true",
-                   help="row-shard the scoring pass over several cards: "
-                        "not ported yet (ROADMAP A14), raises")
+                   help="row-shard the scoring pass over every rank: "
+                        "torchrun --nproc-per-node N for N cards, one rank "
+                        "without torchrun")
     p.add_argument("--fused", choices=["auto", "on", "off"], default="auto",
                    help="fused device product + top-k path (auto: same "
                         "placement heuristic as csrmm)")
     args = p.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("xml_rank --sharded is not ported yet "
-                                  "(ROADMAP A14: multi-GPU)")
     ctx = make_context(args)
     try:
         A = CsrFlashMatrix.map_files(args.a_prefix, (args.docs, args.vocab),
@@ -53,9 +51,14 @@ def main(argv=None):
                            create=True, ctx=ctx)
                  if args.labels else None)
         fused = {"auto": None, "on": True, "off": False}[args.fused]
+        mesh = None
+        if args.sharded:
+            from ..parallel import make_mesh
+            mesh = make_mesh(device=args.device)
         with Timed("xml_rank", flops=2.0 * A.nnz * args.n_labels):
             s, l = xml_rank(A, W, args.k, scores_out=s_out, labels_out=l_out,
-                            label_blk=args.label_blk, fused=fused, ctx=ctx)
+                            label_blk=args.label_blk, fused=fused, mesh=mesh,
+                            ctx=ctx)
         s_np, l_np = s.read_all(), l.read_all()
         head = min(4, args.docs)
         print(f"top-{args.k} of {args.n_labels} labels for {args.docs} docs;"

@@ -268,7 +268,21 @@ def quantize_i8_numpy(src: np.ndarray):
     reciprocal): the out-of-range integer, clamped to -127.  (bof_tpu's
     own numpy fallback casts those to 0 instead.)"""
     src = np.ascontiguousarray(src, np.float32)
-    amax = np.float32(np.fmax.reduce(np.abs(src), axis=None, initial=0.0))
+    return quantize_i8_with_amax(src, quantize_amax(src))
+
+
+def quantize_amax(src: np.ndarray) -> float:
+    """max|x| of a tile (or part of one) as `quantize_i8` takes it: NaN
+    ignored, 0 for an empty array."""
+    return float(np.fmax.reduce(np.abs(src), axis=None, initial=0.0))
+
+
+def quantize_i8_with_amax(src: np.ndarray, amax: float):
+    """`quantize_i8_numpy`'s bits for a part of a tile whose whole
+    max|x| (NaN ignored) is `amax`: the shard of a tile spread over
+    several ranks quantizes with the tile's one scale."""
+    src = np.ascontiguousarray(src, np.float32)
+    amax = np.float32(amax)
     if amax == 0.0:
         amax = np.float32(1.0)
     scale = amax / np.float32(127.0)

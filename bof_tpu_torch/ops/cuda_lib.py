@@ -39,6 +39,8 @@ _ENTRIES = {
                               _LL, _LL, _LL, _I, _P, _P, _P, _P, _LL, _P],
     "bof_accum_matmul_lowp": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
                               _LL, _LL, _LL, _I, _P, _P, _LL, _P],
+    "bof_accum_matmul_s8_i32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _LL,
+                                _LL, _LL, _P, _P, _LL, _P],
     "bof_accum_matmul_f64": [_P, _P, _P, _D, _I, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _P],
     "bof_lloyd_assign": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,

@@ -20,7 +20,12 @@ On the transfer modes' operands (FlashConfig.transfer_dtype), C fp32:
 - 's8' (the same kernel body): int8 A and B summed exactly in int32, then
   C += alpha * float(sum) in two roundings (bof_tpu's `accum_step_q`,
   alpha = its scale); K at most `K1_S8_MAX_K`.
-Both read K-major operands only: a pack pass in the same file first
+- 's8_i32' (the same kernel body, an int32 C): C += the exact int32 sum
+  of the int8 products, no rescale (alpha must be 1), for the sharded
+  step whose partials are summed across cards before the one rescale
+  (bof_tpu's `parallel/mesh.py:sharded_accum_step_q`); K at most
+  `K1_S8_MAX_K`, exact while the result fits in int32.
+All three read K-major operands only: a pack pass in the same file first
 writes a K-major copy of each operand `k1_packs` names, counted in
 `accum_matmul.lowp_packs`.
 On float64 C, A and B (bof_tpu's FP_DOUBLE_PRECISION gemm):
@@ -41,7 +46,7 @@ from .cuda_lib import build
 # matmul precision -> tensor-core passes; each tier keeps at least the bits
 # the TPU's tier keeps ('highest': 6 bf16 passes; 'default': 1 bf16 pass)
 K1_PASSES = {"highest": 3, "high": 3, "default": 1}
-K1_VARIANTS = ("tf32x3", "tf32", "bf16", "s8", "f64")
+K1_VARIANTS = ("tf32x3", "tf32", "bf16", "s8", "s8_i32", "f64")
 # the int32 sum of K int8 products is exact while 127^2 * K < 2^31
 K1_S8_MAX_K = 1 << 17
 _LOWP = {torch.bfloat16: ("bf16", 0), torch.int8: ("s8", 1)}
@@ -69,9 +74,11 @@ def _passes(prec: str) -> int:
     return K1_PASSES[prec]
 
 
-def k1_variant(prec: str, *, dtype: torch.dtype = torch.float32) -> str:
+def k1_variant(prec: str, *, dtype: torch.dtype = torch.float32,
+               c_dtype: torch.dtype = torch.float32) -> str:
     """The K1 variant a CUDA launch runs.  float64 operands (`dtype`) run
-    'f64', bf16 operands 'bf16' and int8 operands 's8'; fp32 operands run
+    'f64', bf16 operands 'bf16' and int8 operands 's8' ('s8_i32' into an
+    int32 C, `c_dtype`); fp32 operands run
     'tf32x3' for 'highest'/'high' and 'tf32' for 'default'.  No layout,
     leading dimension or base address changes the choice: each variant's
     pass before the product writes a K-major copy of an operand TMA
@@ -81,6 +88,8 @@ def k1_variant(prec: str, *, dtype: torch.dtype = torch.float32) -> str:
     passes = _passes(prec)
     if dtype == torch.float64:
         return "f64"
+    if dtype == torch.int8 and c_dtype == torch.int32:
+        return "s8_i32"
     if dtype in _LOWP:
         return _LOWP[dtype][0]
     return "tf32x3" if passes == 3 else "tf32"
@@ -187,17 +196,31 @@ def accum_matmul_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return c.add_(out.T if c_nm else out, alpha=float(alpha))
 
 
+def s8_product_ref(a: torch.Tensor, b: torch.Tensor, *, a_km: bool,
+                   b_nk: bool) -> torch.Tensor:
+    """The exact integer product op(a) @ op(b) of int8 operands, as int64
+    (logical (M, N)): summed in float64, whose 53 bits hold any such sum up
+    to K1_S8_MAX_K."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    return ((a.T if a_km else a) @ (b.T if b_nk else b)).to(torch.int64)
+
+
 def accum_matmul_s8_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                         scale: float, *, a_km: bool, b_nk: bool,
                         c_nm: bool) -> torch.Tensor:
-    """Plain version of the 's8' variant, bit for bit: the int8 product
-    summed exactly (in float64, whose 53 bits hold any such sum up to
-    K1_S8_MAX_K), to int64, to fp32, then c += (that * scale), the multiply
-    and the add each rounded in fp32 (bof_tpu's accum_step_q)."""
+    """Plain version of the 's8' variants, bit for bit.  fp32 c: the exact
+    product (`s8_product_ref`) to fp32, then c += (that * scale), the
+    multiply and the add each rounded in fp32 (bof_tpu's accum_step_q).
+    int32 c ('s8_i32'): c += the exact product in int32 (`scale` must be
+    1)."""
     _logical_dims(c, a, b, a_km, b_nk, c_nm)
-    a, b = a.to(torch.float64), b.to(torch.float64)
-    out = ((a.T if a_km else a) @ (b.T if b_nk else b)).to(torch.int64)
-    out = out.to(torch.float32) * float(scale)
+    out = s8_product_ref(a, b, a_km=a_km, b_nk=b_nk)
+    if c.dtype == torch.int32:
+        if scale != 1:
+            raise ValueError("the int32 output takes no scale (alpha 1)")
+        out = out.to(torch.int32)
+    else:
+        out = out.to(torch.float32) * float(scale)
     return c.add_(out.T if c_nm else out)
 
 
@@ -223,7 +246,8 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     a is (M,K) or (K,M) with a_km; b is (K,N) or (N,K) with b_nk; c is
     (M,N) or (N,M) with c_nm.  c fp32 with a and b both fp32, both bf16 or
     both int8 (then alpha is bof_tpu's scale alpha * s_a * s_b and K at
-    most K1_S8_MAX_K); or all three float64.  Contiguous, one device.  CUDA
+    most K1_S8_MAX_K); int32 c with int8 a and b and alpha 1 (the exact
+    sum, 's8_i32'); or all three float64.  Contiguous, one device.  CUDA
     tensors launch the K1 variant `k1_variant` names on the current stream;
     CPU tensors take the plain version, full fp32 (or fp64) at every
     `prec`."""
@@ -233,12 +257,17 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if len(devs) != 1:
         raise ValueError(f"accum_matmul operands on several devices: {devs}")
     f64 = c.dtype == a.dtype == b.dtype == torch.float64
-    if not f64 and (c.dtype != torch.float32 or a.dtype != b.dtype
-                    or a.dtype not in (torch.float32, torch.bfloat16,
-                                       torch.int8)):
+    i32 = c.dtype == torch.int32 and a.dtype == b.dtype == torch.int8
+    if not (f64 or i32) and (c.dtype != torch.float32 or a.dtype != b.dtype
+                             or a.dtype not in (torch.float32, torch.bfloat16,
+                                                torch.int8)):
         raise TypeError(f"accum_matmul takes fp32 C and fp32, bf16 or int8 "
-                        f"A and B of one type, or float64 C, A and B (c "
-                        f"{c.dtype}, a {a.dtype}, b {b.dtype})")
+                        f"A and B of one type, int32 C and int8 A and B, or "
+                        f"float64 C, A and B (c {c.dtype}, a {a.dtype}, b "
+                        f"{b.dtype})")
+    if i32 and alpha != 1:
+        raise ValueError("accum_matmul into int32 C takes alpha 1 (the "
+                         "exact sum; rescale after)")
     if a.dtype == torch.int8 and k > K1_S8_MAX_K:
         raise ValueError(f"int8 accum_matmul with k={k} > {K1_S8_MAX_K}: "
                          "the int32 sum could overflow")
@@ -254,22 +283,29 @@ def accum_matmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return c  # nothing to add; the C entries would launch nothing
     lda, ldb = a.shape[1], b.shape[1]
     aligned = (a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
-    variant = k1_variant(prec, dtype=a.dtype)
+    variant = k1_variant(prec, dtype=a.dtype, c_dtype=c.dtype)
     lib = build()
     packs, tf32_packs = (False, False), 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if a.dtype in _LOWP:
-            entry = "bof_accum_matmul_lowp"
             packs = k1_packs(a_km, b_nk, lda, ldb, a.dtype, aligned)
             ldw = k1_ldw(k, a.element_size())
             ws = [torch.empty((rows, ldw), dtype=a.dtype, device=dev)
                   if pack else None for pack, rows in zip(packs, (m, n))]
-            rc = lib.bof_accum_matmul_lowp(
-                c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha), m, n,
-                k, int(a_km), int(b_nk), int(c_nm), lda, ldb, c.shape[1],
-                _LOWP[a.dtype][1], *(None if w is None else w.data_ptr()
-                                     for w in ws), ldw, stream)
+            ws_ptrs = [None if w is None else w.data_ptr() for w in ws]
+            if i32:
+                entry = "bof_accum_matmul_s8_i32"
+                rc = lib.bof_accum_matmul_s8_i32(
+                    c.data_ptr(), a.data_ptr(), b.data_ptr(), m, n, k,
+                    int(a_km), int(b_nk), int(c_nm), lda, ldb, c.shape[1],
+                    *ws_ptrs, ldw, stream)
+            else:
+                entry = "bof_accum_matmul_lowp"
+                rc = lib.bof_accum_matmul_lowp(
+                    c.data_ptr(), a.data_ptr(), b.data_ptr(), float(alpha),
+                    m, n, k, int(a_km), int(b_nk), int(c_nm), lda, ldb,
+                    c.shape[1], _LOWP[a.dtype][1], *ws_ptrs, ldw, stream)
         elif variant == "f64":
             entry = "bof_accum_matmul_f64"
             rc = lib.bof_accum_matmul_f64(

@@ -2,7 +2,7 @@
 """Drive bof_tpu_torch's out-of-core SGEMM and sparse paths, in fp32 and
 in their link-compressed transfer modes, the paper's three applications,
 then its float64 gemm, its out-of-core k-means, sample sort and
-map/reduce, once on one CUDA card.
+map/reduce, and the sharded (mesh) paths, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -171,6 +171,24 @@ Steps, each of which raises (exit code != 0) when it fails:
 16. S13, `drivers.map_reduce` on 2^29 seeded |N(0, 1)| float32 elements:
    torch.sqrt on the card in 32 blocks, the output np.sqrt of the input
    bit for bit, the sum within rtol 1e-12 of float64 in block order.
+
+S14, the sharded paths (parallel/, the apps' mesh=, the drivers'
+--sharded), on a 1 x 1 mesh of one NCCL rank (this card), each right
+after the cell whose files and gate it takes, with its kernels and its
+collectives (METRICS dist.<name>) counted: `drivers.gemm --sharded` on
+S2's files in fp32 (K1 'tf32x3', a reduce-scatter a step) and int8 (the
+int32 output of K1 's8', checked bit for bit against its plain version at
+8192^3 and 1000x776x516 on the 8 layouts with the transfer-mode kernels,
+and timed beside torch._int_mm and the fp32-output 's8'); `drivers.csrmm
+--sharded` at Fig. 6 (K2, the same bands); X1 with --sharded (K2 + B8,
+two all-gathers a band); on a 2^17-row cut of S3's A, `drivers.eigensolver
+--sharded` (two csrmm_sharded passes an application) with the sharded
+one-pass operator (all-gather, all-reduce) on 8 columns of V, and
+`drivers.topic_model --sharded` (K2, B7, all-reduces), under E1's and
+T1's gates; S10 with --sharded from the same C0 (K1 'f64'); and on S11b's
+points kmeans_fit_sharded resident and streamed (B7, all-reduces), each
+followed by one sharded Lloyd pass under S11's gate.  No collective
+crosses cards here: several cards are tested on gloo ranks on the CPU.
 
 Operands are written from seeded generators under `$BOF_SCRATCH`
 (default `build/chip_smoke` in this checkout), which must be a real
@@ -596,6 +614,92 @@ def lowp_kernel_phase(dev) -> dict:
     return out
 
 
+def s8_i32_kernel_phase(dev, s8_ms: float) -> dict:
+    """K1 's8' with its int32 output (the sharded int8 step's partial, C +=
+    the exact int32 sum) against its plain version bit for bit on the 8
+    layouts at 8192^3 and 1000x776x516, from a non-zero int32 C, with the
+    pack count per layout.  At 8192^3 R/N/N the median of 5 CUDA-event
+    times of the kernel (B packed), of it on B stored (N, K) (nothing
+    packed), of the plain version, of torch._int_mm (the same exact product
+    into a fresh int32 C, B stored (N, K)) and the bound, beside the
+    fp32-output 's8' (`s8_ms`, the phase before)."""
+    import itertools
+
+    import torch
+    from bof_tpu_torch.ops.matmul_cuda import (accum_matmul,
+                                               accum_matmul_s8_ref,
+                                               k1_variant)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 16)
+    if k1_variant("highest", dtype=torch.int8,
+                  c_dtype=torch.int32) != "s8_i32":
+        raise AssertionError("k1_variant did not choose s8_i32")
+    timing, worst = {}, 0
+    for m, n, k in ((8192, 8192, 8192), (1000, 776, 516)):
+        a_log = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+        b_log = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+        c_log = torch.randint(-1 << 20, 1 << 20, (m, n), generator=gen,
+                              device=dev, dtype=torch.int32)
+        for a_km, b_nk, c_nm in itertools.product((False, True), repeat=3):
+            a = a_log.T.contiguous() if a_km else a_log
+            b = b_log.T.contiguous() if b_nk else b_log
+            c0 = c_log.T.contiguous() if c_nm else c_log
+            flags = dict(a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+            before = accum_matmul.variant_launches["s8_i32"]
+            packs = accum_matmul.lowp_packs
+            got = accum_matmul(c0.clone(), a, b, 1.0, **flags)
+            want = accum_matmul_s8_ref(c0.clone(), a, b, 1.0, **flags)
+            torch.cuda.synchronize()
+            if accum_matmul.variant_launches["s8_i32"] != before + 1:
+                raise AssertionError("the s8_i32 count did not move")
+            want_packs = int(a_km or a.shape[1] % 16 != 0) \
+                + int(not b_nk or b.shape[1] % 16 != 0)
+            if accum_matmul.lowp_packs - packs != want_packs:
+                raise AssertionError(f"s8_i32 {m}x{n}x{k} {flags}: packed "
+                                     f"{accum_matmul.lowp_packs - packs}, "
+                                     f"expected {want_packs}")
+            err = int((got - want).abs().max())
+            same = bool(torch.equal(got, want))
+            print(f"K1 s8_i32 {m}x{n}x{k} a_km={int(a_km)} b_nk={int(b_nk)} "
+                  f"c_nm={int(c_nm)} ({want_packs} packed): bit-identical "
+                  f"to the plain version {same} (max|kernel-plain| {err}) "
+                  f"{'ok' if same else 'FAIL'}", flush=True)
+            if not same:
+                raise AssertionError("K1 s8_i32 is not bit-identical to its "
+                                     "plain version")
+            worst = max(worst, err)
+            del got, want
+            if m == 8192 and not (a_km or b_nk or c_nm):
+                c_t = c0.clone()
+                timing["ms"] = _median_ms(lambda: accum_matmul(
+                    c_t, a, b, 1.0, **flags))
+                timing["plain_ms"] = _median_ms(
+                    lambda: accum_matmul_s8_ref(c_t, a, b, 1.0, **flags))
+                b_nk_t = b.T.contiguous()
+                timing["ms_b_nk"] = _median_ms(lambda: accum_matmul(
+                    c_t, a, b_nk_t, 1.0, a_km=False, b_nk=True, c_nm=False))
+                timing["library_ms"] = _median_ms(
+                    lambda: torch._int_mm(a, b_nk_t.T))
+                timing["library"] = "torch._int_mm(A, B stored (N, K))"
+                del c_t, b_nk_t
+        del a_log, b_log, c_log, a, b, c0
+        torch.cuda.empty_cache()
+    n2 = 8192 ** 2
+    bound, by = _bound(2 * n2 + 2 * n2 * 4, 2.0 * 8192 ** 3, INT8_OPS)
+    print(f"K1 s8_i32 8192^3 R/N/N, median of 5 CUDA-event times: kernel "
+          f"{timing['ms']:.3f} ms (B packed; on B stored (N, K) "
+          f"{timing['ms_b_nk']:.3f} ms), the fp32-output s8 {s8_ms:.3f} ms, "
+          f"plain {timing['plain_ms']:.3f} ms, library ({timing['library']})"
+          f" {timing['library_ms']:.3f} ms; bound {bound:.3f} ms ({by}), "
+          f"the kernel at {100 * bound / timing['ms']:.1f} % of it",
+          flush=True)
+    return {"accum_matmul[s8_i32]": {"max_abs_err": float(worst),
+                                     "bound_ms": bound, "bound_by": by,
+                                     "s8_fp32_out_ms": s8_ms, **timing}}
+
+
 def _spare_dir(path):
     return os.path.join(os.path.dirname(path), "spare")
 
@@ -851,6 +955,18 @@ def _check_launches(label, launches, want):
         raise AssertionError(f"[{label}] no kernel launched")
 
 
+def _check_collectives(label, stages, want):
+    """The sharded path's collectives (counted in METRICS as dist.<name>)
+    ran: each as often as `want` gives, None for at least once."""
+    got = {name: int(stages.get(f"dist.{name}", 0)) for name in want}
+    print(f"[{label}] collectives: " + ", ".join(
+        f"{name} {n}" for name, n in got.items()), flush=True)
+    for name, n in got.items():
+        if n == 0 or (want[name] is not None and n != want[name]):
+            raise AssertionError(f"[{label}] {name} ran {n} times, "
+                                 f"expected {want[name] or 'some'}")
+
+
 def _stages(label, snap, prefix, keys):
     print(f"[{label}] stage seconds (summed per thread): " + ", ".join(
         f"{key}={snap.get(prefix + key, 0.0):.3f}" for key in keys),
@@ -860,9 +976,13 @@ def _stages(label, snap, prefix, keys):
 def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta,
                modes) -> list:
     """One gemm shape through the driver, once for each (label,
-    transfer_dtype, c_transfer_dtype) of `modes` on the same A and B
-    files and the same starting C, the first in fp32.  Returns each run's
-    launches."""
+    transfer_dtype, c_transfer_dtype[, sharded]) of `modes` on the same A
+    and B files and the same starting C, the first in fp32.  A sharded
+    mode runs `drivers.gemm --sharded` (gemm_sharded on a 1 x 1 mesh of
+    one NCCL rank: K1 into a zeroed partial, a reduce-scatter over 'y',
+    then C += alpha * the sum; the int8 mode on K1 's8''s int32 output)
+    under the same gate, with its reduce-scatters counted.  Returns each
+    run's launches."""
     import numpy as np
     import bof_tpu_torch as bt
     from bof_tpu_torch.drivers import gemm as gemm_driver
@@ -903,8 +1023,10 @@ def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta,
     a_km = (order == "C") != (ta == "T")
     b_nk = (order == "C") != (tb == "T")
     runs, want, base = [], None, None
-    for tag, xfer, c_xfer in modes:
-        label = f"{tag} {shape} transfer={xfer} c_transfer={c_xfer}"
+    for tag, xfer, c_xfer, *sharded in modes:
+        sharded = bool(sharded and sharded[0])
+        label = (f"{tag} {shape} transfer={xfer} c_transfer={c_xfer}"
+                 + (" sharded (1x1 NCCL mesh)" if sharded else ""))
         if beta != 0.0 and base is not None:
             shutil.copyfile(c0_path, paths["C"])
         argv = [paths["A"], paths["B"], paths["C"], str(m), str(n), str(k),
@@ -914,6 +1036,8 @@ def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta,
                 "--scratch", scratch]
         if beta == 0.0:
             argv.append("--create-c")
+        if sharded:
+            argv.append("--sharded")
         with _configured(gemm_driver, transfer_dtype=xfer,
                          c_transfer_dtype=c_xfer):
             wall, launches, stages, peak = _drive(
@@ -921,26 +1045,40 @@ def gemm_phase(dev, scratch, m, n, k, order, ta, tb, alpha, beta,
                 profile=(bool(os.environ.get("BOF_SMOKE_PROFILE"))
                          and base is None))
         # every step on the mode's K1 variant: the superblocks are
-        # zero-padded to blk
-        variant = K1_OF[xfer]
+        # zero-padded to blk (sharded int8: the int32 output)
+        variant = "s8_i32" if sharded and xfer == "int8" else K1_OF[xfer]
         packs = steps * (int(a_km) + int(not b_nk)) \
-            if variant in ("bf16", "s8") else 0
+            if variant in ("bf16", "s8", "s8_i32") else 0
         _check_launches(label, launches, {
             "accum_matmul": steps, f"accum_matmul[{variant}]": steps,
             "accum_matmul.lowp_packs": packs})
         flop = 2.0 * m * n * k
-        h2d, d2h = stages["gemm.h2d_bytes"], stages["gemm.d2h_bytes"]
-        print(f"[{label}] wall {wall:.3f} s, {flop / wall / 1e9:.1f} GFLOP/s, "
-              f"K1 launches {launches['accum_matmul']} (= mB*nB*kB, all "
-              f"{variant}, {packs} operands packed), peak device memory "
-              f"{peak / 2**30:.2f} GiB, h2d {h2d / 2**30:.3f} GiB, d2h "
-              f"{d2h / 2**30:.3f} GiB", flush=True)
-        _stages(label, stages, "gemm.",
-                ("disk_wait_s", "prep_s", "h2d_s", "c_read_s", "tile_wait_s",
-                 "accum_wait_s", "d2h_s", "write_wait_s"))
-        if base is None:
-            base = (h2d, d2h)
+        if sharded:
+            _check_collectives(label, stages, {"reduce_scatter": steps})
+            print(f"[{label}] wall {wall:.3f} s, "
+                  f"{flop / wall / 1e9:.1f} GFLOP/s, K1 launches "
+                  f"{launches['accum_matmul']} (= mB*nB*kB, all {variant}, "
+                  f"{packs} operands packed), peak device memory "
+                  f"{peak / 2**30:.2f} GiB, h2d "
+                  f"{stages['gemm_sharded.h2d_bytes'] / 2**30:.3f} GiB",
+                  flush=True)
+            _stages(label, stages, "gemm_sharded.",
+                    ("disk_wait_s", "h2d_s", "d2h_s", "write_wait_s"))
         else:
+            h2d, d2h = stages["gemm.h2d_bytes"], stages["gemm.d2h_bytes"]
+            print(f"[{label}] wall {wall:.3f} s, "
+                  f"{flop / wall / 1e9:.1f} GFLOP/s, K1 launches "
+                  f"{launches['accum_matmul']} (= mB*nB*kB, all {variant}, "
+                  f"{packs} operands packed), peak device memory "
+                  f"{peak / 2**30:.2f} GiB, h2d {h2d / 2**30:.3f} GiB, d2h "
+                  f"{d2h / 2**30:.3f} GiB", flush=True)
+            _stages(label, stages, "gemm.",
+                    ("disk_wait_s", "prep_s", "h2d_s", "c_read_s",
+                     "tile_wait_s", "accum_wait_s", "d2h_s",
+                     "write_wait_s"))
+        if base is None and not sharded:
+            base = (h2d, d2h)
+        elif not sharded:  # (link bytes: the one-card pipeline's metric)
             # the A/B tiles' link bytes shrink with the element, C's with
             # the bf16 download; the same tiles cross as in fp32
             size = {"float32": 4, "bfloat16": 2, "int8": 1}[xfer]
@@ -1369,8 +1507,11 @@ def _sample_cols(c_out, cols):
 
 def csrmm_fig6_phase(dev, scratch, prefix, a_sp, modes, n=1 << 12) -> list:
     """S3 (and S8): csrmm 'N' at the paper's Fig. 6 shape, s = 1e-3, once
-    for each (label, transfer_dtype, c_transfer_dtype) of `modes` on the
-    same B, the first in fp32.  Returns each run's launches."""
+    for each (label, transfer_dtype, c_transfer_dtype[, sharded]) of
+    `modes` on the same B, the first in fp32.  A sharded mode runs
+    `drivers.csrmm --sharded` (csrmm_sharded on a 1 x 1 NCCL mesh: whole
+    row blocks, count-sorted bands, K2 a band into the block's rows) under
+    the same gate and band count.  Returns each run's launches."""
     import numpy as np
     from bof_tpu_torch.drivers import csrmm as csrmm_driver
     m, k = a_sp.shape
@@ -1392,10 +1533,13 @@ def csrmm_fig6_phase(dev, scratch, prefix, a_sp, modes, n=1 << 12) -> list:
     atol = ATOL_SCALE * row_max ** 0.5 * float(np.abs(a_sp.data).max()) \
         * b_max
     runs, want, base_h2d = [], None, None
-    for tag, xfer, c_xfer in modes:
-        label = f"{tag} {shape} transfer={xfer} c_transfer={c_xfer}"
+    for tag, xfer, c_xfer, *sharded in modes:
+        sharded = bool(sharded and sharded[0])
+        label = (f"{tag} {shape} transfer={xfer} c_transfer={c_xfer}"
+                 + (" sharded (1x1 NCCL mesh)" if sharded else ""))
         argv = [prefix, str(m), str(k), b_path, str(n), c_path,
-                "--create-c", *_driver_args(dev, scratch)]
+                "--create-c", *_driver_args(dev, scratch)] + (
+                    ["--sharded"] if sharded else [])
         with _configured(csrmm_driver, transfer_dtype=xfer,
                          c_transfer_dtype=c_xfer):
             wall, launches, stages, peak = _drive(
@@ -1405,10 +1549,18 @@ def csrmm_fig6_phase(dev, scratch, prefix, a_sp, modes, n=1 << 12) -> list:
         vkind = ELL_OF[xfer]
         _check_launches(label, launches, {"spmm_ell": want_bands,
                                           f"spmm_ell[{vkind}]": want_bands})
-        _report_csrmm(label, wall, a_sp.nnz, k, m, n, launches, stages, peak,
-                      c_elem=2 if c_xfer == "bfloat16" else 4)
-        h2d = stages["csrmm.h2d_bytes"]
-        if base_h2d is None:
+        if sharded:  # no collective on one rank: the rows are its own
+            print(f"[{label}] wall {wall:.3f} s, "
+                  f"{2.0 * a_sp.nnz * n / wall / 1e9:.1f} GFLOP/s, K2 "
+                  f"launches {launches['spmm_ell']} (= ELL bands), peak "
+                  f"device memory {peak / 2**30:.2f} GiB", flush=True)
+        else:
+            _report_csrmm(label, wall, a_sp.nnz, k, m, n, launches, stages,
+                          peak, c_elem=2 if c_xfer == "bfloat16" else 4)
+        h2d = stages.get("csrmm.h2d_bytes")
+        if sharded:  # (ELL upload bytes: the one-card pipeline's metric)
+            pass
+        elif base_h2d is None:
             base_h2d = h2d
         elif not h2d < base_h2d:
             raise AssertionError(f"[{label}] ELL uploads {h2d} bytes, not "
@@ -1960,21 +2112,26 @@ def eigensolver_phase(dev, scratch, prefix, a_sp, restarts=1) -> dict:
     return launches
 
 
-def xml_phase(dev, scratch, prefix, a_sp, n_labels=4096, k=5) -> dict:
+def xml_phase(dev, scratch, prefix, a_sp, n_labels=4096, k=5,
+              sharded=False) -> dict:
     """X1: drivers.xml_rank on S3's A as docs x vocab against W of
     n_labels x 2^17 seeded N(0, 1) fp32 labels (written over a spare's
     blocks), k 5, fused.  Fails unless, for 64 seeded documents, the scores
     and labels meet tests/test_apps.py's _check_topk criteria (rtol 2e-4,
     atol 1e-5 sqrt(max nnz/row) max|A| max|W|) against float64 dense
     scores, K2 and B8 launched once a band a label block, and only
-    rows * k * 8 bytes a label block came down."""
+    rows * k * 8 bytes a label block came down.  `sharded`: S14's run with
+    --sharded (xml_rank(mesh=) on a 1 x 1 NCCL mesh: K2 and B8 on the
+    rank's run of each band, two all-gathers of rows x k a band), the
+    same gate."""
     import numpy as np
     import torch
     import bof_tpu_torch as bt
     from bof_tpu_torch.drivers import xml_rank as xml_driver
     docs, vocab = a_sp.shape
-    label = (f"X1 xml_rank {docs}x{vocab} nnz={a_sp.nnz} labels={n_labels} "
-             f"k={k} fused")
+    label = (f"{'S14 ' if sharded else ''}X1 xml_rank {docs}x{vocab} "
+             f"nnz={a_sp.nnz} labels={n_labels} k={k} fused"
+             + (" sharded (1x1 NCCL mesh)" if sharded else ""))
     w_path = os.path.join(scratch, "W_xml.bin")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 13)
@@ -1996,13 +2153,17 @@ def xml_phase(dev, scratch, prefix, a_sp, n_labels=4096, k=5) -> dict:
         res["out"] = xml_driver.main(argv)
         return time.perf_counter() - t
     argv = [prefix, str(docs), str(vocab), w_path, str(n_labels), str(k),
-            "--fused", "on", *_driver_args(dev, scratch)]
+            "--fused", "on", *_driver_args(dev, scratch)] + (
+                ["--sharded"] if sharded else [])
     wall, launches, stages, peak = _drive(
-        dev, run, argv, profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
+        dev, run, argv,
+        profile=bool(os.environ.get("BOF_SMOKE_PROFILE")) and not sharded)
     want = bands * blocks
     _check_launches(label, launches, {
         "spmm_ell": want, "spmm_ell[f32]": want, "row_topk": want,
         "row_topk[reg]": want})
+    if sharded:
+        _check_collectives(label, stages, {"all_gather": 2 * want})
     _app_report(label, wall, 2.0 * a_sp.nnz * n_labels, launches, stages,
                 peak, "xml_rank.", ("w_read_s", "w_h2d_s", "disk_wait_s",
                                     "prep_s", "h2d_s", "dispatch_s", "d2h_s",
@@ -2139,8 +2300,6 @@ def topic_phase(dev, scratch, prefix, a_sp, n_topics=1000, proj_dim=64,
         * float(np.abs(r64).max())
     p_err = _verify(f"{label}: 16 rows of P = A R", [(seen["p"], p64)],
                     atol, "1e-5*sqrt(max nnz/row)*max|A|*max|R|")
-    if labels.min() < 0 or labels.max() >= n_topics:
-        raise AssertionError(f"[{label}] a label outside [0, {n_topics})")
     # B7 at this path's shapes (d 64, k 1000): the full assignment's
     # labels against the plain version on the same P rows and centers
     idx = np.concatenate([np.arange(r0, r0 + ASSIGN_ROWS), rows])
@@ -2150,6 +2309,26 @@ def topic_phase(dev, scratch, prefix, a_sp, n_topics=1000, proj_dim=64,
     differ = _near_ties(f"{label}: assignment", p_t, c_t.double(),
                         torch.from_numpy(labels[idx]).to(dev), want_l)
     del p_t, c_t, want_l
+    print(f"[{label}] P rows max abs err {p_err:.3g}; the full assignment's "
+          f"labels of {len(idx)} rows against lloyd_assign_ref: {differ} "
+          f"differ (all near-ties)", flush=True)
+    _check_lift(label, a_sp, labels, seen["lift"], tw, n_topics)
+    print(f"[{label}] checked in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
+def _check_lift(label, a_sp, labels, lift, tw, n_topics):
+    """T1's lift gate: labels in [0, n_topics); the unnormalized lift
+    (`lift_topics`' output) float64 one_hot(labels)^T A within rtol 1e-4,
+    atol 1e-6; the topic-word matrix that lift over its float32 row sums
+    within one rounding (2^-24 relative), zero where the float32 sum is
+    <= 0, and where float32 and float64 disagree on a row sum's sign, the
+    float64 sum within the float32 sum's rounding of 0."""
+    import numpy as np
+    vocab = a_sp.shape[1]
+    if labels.min() < 0 or labels.max() >= n_topics:
+        raise AssertionError(f"[{label}] a label outside [0, {n_topics})")
     # one_hot(labels)^T A in float64: each nonzero added into its doc's
     # topic row (np.bincount; the port's lift runs np.add.at here)
     flat = np.repeat(labels.astype(np.int64) * vocab,
@@ -2157,7 +2336,6 @@ def topic_phase(dev, scratch, prefix, a_sp, n_topics=1000, proj_dim=64,
     t64 = np.bincount(flat, weights=a_sp.data.astype(np.float64),
                       minlength=n_topics * vocab).reshape(n_topics, vocab)
     del flat
-    lift = seen["lift"]
     l_err = float((np.abs(lift - t64) / (1e-4 * np.abs(t64) + 1e-6)).max())
     # the normalization apart: each row over its float32 sum (bof_tpu's
     # arithmetic), one float32 rounding of the quotient
@@ -2167,28 +2345,180 @@ def topic_phase(dev, scratch, prefix, a_sp, n_topics=1000, proj_dim=64,
     n_err = float((np.abs(tw[kept] - q[kept])
                    / (2.0 ** -24 * np.abs(q[kept]) + 1e-30)).max())
     zero_ok = not np.any(tw[~kept])
-    # where float32 and float64 disagree on a row sum's sign, the float64
-    # sum must lie within the float32 sum's rounding of 0
     norm64 = t64.sum(1)
     flip = kept != (norm64 > 0)
     room = np.log2(vocab) * 2.0 ** -24 * np.abs(t64).sum(1)
     flips_ok = bool((np.abs(norm64[flip]) <= room[flip]).all())
     ok = l_err <= 1 and n_err <= 1 and zero_ok and flips_ok
-    print(f"[{label}] P rows max abs err {p_err:.3g}; the full assignment's "
-          f"labels of {len(idx)} rows against lloyd_assign_ref: {differ} "
-          f"differ (all near-ties); labels in [0, {n_topics}), "
-          f"{len(np.unique(labels))} topics used; unnormalized lift against "
-          f"float64: worst err/(1e-4*|T64| + 1e-6) {l_err:.4f}; topic-word "
-          f"against lift / float32 row sum: worst err/(2^-24*|q|) "
-          f"{n_err:.4f}; rows zeroed (row sum <= 0): {int((~kept).sum())} "
-          f"by float32, {int((norm64 <= 0).sum())} by float64, "
-          f"{int(flip.sum())} differ (each within the float32 sum's "
-          f"rounding of 0: {flips_ok}), zeroed rows all 0: {zero_ok}; "
-          f"checked in {time.perf_counter() - t0:.1f} s "
+    print(f"[{label}] labels in [0, {n_topics}), {len(np.unique(labels))} "
+          f"topics used; unnormalized lift against float64: worst "
+          f"err/(1e-4*|T64| + 1e-6) {l_err:.4f}; topic-word against lift / "
+          f"float32 row sum: worst err/(2^-24*|q|) {n_err:.4f}; rows zeroed "
+          f"(row sum <= 0): {int((~kept).sum())} by float32, "
+          f"{int((norm64 <= 0).sum())} by float64, {int(flip.sum())} differ "
+          f"(each within the float32 sum's rounding of 0: {flips_ok}), "
+          f"zeroed rows all 0: {zero_ok} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"[{label}] disagrees with float64")
+
+
+def mesh_apps_phase(dev, scratch, a_sp, rows=1 << 17) -> list:
+    """S14 on a row cut of S3's A (its first `rows` documents, all 2^17
+    columns, written as a triplet of its own; E1 and T1 run on the whole
+    matrix): block_lanczos_svd(mesh=) through `drivers.eigensolver
+    --sharded` with E1's settings (64 values, one restart; every operator
+    application two csrmm_sharded passes, K2), then in the same counted
+    run the sharded one-pass operator (K2 on both halves, an all-gather of
+    W a band, one all-reduce of U) on 8 columns of the returned V; and
+    topic_model(mesh=) through `drivers.topic_model --sharded` with T1's
+    (1000 topics, proj_dim 64, sample rate 0.1, 4 iterations: a
+    csrmm_sharded projection, a one-card fit of the sample, one
+    lloyds_iter_ooc_sharded assignment: K2, B7, all-reduces), each on a
+    1 x 1 NCCL mesh.  Gates: E1's (U on 8 columns within rtol 1e-4, atol
+    1e-5 max|U|, of float64; sigma_i^2 within rtol 1e-4 of |A v_i|^2 for
+    the top 8; V orthonormal to 1e-5) and T1's (16 rows of P within the
+    csrmm gate of float64; the assignment's labels of ASSIGN_ROWS rows
+    against `lloyd_assign_ref` on the centers it was given, but at
+    near-ties; the topic-word matrix the float64 one_hot(labels)^T A over
+    its row sums within rtol 1e-4, atol 1e-6)."""
+    import importlib
+    import numpy as np
+    import torch
+    import bof_tpu_torch as bt
+    import bof_tpu_torch.parallel as par
+    from bof_tpu_torch.drivers import eigensolver as eig_driver
+    from bof_tpu_torch.drivers import topic_model as tm_driver
+    from bof_tpu_torch.ops import kmeans as km
+    from bof_tpu_torch.parallel import make_mesh
+    eig = importlib.import_module("bof_tpu_torch.apps.eigensolver")
+    a_cut = a_sp[:rows]
+    m, k = a_cut.shape
+    prefix = os.path.join(scratch, "A_cut")
+    a_cut.indptr.astype(np.int64).tofile(prefix + ".off")
+    a_cut.indices.astype(np.int64).tofile(prefix + ".col")
+    a_cut.data.astype(np.float32).tofile(prefix + ".csr")
+    runs = []
+
+    # -- block Lanczos, every application sharded
+    n_vals = 64
+    label = (f"S14 E1 eigensolver lanczos {m}x{k} nnz={a_cut.nnz} "
+             f"n_vals={n_vals} restarts=1 sharded (1x1 NCCL mesh)")
+    res = {}
+
+    def run_eig(argv):
+        t = time.perf_counter()
+        res["out"] = eig_driver.main(argv)
+        ctx = _new_ctx(dev, scratch)
+        try:
+            A = bt.CsrFlashMatrix.map_files(prefix, (m, k), ctx=ctx)
+            res["u"] = eig._apply_ata_one_pass_sharded(
+                A, res["out"][1][:, :8], make_mesh(device=str(dev)), ctx)
+        finally:
+            ctx.destroy()
+        return time.perf_counter() - t
+    argv = [prefix, str(m), str(k), str(n_vals), "--iters", "1", "--solver",
+            "lanczos", "--sharded", *_driver_args(dev, scratch)]
+    wall, launches, stages, peak = _drive(dev, run_eig, argv)
+    n_k2 = launches["spmm_ell"]
+    _check_launches(label, launches, {"spmm_ell": n_k2,
+                                      "spmm_ell[f32]": n_k2})
+    _check_collectives(label, stages, {"all_gather": None, "all_reduce": 1})
+    _app_report(label, wall, 4.0 * a_cut.nnz * n_vals, launches, stages,
+                peak, "eig.", ("disk_wait_s", "prep_s", "h2d_s", "d2h_s"))
+    sigma, v = res["out"]
+    v8 = v[:, :8].astype(np.float64)
+    orth = float(np.abs(v.T.astype(np.float64) @ v - np.eye(n_vals)).max())
+    a64 = a_cut.astype(np.float64)
+    w64 = a64 @ v8
+    u64 = a64.T @ w64
+    atol = 1e-5 * float(np.abs(u64).max())
+    u_err = float((np.abs(res["u"] - u64) / (1e-4 * np.abs(u64)
+                                              + atol)).max())
+    av2 = (w64 * w64).sum(0)
+    s_err = float((np.abs(sigma[:8] ** 2 - av2) / (1e-4 * av2)).max())
+    ok = u_err <= 1.0 and s_err <= 1.0 and orth <= 1e-5
+    print(f"[{label}] {int(stages.get('eig.op_applies', 0))} operator "
+          f"applications (two csrmm_sharded passes each) and the sharded "
+          f"one-pass operator on 8 columns: K2 {n_k2} launches; sigma[:4] "
+          f"{sigma[:4].tolist()}; U on 8 columns: worst err/(1e-4*|U64| + "
+          f"1e-5*max|U64|) {u_err:.4f}; sigma^2 against |A v|^2, top 8: "
+          f"worst err/(1e-4*|A v|^2) {s_err:.4f}; max|V^T V - I| {orth:.3g} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"[{label}] disagrees with float64")
-    return launches
+    runs.append(launches)
+
+    # -- the topic model, projection and assignment sharded
+    n_topics, proj_dim = 1000, 64
+    label = (f"S14 T1 topic_model {m}x{k} nnz={a_cut.nnz} topics={n_topics} "
+             f"proj_dim={proj_dim} sample_rate=0.1 iters=4 sharded (1x1 "
+             "NCCL mesh)")
+    rng = np.random.default_rng([SEED, 15])
+    p_rows = np.sort(rng.choice(m, N_SAMPLES, replace=False))
+    r0 = int(rng.integers(0, m - ASSIGN_ROWS))
+    seen = {}
+    tm = importlib.import_module("bof_tpu_torch.apps.topic_model")
+    assign, lift_topics = par.lloyds_iter_ooc_sharded, tm.lift_topics
+
+    def assign_and_sample(points, centers, labels_out=None, **kw):
+        seen["centers"] = np.array(centers, np.float32)
+        seen["p"] = np.stack([points.read_block(int(r), 1, 0, proj_dim)[0]
+                              for r in p_rows])
+        seen["p_run"] = points.read_block(r0, ASSIGN_ROWS, 0, proj_dim)
+        return assign(points, centers, labels_out=labels_out, **kw)
+
+    def lift_and_keep(*args, **kw):
+        seen["lift"] = lift_topics(*args, **kw)
+        return seen["lift"]
+
+    def run_tm(argv):
+        t = time.perf_counter()
+        par.lloyds_iter_ooc_sharded = assign_and_sample
+        tm.lift_topics = lift_and_keep
+        try:
+            res["tm"] = tm_driver.main(argv)
+        finally:
+            par.lloyds_iter_ooc_sharded, tm.lift_topics = assign, lift_topics
+        return time.perf_counter() - t
+    argv = [prefix, str(m), str(k), str(n_topics), "--proj-dim",
+            str(proj_dim), "--iters", "4", "--sample-rate", "0.1",
+            "--sharded", *_driver_args(dev, scratch)]
+    wall, launches, stages, peak = _drive(dev, run_tm, argv)
+    others = {name: c for name, c in launches.items()
+              if name.split("[")[0] not in ("spmm_ell", "lloyd_assign",
+                                            "lloyd_accumulate")}
+    if (not launches["spmm_ell"] or not launches["lloyd_assign"]
+            or not launches["lloyd_accumulate"] or any(others.values())):
+        raise AssertionError(f"[{label}] launches {launches}, expected K2 "
+                             "and B7 only")
+    _check_collectives(label, stages, {"all_reduce": None})
+    _app_report(label, wall, 2.0 * a_cut.nnz * proj_dim * 6, launches,
+                stages, peak, "topic.",
+                ("project_s", "cluster_s", "assign_s", "lift_s"))
+    tw, labels = res["tm"]
+    r64 = (np.random.default_rng(0).standard_normal((k, proj_dim))
+           / np.sqrt(proj_dim)).astype(np.float32)
+    p64 = a_cut[p_rows].astype(np.float64) @ r64.astype(np.float64)
+    row_max = int(np.diff(a_cut.indptr).max())
+    atol = ATOL_SCALE * row_max ** 0.5 * float(np.abs(a_cut.data).max()) \
+        * float(np.abs(r64).max())
+    _verify(f"{label}: 16 rows of P = A R", [(seen["p"], p64)], atol,
+            "1e-5*sqrt(max nnz/row)*max|A|*max|R|")
+    idx = np.concatenate([np.arange(r0, r0 + ASSIGN_ROWS), p_rows])
+    p_t = torch.from_numpy(np.concatenate([seen["p_run"], seen["p"]])).to(dev)
+    c_t = torch.from_numpy(seen["centers"]).to(dev)
+    want_l, _ = km.lloyd_assign_ref(p_t, c_t, (c_t * c_t).sum(1))
+    differ = _near_ties(f"{label}: assignment", p_t, c_t.double(),
+                        torch.from_numpy(labels[idx]).to(dev), want_l)
+    del p_t, c_t, want_l
+    print(f"[{label}] the assignment's labels of {len(idx)} rows against "
+          f"lloyd_assign_ref: {differ} differ (all near-ties)", flush=True)
+    _check_lift(label, a_cut, labels, seen["lift"], tw, n_topics)
+    runs.append(launches)
+    for ext in (".off", ".col", ".csr"):
+        os.unlink(prefix + ext)
+    return runs
 
 
 # ------------------------------------------------- fp64 gemm and k-means
@@ -2570,50 +2900,46 @@ def _write_normals(path, shape, gen, dev, dtype):
     return line_max
 
 
-def gemm64_phase(dev, scratch) -> dict:
+def _copy_in_place(src, dst):
+    """src's bytes over dst's blocks (dst at least as large): no new
+    blocks, unlike a copy to a fresh file."""
+    with open(src, "rb") as f, open(dst, "r+b") as g:
+        shutil.copyfileobj(f, g, 64 << 20)
+
+
+def gemm64_phase(dev, scratch) -> list:
     """S10: gemm 16384^3 float64, order R, N/T, alpha -1.5, beta 0.5,
     through `drivers.gemm --dtype float64` (O_DIRECT, the native engine):
     16 seeded rows and columns of C against float64 numpy within
     1e-12 * (k * max|A row| * max|B col| * |alpha| + |beta| * |C0|); eight
-    K1 launches, all 'f64'."""
+    K1 launches, all 'f64'.  Then S14's run of it with --sharded
+    (gemm_sharded on a 1 x 1 NCCL mesh, K1 'f64' a shard, eight
+    reduce-scatters) from the same C0, under the same gate."""
     import numpy as np
     import torch
     from bof_tpu_torch.drivers import gemm as gemm_driver
     m = n = k = 16384
     alpha, beta = -1.5, 0.5
-    label = (f"S10 gemm {m}x{n}x{k} float64 order=R ta=N tb=T alpha={alpha} "
+    shape = (f"gemm {m}x{n}x{k} float64 order=R ta=N tb=T alpha={alpha} "
              f"beta={beta}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 10)
     paths = {x: os.path.join(scratch, f"{x}64.bin") for x in "ABC"}
+    c0_path = paths["C"] + ".0"
     t0 = time.perf_counter()
     a_rmax = _write_normals(paths["A"], (m, k), gen, dev, np.float64)
     b_rmax = _write_normals(paths["B"], (n, k), gen, dev, np.float64)
     _write_normals(paths["C"], (m, n), gen, dev, np.float64)
+    _reuse(c0_path, m * n * 8)
+    _copy_in_place(paths["C"], c0_path)  # each run starts from C0
     rng = np.random.default_rng([SEED, 10])
     rows = np.sort(rng.choice(m, N_SAMPLES, replace=False))
     cols = np.sort(rng.choice(n, N_SAMPLES, replace=False))
     mm = {x: np.memmap(paths[x], np.float64, "r", shape=(16384, 16384))
           for x in "ABC"}
     c0_rows, c0_cols = np.array(mm["C"][rows]), np.array(mm["C"][:, cols])
-    print(f"[{label}] operands written in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    argv = [paths["A"], paths["B"], paths["C"], str(m), str(n), str(k),
-            "--ta", "N", "--tb", "T", "--alpha", repr(alpha), "--beta",
-            repr(beta), "--dtype", "float64", *_driver_args(dev, scratch)]
-    wall, launches, stages, peak = _drive(
-        dev, gemm_driver.main, argv,
-        profile=bool(os.environ.get("BOF_SMOKE_PROFILE")))
-    _check_launches(label, launches, {"accum_matmul": 8,
-                                      "accum_matmul[f64]": 8})
-    print(f"[{label}] wall {wall:.3f} s, {2.0 * m * n * k / wall / 1e9:.1f} "
-          f"GFLOP/s, K1 launches {launches['accum_matmul']} (= mB*nB*kB, all "
-          f"f64), peak device memory {peak / 2**30:.2f} GiB, h2d "
-          f"{stages['gemm.h2d_bytes'] / 2**30:.3f} GiB, d2h "
-          f"{stages['gemm.d2h_bytes'] / 2**30:.3f} GiB", flush=True)
-    _stages(label, stages, "gemm.",
-            ("disk_wait_s", "prep_s", "h2d_s", "c_read_s", "tile_wait_s",
-             "accum_wait_s", "d2h_s", "write_wait_s"))
+    print(f"[S10 {shape}] operands written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     # op(B) = B^T: C[rows] = A[rows] B^T and C[:, cols] = A B[cols]^T,
     # streamed in row chunks of B and of A
     a_rows = np.array(mm["A"][rows])
@@ -2625,29 +2951,63 @@ def gemm64_phase(dev, scratch) -> dict:
             mm["B"][r0:r0 + CHUNK]).T
         want_cols[r0:r0 + CHUNK] = np.asarray(mm["A"][r0:r0 + CHUNK]) \
             @ b_cols.T
-    c_out = np.memmap(paths["C"], np.float64, "r", shape=(m, n))
-    checks = (
-        (np.array(c_out[rows]), alpha * want_rows + beta * c0_rows,
-         a_rmax[rows][:, None] * b_rmax[None, :], c0_rows),
-        (np.array(c_out[:, cols]), alpha * want_cols + beta * c0_cols,
-         a_rmax[:, None] * b_rmax[cols][None, :], c0_cols))
-    worst = max_err = 0.0
-    for got, want, scale, c0 in checks:
-        if not np.isfinite(got).all():
-            raise AssertionError(f"[{label}] non-finite values in the output")
-        limit = 1e-12 * (k * abs(alpha) * scale + abs(beta) * np.abs(c0))
-        worst = max(worst, float((np.abs(got - want) / limit).max()))
-        max_err = max(max_err, float(np.abs(got - want).max()))
-    print(f"[{label}] 16 rows and 16 columns against float64 numpy: max abs "
-          f"err {max_err:.6g}, worst err / (1e-12*(k*max|A row|*max|B col|*"
-          f"|alpha| + |beta|*|C0|)) {worst:.4f} "
-          f"{'ok' if worst <= 1.0 else 'FAIL'}", flush=True)
-    if worst > 1.0:
-        raise AssertionError(f"[{label}] disagrees with float64 numpy")
-    del mm, c_out
-    for path in paths.values():
+    del mm
+    runs = []
+    for tag, sharded in (("S10", False), ("S14 S10", True)):
+        label = f"{tag} {shape}" + (" sharded (1x1 NCCL mesh)" if sharded
+                                    else "")
+        if sharded:
+            _copy_in_place(c0_path, paths["C"])
+        argv = [paths["A"], paths["B"], paths["C"], str(m), str(n), str(k),
+                "--ta", "N", "--tb", "T", "--alpha", repr(alpha), "--beta",
+                repr(beta), "--dtype", "float64",
+                *_driver_args(dev, scratch)] + (["--sharded"] if sharded
+                                                 else [])
+        wall, launches, stages, peak = _drive(
+            dev, gemm_driver.main, argv,
+            profile=bool(os.environ.get("BOF_SMOKE_PROFILE")) and not sharded)
+        _check_launches(label, launches, {"accum_matmul": 8,
+                                          "accum_matmul[f64]": 8})
+        pre = "gemm_sharded." if sharded else "gemm."
+        print(f"[{label}] wall {wall:.3f} s, "
+              f"{2.0 * m * n * k / wall / 1e9:.1f} GFLOP/s, K1 launches "
+              f"{launches['accum_matmul']} (= mB*nB*kB, all f64), peak "
+              f"device memory {peak / 2**30:.2f} GiB, h2d "
+              f"{stages[pre + 'h2d_bytes'] / 2**30:.3f} GiB", flush=True)
+        if sharded:
+            _check_collectives(label, stages, {"reduce_scatter": 8})
+            _stages(label, stages, pre, ("disk_wait_s", "h2d_s", "d2h_s",
+                                         "write_wait_s"))
+        else:
+            _stages(label, stages, pre,
+                    ("disk_wait_s", "prep_s", "h2d_s", "c_read_s",
+                     "tile_wait_s", "accum_wait_s", "d2h_s",
+                     "write_wait_s"))
+        c_out = np.memmap(paths["C"], np.float64, "r", shape=(m, n))
+        checks = (
+            (np.array(c_out[rows]), alpha * want_rows + beta * c0_rows,
+             a_rmax[rows][:, None] * b_rmax[None, :], c0_rows),
+            (np.array(c_out[:, cols]), alpha * want_cols + beta * c0_cols,
+             a_rmax[:, None] * b_rmax[cols][None, :], c0_cols))
+        del c_out
+        worst = max_err = 0.0
+        for got, want, scale, c0 in checks:
+            if not np.isfinite(got).all():
+                raise AssertionError(f"[{label}] non-finite values in the "
+                                     "output")
+            limit = 1e-12 * (k * abs(alpha) * scale + abs(beta) * np.abs(c0))
+            worst = max(worst, float((np.abs(got - want) / limit).max()))
+            max_err = max(max_err, float(np.abs(got - want).max()))
+        print(f"[{label}] 16 rows and 16 columns against float64 numpy: max "
+              f"abs err {max_err:.6g}, worst err / (1e-12*(k*max|A row|*"
+              f"max|B col|*|alpha| + |beta|*|C0|)) {worst:.4f} "
+              f"{'ok' if worst <= 1.0 else 'FAIL'}", flush=True)
+        if worst > 1.0:
+            raise AssertionError(f"[{label}] disagrees with float64 numpy")
+        runs.append(launches)
+    for path in list(paths.values()) + [c0_path]:
         _retire(path)
-    return launches
+    return runs
 
 
 def _write_blobs(path, n, d, k, gen, dev):
@@ -2861,16 +3221,92 @@ def kmeans_resident_phase(dev, scratch) -> list:
             _check_rel(label, "inertia", fit["out"][1], inertia64, 1e-4)
         _retire(lab_path)
         runs.append(launches)
+    _resident_matches_streamed("S11b", out)
+    runs += kmeans_sharded_phase(dev, scratch, pts, n, d, k, iters)
+    _retire(pts)
+    return runs
+
+
+def _resident_matches_streamed(tag, out):
+    import numpy as np
     (c_a, i_a, l_a), (c_b, i_b, l_b) = out["resident"], out["streamed"]
     ok = (np.allclose(c_a, c_b, rtol=1e-5, atol=1e-5)
           and np.array_equal(l_a, l_b) and abs(i_a - i_b) <= 1e-4 * abs(i_b))
-    print(f"[S11b] resident against streamed: centers within rtol 1e-5 "
+    print(f"[{tag}] resident against streamed: centers within rtol 1e-5 "
           f"(bit-identical: {np.array_equal(c_a, c_b)}), labels equal, "
           f"inertia {i_a!r} / {i_b!r} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError("[S11b] the resident fit differs from the "
+        raise AssertionError(f"[{tag}] the resident fit differs from the "
                              "streamed one")
-    _retire(pts)
+
+
+def kmeans_sharded_phase(dev, scratch, pts, n, d, k, iters) -> list:
+    """S14 on S11b's points: kmeans_fit_sharded on a 1 x 1 NCCL mesh,
+    bof_tpu's k-means++ seeding (the mesh fit's only one), `iters`
+    iterations, once resident (a device budget that holds the mesh fit's
+    panel and one-hot, 3*n*(d+k)*4 bytes: one upload) and once streamed
+    (half that budget: an upload a pass).  B7 and an all-reduce of the
+    statistics a block.  Gate: one more sharded Lloyd pass from the
+    returned centers (outside the counted run) writes labels that stand
+    against the float64 argmin (near-ties), its inertia within rtol 1e-4
+    of float64 and its centers the float64 mean under those labels; the
+    two tiers give the same centers and labels."""
+    import numpy as np
+    import bof_tpu_torch as bt
+    from bof_tpu_torch.parallel import (kmeans_fit_sharded,
+                                        lloyds_iter_ooc_sharded, make_mesh)
+    runs, out = [], {}
+    panel = 3 * n * (d + k) * 4  # bof_tpu's residency test of the mesh fit
+    for tier, hbm in (("resident", panel + (1 << 30)),
+                      ("streamed", panel // 2)):
+        label = (f"S14 S11b kmeans_fit_sharded n={n} d={d} k={k} "
+                 f"iters={iters} ({tier}, 1x1 NCCL mesh)")
+        lab_path = os.path.join(scratch, f"labels_sh_{tier}.bin")
+        _reuse(lab_path, n * 4)
+        ctx = _new_ctx(dev, scratch)
+        ctx.config.hbm_budget = hbm
+        fit = {}
+
+        def run(_):
+            t = time.perf_counter()
+            P = bt.map_array(pts, (n, d), np.float32, ctx=ctx)
+            fit["out"] = kmeans_fit_sharded(
+                P, k, n_iters=iters, seed=SEED, tol=-1.0,
+                mesh=make_mesh(device=str(dev)), ctx=ctx)
+            return time.perf_counter() - t
+        try:
+            wall, launches, stages, peak = _drive(dev, run, None)
+            blocks = launches["lloyd_assign"]
+            _check_launches(label, launches, {"lloyd_assign": blocks,
+                                              "lloyd_accumulate": blocks})
+            _check_collectives(label, stages, {"all_reduce": None})
+            h2d = stages.get("kmeans.h2d_bytes", 0)
+            want_h2d = n * d * 4 * (1 if tier == "resident" else iters)
+            print(f"[{label}] wall {wall:.3f} s, B7 launches {blocks} + "
+                  f"{launches['lloyd_accumulate']}, h2d {h2d / 2**30:.3f} GiB "
+                  f"(expected {want_h2d / 2**30:.3f}), peak device memory "
+                  f"{peak / 2**30:.2f} GiB", flush=True)
+            if h2d != want_h2d:
+                raise AssertionError(f"[{label}] the points crossed the "
+                                     f"link {h2d} bytes, expected {want_h2d}")
+            _stages(label, stages, "kmeans.", ("seed_s",))
+            centers, inertia = fit["out"]
+            P = bt.map_array(pts, (n, d), np.float32, ctx=ctx)
+            L = bt.map_array(lab_path, (n,), np.int32, create=True, ctx=ctx)
+            new_c, inertia2, counts = lloyds_iter_ooc_sharded(
+                P, centers, labels_out=L, mesh=make_mesh(device=str(dev)),
+                ctx=ctx)
+        finally:
+            ctx.destroy()
+        inertia64, sums64, abs64, counts64 = _stream_check(
+            label, pts, lab_path, centers, n, d, k, dev)
+        _check_rel(label, "inertia of one more pass", inertia2, inertia64,
+                   1e-4)
+        _check_step(label, new_c, centers, counts, sums64, abs64, counts64)
+        out[tier] = (centers, inertia, np.fromfile(lab_path, np.int32))
+        _retire(lab_path)
+        runs.append(launches)
+    _resident_matches_streamed("S14 S11b", out)
     return runs
 
 
@@ -3102,9 +3538,11 @@ def main() -> int:
           f"{t2 - t1:.1f} s ({cuda_lib.BUILD_INFO['path']})")
     _ptxas_report(cuda_lib.BUILD_INFO.get("ptxas", ""))
 
-    summary = {"accum_matmul": kernel_phase(dev), **lowp_kernel_phase(dev),
-               **ell_kernel_phase(dev), **topk_kernel_phase(dev),
-               **sort_kernel_phase(dev)}
+    summary = {"accum_matmul": kernel_phase(dev), **lowp_kernel_phase(dev)}
+    summary.update(s8_i32_kernel_phase(dev,
+                                       summary["accum_matmul[s8]"]["ms"]))
+    summary.update({**ell_kernel_phase(dev), **topk_kernel_phase(dev),
+                    **sort_kernel_phase(dev)})
 
     scratch = os.environ.get("BOF_SCRATCH") or os.path.join(
         HERE, "build", "chip_smoke")
@@ -3128,9 +3566,13 @@ def main() -> int:
     f32 = ("float32", "float32")
     runs = gemm_phase(dev, scratch, 32768, 32768, 32768, "R", "N", "N",
                       1.0, 0.0, (("S1", *f32), ("S6", "int8", "bfloat16")))
+    # S14 (the sharded paths on a 1 x 1 NCCL mesh) runs on each cell's
+    # files right after the cell: here fp32 and int8 on S2's
     runs += gemm_phase(dev, scratch, 12288, 12288, 12288, "C", "T", "N",
                        0.5, 2.0, (("S2", *f32),
-                                  ("S7", "bfloat16", "float32")))
+                                  ("S7", "bfloat16", "float32"),
+                                  ("S14 S2", *f32, True),
+                                  ("S14 S2", "int8", "float32", True)))
     prefix = os.path.join(scratch, "A_fig6")
     t0 = time.perf_counter()
     a_sp = _sparse_create(prefix, 1 << 20, 1 << 17, 131.072, SEED + 3)
@@ -3138,7 +3580,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s: {a_sp.shape[0]}x{a_sp.shape[1]}"
           f", nnz {a_sp.nnz}", flush=True)
     runs += csrmm_fig6_phase(dev, scratch, prefix, a_sp,
-                             (("S3", *f32), ("S8", "int8", "bfloat16")))
+                             (("S3", *f32), ("S8", "int8", "bfloat16"),
+                              ("S14 S3", *f32, True)))
     runs += csrmm_trans_phase(dev, scratch,
                               (("S4", *f32), ("S4b", "bfloat16", "float32")))
     for tag, trans, xfer in (("S5", "N", "float32"), ("S5", "T", "float32"),
@@ -3152,6 +3595,12 @@ def main() -> int:
         t0 = time.perf_counter()
         runs.append(phase(dev, scratch, prefix, a_sp))
         walls[tag] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs.append(xml_phase(dev, scratch, prefix, a_sp, sharded=True))
+    walls["S14 X1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs += mesh_apps_phase(dev, scratch, a_sp)
+    walls["S14 E1+T1 cut"] = time.perf_counter() - t0
     for ext in (".off", ".col", ".csr"):
         os.unlink(prefix + ext)
     del a_sp
@@ -3186,6 +3635,10 @@ def main() -> int:
                                         for r in runs)
         if summary[name]["launches"] == 0:
             raise AssertionError(f"the main paths never launched {name}")
+    # S14's world of one NCCL rank ends with the checks
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -3196,6 +3649,8 @@ def main() -> int:
                                "bof_tpu/ops/matmul_pallas.py:65"),
         "accum_matmul[s8]": ("bof_tpu_torch/csrc/matmul_lowp.cu",
                              "bof_tpu/ops/device.py:136"),
+        "accum_matmul[s8_i32]": ("bof_tpu_torch/csrc/matmul_lowp.cu",
+                                 "bof_tpu/parallel/mesh.py:109"),
         "spmm_ell": ("bof_tpu_torch/csrc/spmm_ell.cu",
                      "bof_tpu/sparse/spmm_pallas.py:64"),
         "spmm_ell[bf16]": ("bof_tpu_torch/csrc/spmm_ell.cu",

@@ -249,7 +249,7 @@ def test_block_power_svd_device_one_pass(ctxs):
 def test_one_pass_fp64_routes_to_exact_host(ctxs):
     """fp64 CSR values: 'device' placement falls back to the exact host
     products in both packages (the port's kernels are fp32), matching
-    scipy fp64 to 1e-12; the sharded operator is not ported (A14)."""
+    scipy fp64 to 1e-12."""
     rng = np.random.default_rng(0)
     k, L = 120, 4
     a_sp = sps.random(300, k, density=0.05, format="csr", dtype=np.float64,
@@ -681,20 +681,34 @@ def test_row_topk_wrapper_knows_the_kernels_smem_width():
         == ["reg", "reg", "smem", "smem", "l2"]
 
 
-# ------------------------------------------------- several cards: not yet
+# ------------------------------------------------------- mesh= paths
 
 def test_mesh_paths_raise_naming_a14(ctxs):
-    a_sp = _random_a(40, 20, 0.2)
-    _, A = _csr(ctxs, a_sp)
-    W = bof_tpu_torch.mem_array((6, 20), np.float32, ctx=ctxs[1],
-                                data=np.ones((6, 20), np.float32))
-    mesh = object()
-    for call in (lambda: port_eig.block_lanczos_svd(A, 2, mesh=mesh,
-                                                    ctx=ctxs[1]),
-                 lambda: port_xml.xml_rank(A, W, 2, mesh=mesh, ctx=ctxs[1]),
-                 lambda: port_tm.topic_model(A, 2, mesh=mesh, ctx=ctxs[1])):
-        with pytest.raises(NotImplementedError, match="A14"):
-            call()
+    """The three applications' mesh= paths on a world of one CPU rank (a
+    1 x 1 mesh) against bof_tpu's on make_mesh(1): singular values rtol
+    1e-4, XML scores by `_check_topk`, topic labels on all but 1 % of the
+    documents (tests/test_torch_parallel_apps.py runs them on 4 ranks)."""
+    from bof_tpu.parallel import make_mesh as ref_make_mesh
+    from torch_dist_pool import one_rank_world
+    a_sp = _random_a(120, 40, 0.2)
+    A_ref, A = _csr(ctxs, a_sp)
+    w_np = np.random.default_rng(3).standard_normal((6, 40)).astype(
+        np.float32)
+    W = bof_tpu_torch.mem_array((6, 40), np.float32, ctx=ctxs[1], data=w_np)
+    ref_mesh = ref_make_mesh(1)
+    with one_rank_world() as mesh:
+        sigma, _ = port_eig.block_lanczos_svd(A, 2, mesh=mesh, ctx=ctxs[1])
+        s, l = port_xml.xml_rank(A, W, 2, mesh=mesh, ctx=ctxs[1])
+        tw, labels = port_tm.topic_model(A, 2, proj_dim=8, mesh=mesh,
+                                         ctx=ctxs[1])
+    want_s, _ = ref_eig.block_lanczos_svd(A_ref, 2, mesh=ref_mesh,
+                                          ctx=ctxs[0])
+    np.testing.assert_allclose(sigma, want_s, rtol=1e-4)
+    _check_topk(s.read_all(), l.read_all(),
+                np.asarray(a_sp @ w_np.T, np.float32), 2)
+    _, want_l = ref_tm.topic_model(A_ref, 2, proj_dim=8, mesh=ref_mesh,
+                                   ctx=ctxs[0])
+    assert tw.shape == (2, 40) and (labels != want_l).mean() <= 0.01
 
 
 # ---------------------------------------------------------------- drivers
@@ -720,8 +734,8 @@ def corpus(tmp_path):
 
 def test_eigensolver_driver(corpus, tmp_path, capsys):
     """Lanczos (one pass, and with --two-pass) and power through the CLI
-    against scipy's svds; --state is consumed on convergence; --sharded
-    is not ported (A14)."""
+    against scipy's svds; --state is consumed on convergence; --sharded on
+    a world of one rank."""
     prefix, a_sp, scratch = corpus
     m, k = a_sp.shape
     want = _svds(a_sp, 4)
@@ -735,15 +749,17 @@ def test_eigensolver_driver(corpus, tmp_path, capsys):
         sig, _ = _run_driver("eigensolver", prefix, m, k, 4, *extra,
                              scratch=scratch)
         np.testing.assert_allclose(sig, want, rtol=1e-3)
-    with pytest.raises(NotImplementedError, match="A14"):
-        _run_driver("eigensolver", prefix, m, k, 4, "--sharded",
-                    scratch=scratch)
+    from torch_dist_pool import one_rank_world
+    with one_rank_world():
+        sig, _ = _run_driver("eigensolver", prefix, m, k, 4, "--iters", 20,
+                             "--sharded", scratch=scratch)
+    np.testing.assert_allclose(sig, want, rtol=1e-3)
 
 
 @pytest.mark.parametrize("fused", ["on", "off"])
 def test_xml_rank_driver(corpus, tmp_path, capsys, fused):
     """W from a file, the top-k written to --scores/--labels, against
-    dense scores; --sharded is not ported (A14)."""
+    dense scores; --sharded on a world of one rank."""
     prefix, a_sp, scratch = corpus
     docs, vocab = a_sp.shape
     n_labels, k = 37, 5
@@ -761,16 +777,21 @@ def test_xml_rank_driver(corpus, tmp_path, capsys, fused):
         np.fromfile(s_path, np.float32).reshape(docs, k), s)
     np.testing.assert_array_equal(
         np.fromfile(l_path, np.int32).reshape(docs, k), l)
-    with pytest.raises(NotImplementedError, match="A14"):
-        _run_driver("xml_rank", prefix, docs, vocab, w_path, n_labels, k,
-                    "--sharded", scratch=scratch)
+    from torch_dist_pool import one_rank_world
+    with one_rank_world():
+        s2, l2 = _run_driver("xml_rank", prefix, docs, vocab, w_path,
+                             n_labels, k, "--label-blk", 16, "--fused",
+                             fused, "--sharded", scratch=scratch)
+    _check_topk(s2, l2, np.asarray(a_sp @ w_np.T, np.float32), k)
+    np.testing.assert_allclose(s2, s, rtol=2e-4, atol=1e-4)
 
 
 def test_topic_model_driver(corpus, tmp_path, capsys):
     """The ISLE mode through the CLI with --out and --state: the returned
     topic-word matrix is the row-normalized float64 one_hot(labels)^T A
     (rows of non-positive mass zero), the file holds it, the state is
-    consumed; --sharded is not ported (A14)."""
+    consumed; --sharded on a world of one rank gives a model of the same
+    form."""
     prefix, a_sp, scratch = corpus
     docs, vocab = a_sp.shape
     out = str(tmp_path / "topics.bin")
@@ -791,6 +812,15 @@ def test_topic_model_driver(corpus, tmp_path, capsys):
     want = np.where(norm > 0, t64 / np.where(norm > 0, norm, 1.0), 0.0)
     np.testing.assert_allclose(tw, want, rtol=1e-4, atol=1e-6)
     assert not os.path.exists(state)
-    with pytest.raises(NotImplementedError, match="A14"):
-        _run_driver("topic_model", prefix, docs, vocab, 6, "--sharded",
-                    scratch=scratch)
+    from torch_dist_pool import one_rank_world
+    with one_rank_world():
+        tw2, labels2 = _run_driver("topic_model", prefix, docs, vocab, 6,
+                                   "--proj-dim", 8, "--iters", 3,
+                                   "--sample-rate", 0.5, "--sharded",
+                                   scratch=scratch)
+    onehot = np.zeros((docs, 6))
+    onehot[np.arange(docs), labels2] = 1.0
+    t64 = np.asarray((a_sp.T.astype(np.float64) @ onehot).T)
+    norm = t64.sum(1, keepdims=True)
+    want = np.where(norm > 0, t64 / np.where(norm > 0, norm, 1.0), 0.0)
+    np.testing.assert_allclose(tw2, want, rtol=1e-4, atol=1e-6)

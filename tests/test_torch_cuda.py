@@ -206,7 +206,7 @@ def test_variant_launch_counters(cuda_device):
     assert accum_matmul.launches == before[0] + 3
     assert {v: accum_matmul.variant_launches[v] - before[1][v]
             for v in before[1]} == {"tf32x3": 2, "tf32": 1, "bf16": 0,
-                                    "s8": 0, "f64": 0}
+                                    "s8": 0, "s8_i32": 0, "f64": 0}
     assert tuple(before[1]) == K1_VARIANTS
 
 

@@ -105,8 +105,22 @@ def test_kmeans_driver(tmp_path, scratch, capsys):
                         "float64", scratch=scratch)
     assert c64.dtype == np.float64
     assert "inertia" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A14"):
-        run_driver("kmeans", pts, n, d, k, "--sharded", scratch=scratch)
+    # --sharded on a world of one rank: bof_tpu's mesh fit on make_mesh(1)
+    from bof_tpu.parallel import kmeans_fit_sharded, make_mesh
+    from torch_dist_pool import one_rank_world
+    with one_rank_world():
+        c_sh, i_sh = run_driver("kmeans", pts, n, d, k, "--iters", 2,
+                                "--sharded", scratch=scratch)
+    ctx = bof_tpu.FlashContext(bof_tpu.FlashConfig(
+        scratch_dir=str(tmp_path / "ref")))
+    try:
+        P = bof_tpu.map_array(pts, (n, d), np.float32, ctx=ctx)
+        want_c, want_i = kmeans_fit_sharded(P, k, n_iters=2, seed=0,
+                                            mesh=make_mesh(1), ctx=ctx)
+    finally:
+        ctx.destroy()
+    np.testing.assert_allclose(c_sh, want_c, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(i_sh, want_i, rtol=1e-4)
 
 
 def test_kmeans_in_mem_baseline(tmp_path, capsys):

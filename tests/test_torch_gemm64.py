@@ -379,7 +379,8 @@ def test_gemm64_signature_is_the_reference_one():
 
 def test_gemm64_knobs_keep_the_reference_contract(tmp_path):
     """`slices` is range-checked as bof_tpu checks it and changes nothing
-    else, `k_flush` is accepted, and `mesh=` names ROADMAP A14."""
+    else, `k_flush` is accepted, and `mesh=` (a world of one rank) gives
+    the same bits as no mesh."""
     rng = np.random.default_rng(6)
     a, b = rng.standard_normal((24, 128)), rng.standard_normal((128, 20))
     _, cfg = _configs(tmp_path)
@@ -396,8 +397,11 @@ def test_gemm64_knobs_keep_the_reference_contract(tmp_path):
         for s in (1, 13):
             with pytest.raises(ValueError, match=r"\[2, 12\]"):
                 bof_tpu_torch.gemm64(A, B, C, blk=16, ctx=ctx, slices=s)
-        with pytest.raises(NotImplementedError, match="A14"):
-            bof_tpu_torch.gemm64(A, B, C, blk=16, ctx=ctx, mesh=object())
+        from torch_dist_pool import one_rank_world
+        with one_rank_world() as mesh:
+            C = bof_tpu_torch.mem_array((24, 20), F64, ctx=ctx)
+            bof_tpu_torch.gemm64(A, B, C, blk=16, ctx=ctx, mesh=mesh)
+            outs.append(C.read_all())
         A32 = bof_tpu_torch.mem_array((8, 8), np.float32, ctx=ctx)
         with pytest.raises(ValueError, match="float64"):
             bof_tpu_torch.gemm64(A32, A32, A32, ctx=ctx)

@@ -318,3 +318,81 @@ def test_b10_source_is_built_and_bound():
     got = sort_cuda.sort_block(x, np.int32)
     assert got.tolist() == [-1, 2, 3]
     assert sort_cuda.sort_block.launches == before  # CPU: plain version
+
+
+def test_parallel_slice_imports_neither_jax_nor_bof_tpu():
+    """parallel/ and utils/profiling import no jax, ml_dtypes or bof_tpu
+    module; parallel/ exports bof_tpu.parallel's ten names, and they and
+    profiling's trace/annotate keep bof_tpu's parameters (make_mesh adds a
+    keyword-only `device`)."""
+    import inspect
+    code = ("import sys, bof_tpu_torch.parallel, bof_tpu_torch.parallel.mesh,"
+            " bof_tpu_torch.utils.profiling, bof_tpu_torch.drivers.gemm; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'ml_dtypes', 'bof_tpu')); print(bad)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    import bof_tpu.parallel
+    import bof_tpu.utils.profiling as ref_prof
+    import bof_tpu_torch.parallel as par
+    import bof_tpu_torch.utils.profiling as prof
+    assert sorted(par.__all__) == sorted(bof_tpu.parallel.__all__)
+    pairs = [(getattr(par, n), getattr(bof_tpu.parallel, n))
+             for n in par.__all__]
+    pairs += [(prof.trace, ref_prof.trace), (prof.annotate, ref_prof.annotate)]
+    for mine, ref in pairs:
+        got = list(inspect.signature(mine).parameters)
+        want = list(inspect.signature(ref).parameters)
+        assert got[:len(want)] == want, mine.__name__
+        assert got[len(want):] in ([], ["device"]), mine.__name__
+
+
+@pytest.mark.parametrize("entry", ["make_mesh", "gemm_sharded",
+                                   "csrmm_sharded", "kmeans_fit_sharded",
+                                   "lloyds_iter_ooc_sharded", "gemm64_mesh"])
+def test_parallel_cuda_device_without_card_raises(tmp_path, entry):
+    """Every sharded entry point runs on the card unless asked for the CPU:
+    with a cuda config and no card it raises before any process group or
+    computation exists, and writes nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the CPU-only contract does "
+                    "not apply")
+    import scipy.sparse as sps
+    import torch.distributed as dist
+    from bof_tpu_torch import parallel
+    cfg = bof_tpu_torch.FlashConfig(device="cuda",
+                                    scratch_dir=str(tmp_path / "s"))
+    ctx = bof_tpu_torch.FlashContext(cfg)
+    try:
+        x = bof_tpu_torch.mem_array((8, 8), np.float32, ctx=ctx,
+                                    data=np.eye(8, dtype=np.float32))
+        c = bof_tpu_torch.mem_array((8, 8), np.float32, ctx=ctx)
+        x64, c64 = (bof_tpu_torch.mem_array((8, 8), np.float64, ctx=ctx,
+                                            data=np.eye(8))
+                    for _ in range(2))
+        a = bof_tpu_torch.CsrFlashMatrix.from_scipy(
+            sps.identity(8, dtype=np.float32, format="csr"), ctx=ctx)
+        labels = bof_tpu_torch.mem_array((8,), np.int32, ctx=ctx)
+        calls = {
+            "make_mesh": lambda: parallel.make_mesh(device=cfg.device),
+            "gemm_sharded": lambda: parallel.gemm_sharded(x, x, c, ctx=ctx),
+            "csrmm_sharded": lambda: parallel.csrmm_sharded(a, x, c,
+                                                            ctx=ctx),
+            "kmeans_fit_sharded": lambda: parallel.kmeans_fit_sharded(
+                x, 2, labels_out=labels, ctx=ctx),
+            "lloyds_iter_ooc_sharded": lambda: (
+                parallel.lloyds_iter_ooc_sharded(
+                    x, np.eye(2, 8, dtype=np.float32), labels_out=labels,
+                    ctx=ctx)),
+            "gemm64_mesh": lambda: bof_tpu_torch.gemm64(
+                x64, x64, c64, ctx=ctx, mesh=parallel.make_mesh(
+                    device=cfg.device))}
+        with pytest.raises(RuntimeError, match="cuda"):
+            calls[entry]()
+        assert not dist.is_initialized()
+        assert not c.read_all().any() and not labels.read_all().any()
+    finally:
+        ctx.destroy()

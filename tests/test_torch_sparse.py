@@ -584,9 +584,13 @@ def test_sparse_drivers_run_on_cpu(tmp_path, capsys):
         a @ b, **TOL)
     assert "checksum" in capsys.readouterr().out
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+    from torch_dist_pool import one_rank_world
+    with one_rank_world():
         csrmm.main([pre, str(m), str(k), os.path.join(d, "B.bin"), str(n),
-                    os.path.join(d, "C.bin"), "--sharded"] + common)
+                    os.path.join(d, "C.bin"), "--alpha", "2", "--sharded"]
+                   + common)
+    got = np.fromfile(os.path.join(d, "C.bin"), F32).reshape(m, n)
+    np.testing.assert_allclose(got, 2.0 * (a @ b), **TOL)
 
 
 # ------------------------------------------------- bands written in place

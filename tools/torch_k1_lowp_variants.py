@@ -40,7 +40,7 @@ SERIAL_EPILOGUE = """#pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
     if (row >= M) continue;
-    float* drow = d + (long long)row * ldd;
+    Out* drow = d + (long long)row * ldd;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -82,12 +82,12 @@ def _variants(src: str) -> dict:
         # C read but not written (a store only where a sum is a sentinel
         # no input gives): the mainloop and C's reads
         "no_c_store": edit(src, (
-            "        if (pairs && col + 1 < N) {\n"
-            "          *reinterpret_cast<float2*>(drow + col) = "
-            "make_float2(v0, v1);\n        } else {",
-            "        if (v0 == -12345.f) {\n"
-            "          *reinterpret_cast<float2*>(drow + col) = "
-            "make_float2(v0, v1);\n        } else if (v1 == -12345.f) {")),
+            "        if (pairs && col + 1 < N) {\n          P2 v;\n",
+            "        if (v0 == Out(-12345)) {\n          P2 v;\n"), (
+            "          *reinterpret_cast<P2*>(drow + col) = v;\n"
+            "        } else {",
+            "          *reinterpret_cast<P2*>(drow + col) = v;\n"
+            "        } else if (v1 == Out(-12345)) {")),
         "serial_epilogue": src[:start] + SERIAL_EPILOGUE + src[end:],
         "epi_chunks_16": edit(src, ("constexpr int EPI_CHUNKS = 8;",
                                     "constexpr int EPI_CHUNKS = 16;")),
