@@ -43,6 +43,7 @@ from ..core.flash_array import FlashArray, flash_empty, flash_free
 from ..ops import device as dev
 from ..ops.topk_cuda import row_topk
 from ..sparse import CsrFlashMatrix, csrmm
+from ..sparse.csrmm import ell_bands
 from ..utils import LOG, METRICS, Timer
 
 
@@ -156,7 +157,6 @@ def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
     ia_np = a.read_ia()
     blocks = fill_row_blocks(ia_np, cfg.max_nnzs)
     entry_cap = max(1 << 14, int(cfg.hbm_budget // 6 // max(lb_max * 4, 1)))
-    sort_rows = getattr(cfg, "ell_sort_rows", True)
     ell_idt = sdev.ell_idx_dtype(vocab, getattr(cfg, "ell_idx_narrow", True))
     ell_vdt = sdev.ell_val_dtype(a.vals.dtype, cfg)
 
@@ -190,23 +190,16 @@ def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
                                                       ctx):
             t0 = time.perf_counter()
             METRICS.add("xml_rank.disk_wait_s", t0 - t_wait)
-            blk_ia = ia_np[r:e + 1] - int(ia_np[r])
-            counts = np.diff(blk_ia)
-            # count-sorted ELL banding (as csrmm's); results stage per
-            # block so the top-k merge stays a contiguous panel write
-            order = (np.argsort(counts, kind="stable") if sort_rows
-                     else np.arange(e - r))
+            # csrmm's count-sorted ELL bands; results stage per block so
+            # the top-k merge stays a contiguous panel write
+            bands = ell_bands(ia_np[r:e + 1] - int(ia_np[r]), ja_blk, va_blk,
+                              entry_cap, cfg, ell_idt, ell_vdt)
+            METRICS.add("xml_rank.prep_s", time.perf_counter() - t0)
             s_stage = np.empty((e - r, k), np.float32)
             l_stage = np.empty((e - r, k), np.int32)
-            for (s0, s1) in sdev.ell_row_ranges(counts[order], entry_cap):
-                rows_sel = order[s0:s1]
+            for rows_sel, cnt, ja_ell, va_ell in bands:
                 n_sel = len(rows_sel)
-                ja_ell, va_ell = sdev.to_ell_rows(
-                    blk_ia, ja_blk, va_blk, rows_sel, idx_dtype=ell_idt,
-                    val_dtype=ell_vdt, counts=counts)
-                cnt = counts[rows_sel].astype(np.int32)
                 t1 = time.perf_counter()
-                METRICS.add("xml_rank.prep_s", t1 - t0)
                 lo, hi = 0, n_sel
                 if mesh is not None:
                     lo, hi, run = pmesh.row_run(mesh, n_sel)
@@ -311,6 +304,9 @@ def xml_rank(a: CsrFlashMatrix, w: FlashArray, k: int,
 
     s_blk = _empty((docs, lb_max), np.float32)
     merges = mesh is None or pmesh.flat_rank(mesh) == 0
+    # the next block's csrmm overwrites s_blk: no rank may start it before
+    # rank 0 has merged this block
+    waits = mesh is not None and pmesh.n_ranks(mesh) > 1
     try:
         for b0 in range(0, n_labels, lb_max):
             lb = min(lb_max, n_labels - b0)
@@ -323,15 +319,16 @@ def xml_rank(a: CsrFlashMatrix, w: FlashArray, k: int,
                 csrmm_sharded(a, wt, s_view, mesh=mesh, ctx=ctx)
             else:  # one card's out-of-core pass
                 csrmm(a, wt, s_view, ctx=ctx)
-            if not merges:
-                continue
-            first = b0 == 0
-            lab_ids = np.arange(b0, b0 + lb, dtype=np.int32)
-            for r0 in range(0, docs, db):
-                bn = min(db, docs - r0)
-                s_new = s_view.read_block(r0, bn, 0, lb)
-                _merge_topk(scores, labels, r0, s_new,
-                            np.broadcast_to(lab_ids, (bn, lb)), k, first)
+            if merges:
+                first = b0 == 0
+                lab_ids = np.arange(b0, b0 + lb, dtype=np.int32)
+                for r0 in range(0, docs, db):
+                    bn = min(db, docs - r0)
+                    s_new = s_view.read_block(r0, bn, 0, lb)
+                    _merge_topk(scores, labels, r0, s_new,
+                                np.broadcast_to(lab_ids, (bn, lb)), k, first)
+            if waits:
+                pmesh.barrier()  # rank 0 has read this block's s_blk
         scores.store.flush()
         labels.store.flush()
         LOG.debug("xml_rank: %d docs x %d labels top-%d in %.0f ms "

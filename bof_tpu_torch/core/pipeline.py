@@ -1,9 +1,12 @@
-"""Prefetch pipeline helper over the tile cache.
+"""Pipeline helpers shared by the kernel planners.
 
-Small utility shared by kernel planners: given an ordered list of accesses,
-keeps `depth` of them pinned ahead in the tile cache so disk I/O overlaps
-with device compute — the planner-side expression of the reference's
-prefetch pipeline (the Prioritizer+backlog machinery services the pins).
+`PrefetchSeq`: given an ordered list of accesses, keeps `depth` of them
+pinned ahead in the tile cache so disk I/O overlaps with device compute —
+the planner-side expression of the reference's prefetch pipeline (the
+Prioritizer+backlog machinery services the pins).  `TicketWindow` bounds
+the async writes in flight.  `queue_put`, `queue_put_sentinel`,
+`queue_items` and `join_threads` are the stage threads' one shutdown
+protocol: bounded, timed queues and a shared error list.
 """
 from __future__ import annotations
 
@@ -123,3 +126,35 @@ def queue_put_sentinel(q, errors):
         q.put_nowait(None)
     except _queue.Full:
         pass
+
+
+def queue_items(q, errors):
+    """The items of a pipeline queue up to its None: timeout-gets, so a
+    consumer whose producer died (the error-path None can be dropped on a
+    full queue) ends once an error is recorded and the queue is empty."""
+    import queue as _queue
+    while True:
+        try:
+            box = [q.get(timeout=1.0)]
+        except _queue.Empty:
+            if errors:
+                return
+            continue
+        if box[0] is None:
+            return
+        # popped, not bound: the consumer alone holds the item (and may
+        # drop a device buffer in it before the next get)
+        yield box.pop()
+
+
+def join_threads(threads, errors) -> None:
+    """Join a pipeline's stage threads: unbounded while healthy (a writer
+    on a slow disk can outlast any fixed timeout, and returning early
+    would report success with writes in flight), 30 s each once an error
+    is recorded."""
+    for t in threads:
+        while t.is_alive():
+            t.join(timeout=1.0)
+            if errors:
+                t.join(timeout=30)
+                break

@@ -53,7 +53,8 @@ import numpy as np
 
 from ..context import get_context
 from ..core.flash_array import FlashArray
-from ..core.pipeline import queue_put, queue_put_sentinel
+from ..core.pipeline import (join_threads, queue_items, queue_put,
+                             queue_put_sentinel)
 from ..io.native import bf16_to_f32, cast_bf16, quantize_i8
 from ..utils import LOG, METRICS, Timer, cdiv
 from . import device as dev
@@ -200,6 +201,80 @@ def _check_finite(arr: FlashArray, access, outer: int, inner: int, sb: int,
                         f"({o * sb},{q * sb}) with debug_checks on")
             finally:
                 cache.unpin(pin)
+
+
+def _superblock_pipeline(steps, kB: int, depth: int, produce, start, accum,
+                         write_all, wait_metric: Optional[str] = None
+                         ) -> None:
+    """The threaded pipeline of both out-of-core gemms (`gemm` here and
+    `parallel.mesh.gemm_sharded`), each plugging in its own stages:
+
+    - a producer thread runs `produce(put)`: it reads, rounds and uploads
+      the operand tiles of `steps` ((i, j, l) superblocks) in order and
+      hands `put` one (a_dev, b_dev, c_init) item a step, returning early
+      once `put` returns False (another stage failed);
+    - this thread keeps one device accumulator a live j: `start(c_init)`
+      at l == 0, then `c = accum(c, a_dev, b_dev)` each step, handed on
+      after l == kB - 1 (the K1 launches);
+    - a writer thread runs `write_all(blocks)`, downloading and writing
+      each finished (i, j, c_dev) as the iterator yields it.
+
+    Every queue is bounded (`depth` items) and timed, and a failure in any
+    stage reaches the others through one error list, so none can hang;
+    the first error is raised here once the threads have ended.
+    `wait_metric` books this thread's waits for tiles."""
+    tile_q: queue.Queue = queue.Queue(maxsize=depth)
+    write_q: queue.Queue = queue.Queue(maxsize=max(2, depth))
+    errors: list = []
+
+    def producer():
+        try:
+            produce(lambda item: queue_put(tile_q, item, errors))
+        except BaseException as e:  # pragma: no cover
+            errors.append(e)
+            try:
+                tile_q.put_nowait(None)
+            except queue.Full:
+                pass
+
+    def writer():
+        try:
+            write_all(queue_items(write_q, errors))
+        except BaseException as e:  # pragma: no cover
+            errors.append(e)
+
+    threads = [threading.Thread(target=producer, daemon=True),
+               threading.Thread(target=writer, daemon=True)]
+    for t in threads:
+        t.start()
+    c_live: dict = {}  # j -> device accumulator for the current i sweep
+    tiles = queue_items(tile_q, errors)
+    try:
+        for (i, j, l) in steps:
+            t_get = time.perf_counter()
+            item = next(tiles, None)
+            if wait_metric:
+                METRICS.add(wait_metric, time.perf_counter() - t_get)
+            if item is None:
+                break
+            a_dev, b_dev, c_init = item
+            if l == 0:
+                c_live[j] = start(c_init)
+            c_live[j] = accum(c_live[j], a_dev, b_dev)
+            if l == kB - 1:
+                # timeout-put so a dead writer can't deadlock the loop
+                queue_put(write_q, (i, j, c_live.pop(j)), errors)
+            if errors:
+                break
+    except BaseException as e:
+        # a dispatch or collective failure (device OOM, launch error) must
+        # land in `errors`: both helper threads key their shutdown off it —
+        # the producer would otherwise spin forever holding pinned tiles
+        errors.append(e)
+    queue_put_sentinel(write_q, errors)
+    join_threads(threads, errors)
+    if errors:
+        raise errors[0]
 
 
 def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
@@ -373,16 +448,11 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
     timer = Timer()
     c_full_storage = (sb, sb)
 
-    # ---- 4-stage threaded pipeline ------------------------------------
-    # producer thread: disk->host (cache pins) -> host->device, with the
-    #   device LRU for reuse; emits ready device tiles in order
-    # main thread: launches the accumulate steps (K1)
-    # writer thread: D2H of finished C superblocks -> async disk write
-    tile_q: queue.Queue = queue.Queue(maxsize=depth)
-    write_q: queue.Queue = queue.Queue(maxsize=max(2, depth))
-    errors: list = []
+    # ---- the superblock pipeline (_superblock_pipeline) ----------------
+    # producer: disk->host (cache pins) -> host->device, with the device
+    #   LRU for reuse; main thread: K1; writer: D2H -> async disk write
 
-    def producer():
+    def produce(put):
         pinned = collections.deque()
         try:
             for idx in range(min(depth, len(steps))):
@@ -448,154 +518,90 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                 finally:
                     _unpin(da)  # release current-step pins even on error
                     _unpin(db)
-                # timeout-put (core/pipeline.queue_put): a dead consumer
-                # can't block us holding pins forever
-                if not queue_put(tile_q, (a_dev, b_dev, c_init), errors):
+                # a timeout-put: a dead consumer can't block us holding
+                # pins forever
+                if not put((a_dev, b_dev, c_init)):
                     return
-        except BaseException as e:  # pragma: no cover
-            errors.append(e)
-            try:
-                tile_q.put_nowait(None)
-            except queue.Full:
-                pass
         finally:
             for da, db in pinned:  # release lookahead pins on any exit
                 _unpin(da)
                 _unpin(db)
 
-    def writer():
-        try:
-            from ..core.pipeline import TicketWindow
-            write_tickets = TicketWindow(depth=8)
-            while True:
-                try:  # timeout-get: a dead dispatcher can't hang us —
-                    # the error-path sentinel can be dropped on a full
-                    # queue, so the errors flag is the fallback signal
-                    item = write_q.get(timeout=1.0)
-                except queue.Empty:
-                    if errors:
-                        break
-                    continue
-                if item is None:
-                    break
-                i, j, bi, bj, c_dev = item
-                # tile-major C stores the full padded tile — hand the
-                # whole buffer over instead of slicing the logical tail
-                ci_shape = ((sb, sb) if c_tiled
-                            else _storage_shape(c, (bi, bj)))
-                # split the wait for the block's last accumulate from the
-                # download itself (stages partition the wall time)
-                if c_xfer_bf16:
-                    # round the finished block on the device so half the
-                    # bytes cross the link; the accumulation ran in fp32
-                    c_dev = dev.to_bf16(c_dev)
+    def write_all(blocks):
+        from ..core.pipeline import TicketWindow
+        write_tickets = TicketWindow(depth=8)
+        for i, j, c_dev in blocks:
+            bi, bj, _ = tile_dims(i, j, 0)
+            # tile-major C stores the full padded tile — hand the whole
+            # buffer over instead of slicing the logical tail
+            ci_shape = ((sb, sb) if c_tiled
+                        else _storage_shape(c, (bi, bj)))
+            # split the wait for the block's last accumulate from the
+            # download itself (stages partition the wall time)
+            if c_xfer_bf16:
+                # round the finished block on the device so half the
+                # bytes cross the link; the accumulation ran in fp32
+                c_dev = dev.to_bf16(c_dev)
+            t0 = time.perf_counter()
+            dev.sync(c_dev)
+            t1 = time.perf_counter()
+            c_full = dev.from_device(c_dev)
+            t2 = time.perf_counter()
+            METRICS.add("gemm.accum_wait_s", t1 - t0)
+            METRICS.add("gemm.d2h_s", t2 - t1)
+            if sync_mode:
+                METRICS.observe("gemm.d2h_tile_gbps",
+                                c_full.nbytes / max(t2 - t1, 1e-9) / 1e9)
+            c_host = c_full[:ci_shape[0], :ci_shape[1]]
+            METRICS.add("gemm.d2h_bytes", c_host.nbytes)
+            if c_xfer_bf16:  # widen back (exactly) for fp32 storage
+                c_host = bf16_to_f32(c_host)
+            if journal_f is None:
+                write_tickets.push(c.write_block_storage_async(
+                    i * sb, j * sb, bi, bj, c_host))
+            else:
+                # durability order is the journal's correctness: the
+                # block's bytes reach disk (wait + fsync) BEFORE its
+                # journal line does — a crash between the two re-does
+                # the block, never skips a missing one
                 t0 = time.perf_counter()
-                dev.sync(c_dev)
-                t1 = time.perf_counter()
-                c_full = dev.from_device(c_dev)
-                t2 = time.perf_counter()
-                METRICS.add("gemm.accum_wait_s", t1 - t0)
-                METRICS.add("gemm.d2h_s", t2 - t1)
-                if sync_mode:
-                    METRICS.observe("gemm.d2h_tile_gbps",
-                                    c_full.nbytes / max(t2 - t1, 1e-9) / 1e9)
-                c_host = c_full[:ci_shape[0], :ci_shape[1]]
-                METRICS.add("gemm.d2h_bytes", c_host.nbytes)
-                if c_xfer_bf16:  # widen back (exactly) for fp32 storage
-                    c_host = bf16_to_f32(c_host)
-                if journal_f is None:
-                    write_tickets.push(c.write_block_storage_async(
-                        i * sb, j * sb, bi, bj, c_host))
-                else:
-                    # durability order is the journal's correctness: the
-                    # block's bytes reach disk (wait + fsync) BEFORE its
-                    # journal line does — a crash between the two re-does
-                    # the block, never skips a missing one
-                    t0 = time.perf_counter()
-                    c.write_block_storage_async(
-                        i * sb, j * sb, bi, bj, c_host).wait()
-                    c.store.flush()
-                    METRICS.add("gemm.write_wait_s",
-                                time.perf_counter() - t0)
-                    journal_f.write(f"{i} {j}\n")
-                    journal_f.flush()
-                    os.fsync(journal_f.fileno())
-            write_tickets.wait_all()
-            # includes waits absorbed inside push() when the window was
-            # full, so disk-bound write stalls are not under-reported
-            METRICS.add("gemm.write_wait_s", write_tickets.wait_s)
-        except BaseException as e:  # pragma: no cover
-            errors.append(e)
+                c.write_block_storage_async(
+                    i * sb, j * sb, bi, bj, c_host).wait()
+                c.store.flush()
+                METRICS.add("gemm.write_wait_s", time.perf_counter() - t0)
+                journal_f.write(f"{i} {j}\n")
+                journal_f.flush()
+                os.fsync(journal_f.fileno())
+        write_tickets.wait_all()
+        # includes waits absorbed inside push() when the window was full,
+        # so disk-bound write stalls are not under-reported
+        METRICS.add("gemm.write_wait_s", write_tickets.wait_s)
 
-    prod_t = threading.Thread(target=producer, daemon=True)
-    writ_t = threading.Thread(target=writer, daemon=True)
-    prod_t.start()
-    writ_t.start()
-
-    c_live: dict = {}  # j -> device accumulator for the current i sweep
     # alpha and beta in C's dtype, as bof_tpu passes them
     alpha_s = float(np.dtype(c.dtype).type(alpha))
     beta_s = float(np.dtype(c.dtype).type(beta))
+
+    def start(c_init):
+        return (dev.scale_init(c_init, beta_s) if c_init is not None
+                else dev.zeros_block(c_full_storage, device, c.dtype))
+
+    def accum(c_dev, a_dev, b_dev):
+        if xfer_int8:
+            (a_q, sa), (b_q, sb_q) = a_dev, b_dev
+            # bof_tpu's scale, computed as it computes it
+            return dev.accum_step_q(
+                c_dev, a_q, b_q, float(np.float32(alpha * sa * sb_q)),
+                a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+        return dev.accum_step(c_dev, a_dev, b_dev, alpha_s, a_km=a_km,
+                              b_nk=b_nk, c_nm=c_nm, prec=prec)
+
     try:
-        for idx, (i, j, l) in enumerate(steps):
-            item = None
-            t_get = time.perf_counter()
-            while True:  # timeout-get: survive a dead producer
-                try:
-                    item = tile_q.get(timeout=1.0)
-                    break
-                except queue.Empty:
-                    if errors:
-                        break
-            METRICS.add("gemm.tile_wait_s", time.perf_counter() - t_get)
-            if item is None:
-                break
-            a_dev, b_dev, c_init = item
-            bi, bj, bl = tile_dims(i, j, l)
-            if l == 0:
-                c_live[j] = (dev.scale_init(c_init, beta_s)
-                             if c_init is not None
-                             else dev.zeros_block(c_full_storage, device,
-                                                  c.dtype))
-            if xfer_int8:
-                (a_q, sa), (b_q, sb_q) = a_dev, b_dev
-                # bof_tpu's scale, computed as it computes it
-                c_live[j] = dev.accum_step_q(
-                    c_live[j], a_q, b_q, float(np.float32(alpha * sa * sb_q)),
-                    a_km=a_km, b_nk=b_nk, c_nm=c_nm)
-            else:
-                c_live[j] = dev.accum_step(c_live[j], a_dev, b_dev, alpha_s,
-                                           a_km=a_km, b_nk=b_nk, c_nm=c_nm,
-                                           prec=prec)
-            if l == kB - 1:
-                # timeout-put so a dead writer can't deadlock the loop
-                done_c = c_live.pop(j)
-                queue_put(write_q, (i, j, bi, bj, done_c), errors)
-            if errors:
-                break
-    except BaseException as e:
-        # a dispatch failure (device OOM, launch error) must land in
-        # `errors`: both helper threads key their shutdown off it — the
-        # producer would otherwise spin forever holding pinned tiles
-        errors.append(e)
-    queue_put_sentinel(write_q, errors)
-    # unbounded joins while healthy (a slow-disk writer can legitimately
-    # outlast any fixed timeout; returning early would report success with
-    # writes still in flight); bounded once an error is recorded
-    while prod_t.is_alive():
-        prod_t.join(timeout=1.0)
-        if errors:
-            prod_t.join(timeout=30)
-            break
-    while writ_t.is_alive():
-        writ_t.join(timeout=1.0)
-        if errors:
-            writ_t.join(timeout=30)
-            break
-    if errors:
+        _superblock_pipeline(steps, kB, depth, produce, start, accum,
+                             write_all, wait_metric="gemm.tile_wait_s")
+    except BaseException:
         if journal_f is not None:
             journal_f.close()  # keep the journal: the next call resumes
-        raise errors[0]
+        raise
     c.store.flush()
     if journal_f is not None:
         # complete: the journal has served its purpose (leaving it would

@@ -12,7 +12,8 @@ rank runs kernel K2 (`sparse/spmm_cuda.py:spmm_ell`) on its row shard
 against the replicated B panel.
 
 A world of one rank reads whole row blocks and bands their rows by count
-(bof_tpu's single-process path).  In a larger world each rank reads only
+(bof_tpu's single-process path), through the one-card csrmm's own
+`ell_bands` and `spmm_bands`.  In a larger world each rank reads only
 the nnz ranges of its own ELL row shards and writes back only its own C
 rows (bof_tpu's multi-host branch), so the caller's C must be one file
 every rank sees; a barrier ends the call once every rank's rows are on
@@ -22,6 +23,7 @@ offsets, so the shards agree.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def sharded_spmm_step(mesh):
@@ -51,7 +53,7 @@ def csrmm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
     from ..ops import device as dev
     from ..sparse import spmm_device as sdev
     from ..sparse.csr import fill_row_blocks
-    from ..sparse.csrmm import _download_rows
+    from ..sparse.csrmm import _download_rows, ell_bands, spmm_bands
     from . import mesh as pmesh
 
     ctx = ctx or b.ctx or get_context()
@@ -153,7 +155,6 @@ def csrmm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                     i0 = int(ia_np[r])
                     rows_b = e - r
                     blk_ia = ia_np[r:e + 1] - i0
-                    counts = np.diff(blk_ia)
                     if sharded_reads:
                         for (s0, s1, rmax, p0, p1, lo, hi,
                              pidx) in sub_plans[bi]:
@@ -183,31 +184,16 @@ def csrmm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                             write_tickets.push(finish(
                                 r + lo, c0, bc, dev.from_device(out)[:, :bc]))
                         continue
-                    ja_blk = pf.get(2 * bi).view(idt)
-                    va_blk = pf.get(2 * bi + 1).view(vdt)
-                    # count-sorted ELL banding (sparse/csrmm.py); single rank
-                    # only: the per-rank reads above take contiguous nnz
-                    # ranges, which sorted (scattered) rows would fragment
-                    order = (np.argsort(counts, kind="stable")
-                             if cfg.ell_sort_rows else np.arange(rows_b))
-                    out_dev = dev.zeros_block((rows_b, cb), device,
-                                              np.float32)
-                    for (s0, s1) in sdev.ell_row_ranges(counts[order],
-                                                        entry_cap):
-                        rows_sel = order[s0:s1]
-                        nr = len(rows_sel)
-                        ja_e, va_e = sdev.to_ell_rows(
-                            blk_ia, ja_blk, va_blk, rows_sel,
-                            min_rows=min_rows, idx_dtype=ell_idt,
-                            val_dtype=ell_vdt, counts=counts)
-                        va_d, _, _ = sdev.upload_ell_vals(va_e[:nr], device)
-                        sdev.spmm_ell_block(
-                            b_dev, dev.to_device(ja_e[:nr], device), va_d,
-                            counts=dev.to_device(
-                                counts[rows_sel].astype(np.int32), device),
-                            rows=dev.to_device(rows_sel.astype(np.int32),
-                                               device),
-                            out=out_dev)
+                    # one rank: csrmm's count-sorted bands, K2 writing
+                    # each band's rows of the block's buffer (the per-rank
+                    # reads above take contiguous nnz ranges, which sorted,
+                    # scattered rows would fragment)
+                    bands = ell_bands(blk_ia, pf.get(2 * bi).view(idt),
+                                      pf.get(2 * bi + 1).view(vdt),
+                                      entry_cap, cfg, ell_idt, ell_vdt)
+                    out_dev = torch.empty((rows_b, cb), dtype=torch.float32,
+                                          device=device)
+                    spmm_bands(b_dev, bands, out_dev)
                     pf.done(2 * bi)
                     pf.done(2 * bi + 1)
                     for p0, piece in _download_rows(out_dev, bc, False):

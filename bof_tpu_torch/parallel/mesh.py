@@ -464,28 +464,25 @@ def _writeback_shards(c_loc: np.ndarray, c, i0: int, j0: int, bi: int,
 def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                  transa: str = "N", transb: str = "N",
                  blk: Optional[int] = None, mesh=None, ctx=None) -> None:
-    """Multi-card out-of-core GEMM: ops/gemm.py's streaming structure with
-    every superblock sharded over the mesh.  A producer thread prefetches
-    tiles through the pin cache and uploads this rank's shards
-    `pipeline_depth` steps ahead, with a device LRU of B shards; the main
-    thread launches the sharded steps; a writer thread writes this rank's
-    C shards back.  All 8 {order}x{transA}x{transB} configs via
+    """Multi-card out-of-core GEMM: ops/gemm.py's superblock pipeline
+    (`_superblock_pipeline`) with every superblock sharded over the mesh.
+    Its producer prefetches tiles through the pin cache and uploads this
+    rank's shards `pipeline_depth` steps ahead, with a device LRU of B
+    shards; the main thread launches the sharded steps; the writer writes
+    this rank's C shards back.  All 8 {order}x{transA}x{transB} configs via
     storage-major blocks; float32 (with the transfer modes) and float64
     (K1 'f64' a shard)."""
-    import queue
-    import threading
     import time as _time
 
     from ..context import get_context
     from ..core.flash_array import check_output_distinct
-    from ..core.pipeline import (PrefetchSeq, TicketWindow, queue_put,
-                                 queue_put_sentinel)
+    from ..core.pipeline import PrefetchSeq, TicketWindow
     from ..io.native import (cast_bf16, quantize_amax, quantize_i8,
                              quantize_i8_with_amax)
     from ..io.store import store_uid
     from ..ops import device as dev
     from ..ops.gemm import (_check_finite, _check_slice, _op_block_reader,
-                            _storage_shape)
+                            _storage_shape, _superblock_pipeline)
     from ..utils import LOG, cdiv
 
     ctx = ctx or c.ctx or get_context()
@@ -598,9 +595,6 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
     if cfg.debug_checks and c.dtype == np.float64:
         _check_finite(a, a_access, m, k, sb, cache)
         _check_finite(b, b_access, k, n, sb, cache)
-    tile_q: queue.Queue = queue.Queue(maxsize=depth)
-    write_q: queue.Queue = queue.Queue(maxsize=max(2, depth))
-    errors: list = []
     alpha_s = float(np.dtype(c.dtype).type(alpha))
     beta_s = np.dtype(c.dtype).type(beta)
 
@@ -627,7 +621,7 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
             amax = host_max(quantize_amax(host[:lines, :width]))
         return _xfer(host, amax)
 
-    def producer():
+    def produce(put):
         seq_a = seq_b = None
         b_lru: dict = {}  # spec key -> device B shard (insert-ordered)
         try:
@@ -689,116 +683,59 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                 METRICS.add("gemm_sharded.h2d_bytes",
                             (a_host.size + (b_host.size if b_uploaded
                                             else 0)) * x_isize)
-                if not queue_put(tile_q, (a_dev, b_dev, c_init), errors):
+                if not put((a_dev, b_dev, c_init)):
                     return
-        except BaseException as e:  # pragma: no cover
-            errors.append(e)
-            try:
-                tile_q.put_nowait(None)
-            except queue.Full:
-                pass
         finally:
             if seq_a is not None:
                 seq_a.close()
             if seq_b is not None:
                 seq_b.close()
 
-    def writer():
-        try:
-            with shard_writer(c, mesh) as c_w:
-                write_back(c_w)
-        except BaseException as e:  # pragma: no cover
-            errors.append(e)
-
-    def write_back(c_w):
+    def write_all(blocks):
         tickets = TicketWindow(depth=8)
-        try:
-            while True:
-                try:  # timeout-get + errors check (queue_put_sentinel's
-                    # contract: a full queue can drop the None)
-                    item = write_q.get(timeout=1.0)
-                except queue.Empty:
-                    if errors:
-                        break
-                    continue
-                if item is None:
-                    break
-                i, j, bi, bj, c_dev = item
-                t0 = _time.perf_counter()
-                w0 = tickets.wait_s
-                c_loc = dev.from_device(c_dev)
-                if sharded_reads:
-                    rows, cols = box_c
-                    tickets.extend(_writeback_shards(
-                        c_loc, c_w, i * sb, j * sb, bi, bj,
-                        (rows.start, rows.stop, cols.start, cols.stop)))
-                else:
-                    ci = ((sb, sb) if c_tiled
-                          else _storage_shape(c, (bi, bj)))
-                    tickets.push(c_w.write_block_storage_async(
-                        i * sb, j * sb, bi, bj, c_loc[:ci[0], :ci[1]]))
-                # push() may stall on the window's oldest disk write —
-                # book that as write wait, not device download time
-                METRICS.add("gemm_sharded.d2h_s",
-                            _time.perf_counter() - t0
-                            - (tickets.wait_s - w0))
-        finally:
-            tickets.wait_all()  # no write may outlive the writer's store
+        with shard_writer(c, mesh) as c_w:
+            try:
+                for i, j, c_dev in blocks:
+                    bi, bj, _ = tile_dims(i, j, 0)
+                    t0 = _time.perf_counter()
+                    w0 = tickets.wait_s
+                    c_loc = dev.from_device(c_dev)
+                    if sharded_reads:
+                        rows, cols = box_c
+                        tickets.extend(_writeback_shards(
+                            c_loc, c_w, i * sb, j * sb, bi, bj,
+                            (rows.start, rows.stop, cols.start, cols.stop)))
+                    else:
+                        ci = ((sb, sb) if c_tiled
+                              else _storage_shape(c, (bi, bj)))
+                        tickets.push(c_w.write_block_storage_async(
+                            i * sb, j * sb, bi, bj, c_loc[:ci[0], :ci[1]]))
+                    # push() may stall on the window's oldest disk write —
+                    # book that as write wait, not device download time
+                    METRICS.add("gemm_sharded.d2h_s",
+                                _time.perf_counter() - t0
+                                - (tickets.wait_s - w0))
+            finally:
+                tickets.wait_all()  # no write may outlive c_w's store
         METRICS.add("gemm_sharded.write_wait_s", tickets.wait_s)
 
-    prod_t = threading.Thread(target=producer, daemon=True)
-    writ_t = threading.Thread(target=writer, daemon=True)
-    m_before = METRICS.snapshot()
-    prod_t.start()
-    writ_t.start()
-
-    t_start = _time.perf_counter()
     c_shape = tuple(s.stop - s.start for s in box_c)
-    c_dev = None
-    try:
-        for idx, (i, j, l) in enumerate(steps):
-            item = None
-            while True:
-                try:
-                    item = tile_q.get(timeout=1.0)
-                    break
-                except queue.Empty:
-                    if errors:
-                        break
-            if item is None:
-                break
-            a_dev, b_dev, c_init = item
-            bi, bj, bl = tile_dims(i, j, l)
-            if l == 0:
-                c_dev = (c_init if c_init is not None
-                         else dev.zeros_block(c_shape, device, c.dtype))
-            if xfer_int8:
-                a_q, sa = a_dev
-                b_q, sb_s = b_dev
-                c_dev = step_q(c_dev, a_q, b_q,
-                               float(np.float32(alpha * sa * sb_s)))
-            else:
-                c_dev = step(c_dev, a_dev, b_dev, alpha_s)
-            if l == kB - 1:
-                queue_put(write_q, (i, j, bi, bj, c_dev), errors)
-            if errors:
-                break
-    except BaseException as e:
-        # a dispatch or collective failure must reach both helper threads
-        errors.append(e)
-    queue_put_sentinel(write_q, errors)
-    while prod_t.is_alive():
-        prod_t.join(timeout=1.0)
-        if errors:
-            prod_t.join(timeout=30)
-            break
-    while writ_t.is_alive():
-        writ_t.join(timeout=1.0)
-        if errors:
-            writ_t.join(timeout=30)
-            break
-    if errors:
-        raise errors[0]
+
+    def start(c_init):
+        return (c_init if c_init is not None
+                else dev.zeros_block(c_shape, device, c.dtype))
+
+    def accum(c_dev, a_dev, b_dev):
+        if xfer_int8:
+            a_q, sa = a_dev
+            b_q, sb_s = b_dev
+            return step_q(c_dev, a_q, b_q,
+                          float(np.float32(alpha * sa * sb_s)))
+        return step(c_dev, a_dev, b_dev, alpha_s)
+
+    m_before = METRICS.snapshot()
+    t_start = _time.perf_counter()
+    _superblock_pipeline(steps, kB, depth, produce, start, accum, write_all)
     c.store.flush()
     if world > 1:
         barrier()  # every rank's C shards are on disk

@@ -243,6 +243,59 @@ def _upload_b_panel(b_host, b_order, k_sub, bc, k_r_pad, cb, device):
     return b_dev.contiguous()
 
 
+def ell_bands(blk_ia, ja_blk, va_blk, entry_cap: int, cfg, idx_dtype,
+              val_dtype, quantize: bool = False) -> list:
+    """The count-sorted ELL bands of one row block (`blk_ia` its offsets
+    from 0): its rows ordered by nnz (unless `cfg.ell_sort_rows` is off)
+    and cut into ranges whose padded ELL stays under `entry_cap` entries,
+    so each band's rmax is tight to its own rows.  Returns [(rows, counts,
+    ja_ell, va_ell)], rows and counts int32; the bands partition the
+    block's rows, and K2 writes each band's rows of the block's buffer
+    through `rows`.  `quantize` ships the values as (int8, row scale)."""
+    counts = np.diff(blk_ia)
+    order = (np.argsort(counts, kind="stable") if cfg.ell_sort_rows
+             else np.arange(len(counts)))
+    bands = []
+    for (s0, s1) in sdev.ell_row_ranges(counts[order], entry_cap):
+        rows_sel = order[s0:s1]
+        ja_ell, va_ell = sdev.to_ell_rows(
+            blk_ia, ja_blk, va_blk, rows_sel, idx_dtype=idx_dtype,
+            val_dtype=val_dtype, counts=counts)
+        if quantize:  # int8 + one scale a row
+            va_ell = sdev.quantize_ell_i8(va_ell)
+        bands.append((rows_sel.astype(np.int32),
+                      counts[rows_sel].astype(np.int32), ja_ell, va_ell))
+    return bands
+
+
+def spmm_bands(b_panel, bands, buf, alpha: float = 1.0,
+               impl: str = "auto", sync_mode: bool = False) -> None:
+    """K2 on each of a row block's `ell_bands` into its rows of `buf`, the
+    block's (rows, cb) device buffer, with alpha applied; every row of
+    `buf` is written (an empty row with alpha * 0).  Uploads are booked
+    to `csrmm.h2d_*` (with `sync_mode`, drained in the window so the rate
+    sample is a transfer rate)."""
+    device = buf.device
+    for rows_sel, counts_sel, ja_ell, va_ell in bands:
+        th = time.perf_counter()
+        rows_d = dev.to_device(rows_sel, device)
+        counts_d = dev.to_device(counts_sel, device)
+        ja_d = dev.to_device(ja_ell, device)
+        va_d, scale_d, va_bytes = sdev.upload_ell_vals(va_ell, device)
+        nbytes = (ja_ell.nbytes + va_bytes + rows_sel.nbytes
+                  + counts_sel.nbytes)
+        if sync_mode:
+            dev.sync(va_d)
+            METRICS.observe("csrmm.h2d_tile_gbps",
+                            nbytes / max(time.perf_counter() - th, 1e-9)
+                            / 1e9)
+        METRICS.add("csrmm.h2d_s", time.perf_counter() - th)
+        METRICS.add("csrmm.h2d_bytes", nbytes)
+        sdev.spmm_ell_block_dispatch(
+            b_panel, ja_d, va_d, impl=impl, counts=counts_d, rows=rows_d,
+            out=buf, alpha=alpha, va_scale=scale_d)
+
+
 PIECE_BYTES = 8 << 20  # the largest piece of a row block's download
 
 
@@ -335,7 +388,8 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
         prep_q: queue.Queue = queue.Queue(maxsize=max(2, cfg.pipeline_depth))
         errors: list = []
 
-        from ..core.pipeline import queue_put, queue_put_sentinel
+        from ..core.pipeline import (join_threads, queue_items,
+                                     queue_put, queue_put_sentinel)
 
         def _put(q, item) -> bool:
             return queue_put(q, item, errors)
@@ -382,29 +436,10 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                         # reference-style CPU block product (MKL's role)
                         payload = (r, rows_b, blk_sp @ b_panel_np)
                     else:
-                        counts = np.diff(blk_ia)
-                        bands = []
-                        # count-sorted ELL banding: range over rows SORTED
-                        # by nnz so each band's rmax is tight to its own
-                        # rows, not the block max; K2 writes each band's
-                        # rows in place through the same selection
-                        order = (np.argsort(counts, kind="stable")
-                                 if cfg.ell_sort_rows
-                                 else np.arange(rows_b))
-                        ell_idt = sdev.ell_idx_dtype(k_sub,
-                                                     cfg.ell_idx_narrow)
-                        for (s0, s1) in sdev.ell_row_ranges(
-                                counts[order], entry_cap):
-                            rows_sel = order[s0:s1]
-                            ja_ell, va_ell = sdev.to_ell_rows(
-                                blk_ia, blk_ja, blk_va, rows_sel,
-                                idx_dtype=ell_idt, val_dtype=ell_vdt,
-                                counts=counts)
-                            if v_quant:  # int8 + one scale a row
-                                va_ell = sdev.quantize_ell_i8(va_ell)
-                            bands.append((rows_sel.astype(np.int32),
-                                          counts[rows_sel].astype(np.int32),
-                                          ja_ell, va_ell))
+                        bands = ell_bands(
+                            blk_ia, blk_ja, blk_va, entry_cap, cfg,
+                            sdev.ell_idx_dtype(k_sub, cfg.ell_idx_narrow),
+                            ell_vdt, quantize=v_quant)
                         payload = (r, rows_b, bands)
                     pf.done(2 * bi)
                     pf.done(2 * bi + 1)
@@ -421,46 +456,14 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
 
         def uploader():
             try:
-                impl = cfg.sparse_device_impl
-                while True:
-                    try:  # timeout-get: a dead prepper can't hang us
-                        item = prep_q.get(timeout=1.0)
-                    except queue.Empty:
-                        if errors:
-                            break
-                        continue
-                    if item is None:
-                        break
-                    r, rows_b, bands = item
+                for r, rows_b, bands in queue_items(prep_q, errors):
                     t1 = time.perf_counter()
-                    # the bands partition the block's rows, so every row
-                    # of the buffer is written (an empty row with alpha*0)
                     buf = torch.empty((rows_b, cb), dtype=torch.float32,
                                       device=device)
-                    for rows_sel, counts_sel, ja_ell, va_ell in bands:
-                        th = time.perf_counter()
-                        rows_d = dev.to_device(rows_sel, device)
-                        counts_d = dev.to_device(counts_sel, device)
-                        ja_d = dev.to_device(ja_ell, device)
-                        va_d, scale_d, va_bytes = sdev.upload_ell_vals(
-                            va_ell, device)
-                        nbytes = (ja_ell.nbytes + va_bytes + rows_sel.nbytes
-                                  + counts_sel.nbytes)
-                        if sync_mode:
-                            # in-window sync: the rate sample is a
-                            # transfer rate, not an enqueue time
-                            dev.sync(va_d)
-                            th2 = time.perf_counter()
-                            METRICS.observe("csrmm.h2d_tile_gbps",
-                                            nbytes / max(th2 - th, 1e-9)
-                                            / 1e9)
-                        METRICS.add("csrmm.h2d_s", time.perf_counter() - th)
-                        METRICS.add("csrmm.h2d_bytes", nbytes)
-                        sdev.spmm_ell_block_dispatch(
-                            b_panel, ja_d, va_d, impl=impl, counts=counts_d,
-                            rows=rows_d, out=buf,
-                            alpha=1.0 if c_bf16 else alpha,
-                            va_scale=scale_d)
+                    spmm_bands(b_panel, bands, buf,
+                               alpha=1.0 if c_bf16 else alpha,
+                               impl=cfg.sparse_device_impl,
+                               sync_mode=sync_mode)
                     METRICS.add("csrmm.dispatch_s",
                                 time.perf_counter() - t1)
                     ok = _put(out_q, (r, rows_b, buf))
@@ -499,17 +502,7 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
 
         def writer():
             try:
-                while True:
-                    try:  # timeout-get: a dead producer can't hang us
-                        item = out_q.get(timeout=1.0)
-                    except queue.Empty:
-                        if errors:
-                            break
-                        continue
-                    if item is None:
-                        break
-                    r, rows_b, res = item
-                    del item
+                for r, rows_b, res in queue_items(out_q, errors):
                     if isinstance(res, np.ndarray):
                         # host block product: already in DRAM, alpha here
                         t0 = time.perf_counter()
@@ -547,14 +540,7 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
             threads.insert(1, threading.Thread(target=uploader, daemon=True))
         for t in threads:
             t.start()
-        # unbounded joins on the healthy path (writers legitimately take
-        # long on slow disks); bounded only once an error is recorded
-        for t in threads:
-            while t.is_alive():
-                t.join(timeout=1.0)
-                if errors:
-                    t.join(timeout=30)
-                    break
+        join_threads(threads, errors)
         pf.close()
         if errors:
             raise errors[0]

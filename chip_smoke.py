@@ -830,6 +830,28 @@ def _launch_counts() -> dict:
 
 
 @contextlib.contextmanager
+def _launches_inside(module, name, calls):
+    """`module.name` wrapped for the block: each call appends to `calls`
+    the kernel launches made inside it (a `_launch_counts` difference), so
+    a check can tell the launches of one path's calls from the run's."""
+    fn = getattr(module, name)
+
+    def counted(*args, **kw):
+        before = _launch_counts()
+        try:
+            return fn(*args, **kw)
+        finally:
+            after = _launch_counts()
+            calls.append({key: n - before.get(key, 0)
+                          for key, n in after.items()})
+    setattr(module, name, counted)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
 def _configured(driver, **fields):
     """The driver's runs with these FlashConfig fields set on its context,
     as bof_tpu's bench sets the transfer modes (bench.py:2281-2282): the
@@ -2380,8 +2402,16 @@ def mesh_apps_phase(dev, scratch, a_sp, rows=1 << 17) -> list:
     the top 8; V orthonormal to 1e-5) and T1's (16 rows of P within the
     csrmm gate of float64; the assignment's labels of ASSIGN_ROWS rows
     against `lloyd_assign_ref` on the centers it was given, but at
-    near-ties; the topic-word matrix the float64 one_hot(labels)^T A over
-    its row sums within rtol 1e-4, atol 1e-6)."""
+    near-ties; T1's own lift gate, `_check_lift`: the unnormalized lift
+    within rtol 1e-4, atol 1e-6, of the float64 one_hot(labels)^T A, the
+    topic-word matrix that lift over its float32 row sums within one
+    rounding, rows whose float32 sum is <= 0 all zero, and a row sum whose
+    sign float32 and float64 disagree on within its rounding of 0).
+    Launches: every K2 of the run inside csrmm_sharded (each call at least
+    one; two calls an operator application) or the sharded one-pass
+    operator; T1's K2 inside its csrmm_sharded projection, and B7's assign
+    and accumulate inside the sharded assignment, besides the one-card fit
+    of the sample."""
     import importlib
     import numpy as np
     import torch
@@ -2406,14 +2436,20 @@ def mesh_apps_phase(dev, scratch, a_sp, rows=1 << 17) -> list:
              f"n_vals={n_vals} restarts=1 sharded (1x1 NCCL mesh)")
     res = {}
 
+    csr_calls, one_pass_calls = [], []
+
     def run_eig(argv):
         t = time.perf_counter()
-        res["out"] = eig_driver.main(argv)
+        with _launches_inside(par, "csrmm_sharded", csr_calls):
+            res["out"] = eig_driver.main(argv)
         ctx = _new_ctx(dev, scratch)
         try:
             A = bt.CsrFlashMatrix.map_files(prefix, (m, k), ctx=ctx)
-            res["u"] = eig._apply_ata_one_pass_sharded(
-                A, res["out"][1][:, :8], make_mesh(device=str(dev)), ctx)
+            with _launches_inside(eig, "_apply_ata_one_pass_sharded",
+                                  one_pass_calls):
+                res["u"] = eig._apply_ata_one_pass_sharded(
+                    A, res["out"][1][:, :8], make_mesh(device=str(dev)),
+                    ctx)
         finally:
             ctx.destroy()
         return time.perf_counter() - t
@@ -2423,6 +2459,22 @@ def mesh_apps_phase(dev, scratch, a_sp, rows=1 << 17) -> list:
     n_k2 = launches["spmm_ell"]
     _check_launches(label, launches, {"spmm_ell": n_k2,
                                       "spmm_ell[f32]": n_k2})
+    # the one-pass operator counts as an application too
+    n_apply = int(stages.get("eig.op_applies", 0)) - len(one_pass_calls)
+    k2_csr = [call["spmm_ell"] for call in csr_calls]
+    k2_one = [call["spmm_ell"] for call in one_pass_calls]
+    print(f"[{label}] K2 launches inside the {len(k2_csr)} csrmm_sharded "
+          f"calls: {sum(k2_csr)} (fewest in a call {min(k2_csr, default=0)}"
+          f"); inside the sharded one-pass operator: {sum(k2_one)}; of "
+          f"{n_k2} in the run", flush=True)
+    if (n_apply < 1 or len(k2_csr) != 2 * n_apply or min(k2_csr) < 1
+            or len(k2_one) != 1 or k2_one[0] < 2
+            or sum(k2_csr) + sum(k2_one) != n_k2):
+        raise AssertionError(
+            f"[{label}] K2 did not run through the sharded path: "
+            f"{len(k2_csr)} csrmm_sharded calls for {n_apply} Lanczos "
+            f"operator applications, K2 launches {k2_csr} inside them and "
+            f"{k2_one} inside the one-pass operator, {n_k2} in the run")
     _check_collectives(label, stages, {"all_gather": None, "all_reduce": 1})
     _app_report(label, wall, 4.0 * a_cut.nnz * n_vals, launches, stages,
                 peak, "eig.", ("disk_wait_s", "prep_s", "h2d_s", "d2h_s"))
@@ -2461,12 +2513,20 @@ def mesh_apps_phase(dev, scratch, a_sp, rows=1 << 17) -> list:
     tm = importlib.import_module("bof_tpu_torch.apps.topic_model")
     assign, lift_topics = par.lloyds_iter_ooc_sharded, tm.lift_topics
 
+    assign_calls, project_calls = [], []
+
     def assign_and_sample(points, centers, labels_out=None, **kw):
         seen["centers"] = np.array(centers, np.float32)
         seen["p"] = np.stack([points.read_block(int(r), 1, 0, proj_dim)[0]
                               for r in p_rows])
         seen["p_run"] = points.read_block(r0, ASSIGN_ROWS, 0, proj_dim)
-        return assign(points, centers, labels_out=labels_out, **kw)
+        before = _launch_counts()
+        try:
+            return assign(points, centers, labels_out=labels_out, **kw)
+        finally:
+            after = _launch_counts()
+            assign_calls.append({key: n - before.get(key, 0)
+                                 for key, n in after.items()})
 
     def lift_and_keep(*args, **kw):
         seen["lift"] = lift_topics(*args, **kw)
@@ -2477,7 +2537,8 @@ def mesh_apps_phase(dev, scratch, a_sp, rows=1 << 17) -> list:
         par.lloyds_iter_ooc_sharded = assign_and_sample
         tm.lift_topics = lift_and_keep
         try:
-            res["tm"] = tm_driver.main(argv)
+            with _launches_inside(par, "csrmm_sharded", project_calls):
+                res["tm"] = tm_driver.main(argv)
         finally:
             par.lloyds_iter_ooc_sharded, tm.lift_topics = assign, lift_topics
         return time.perf_counter() - t
@@ -2492,6 +2553,17 @@ def mesh_apps_phase(dev, scratch, a_sp, rows=1 << 17) -> list:
             or not launches["lloyd_accumulate"] or any(others.values())):
         raise AssertionError(f"[{label}] launches {launches}, expected K2 "
                              "and B7 only")
+    sharded = {"projection K2": [c["spmm_ell"] for c in project_calls],
+               "assignment B7 assign": [c["lloyd_assign"]
+                                        for c in assign_calls],
+               "assignment B7 accumulate": [c["lloyd_accumulate"]
+                                            for c in assign_calls]}
+    print(f"[{label}] launches inside the sharded calls: {sharded}; K2 in "
+          f"the run {launches['spmm_ell']}", flush=True)
+    if (any(len(calls) != 1 or calls[0] < 1 for calls in sharded.values())
+            or sharded["projection K2"][0] != launches["spmm_ell"]):
+        raise AssertionError(f"[{label}] a kernel did not run through the "
+                             f"sharded path: {sharded}")
     _check_collectives(label, stages, {"all_reduce": None})
     _app_report(label, wall, 2.0 * a_cut.nnz * proj_dim * 6, launches,
                 stages, peak, "topic.",

@@ -92,6 +92,23 @@ def test_xml_rank_sharded_matches_single_chip(pools, ctx, rng, tmp_path,
     np.testing.assert_allclose(s, rs.read_all(), rtol=2e-4, atol=1e-4)
 
 
+def test_xml_rank_composition_waits_for_rank0_merge(pools, ctx, rng,
+                                                    tmp_path):
+    """The composition path reuses one score panel for every label block:
+    with rank 0's merges slowed down, the other ranks must still not
+    write the next block's scores before rank 0 has read this block's."""
+    docs, vocab, n_labels, k = 96, 48, 25, 4
+    a_sp = sps.random(docs, vocab, density=0.12, format="csr",
+                      dtype=np.float32, random_state=np.random.RandomState(8))
+    w_np = rng.standard_normal((n_labels, vocab)).astype(np.float32)
+    _csr_files(ctx, str(tmp_path), a_sp)
+    w = _write(ctx, str(tmp_path / "W"), w_np)
+    s, l = _same_on_every_rank(pools.get(WORLD).run(
+        jobs.xml_rank, str(tmp_path), "A", (docs, vocab), w, k,
+        {"label_blk": 9, "doc_blk": 8, "fused": False}, 0.05))
+    _check_topk(s, l, (a_sp @ w_np.T).astype(np.float32), k)
+
+
 @pytest.mark.parametrize("one_pass", [None, True])
 def test_lanczos_sharded_matches_scipy(pools, ctx, rng, tmp_path, one_pass):
     """block_lanczos_svd(mesh=): by default every operator application is

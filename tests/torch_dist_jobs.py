@@ -202,13 +202,30 @@ def kmeans_fit(rank, world, workdir, p, labels, n_centers, kw, cfg=None):
 
 # ------------------------------------------------------------------- apps
 
-def xml_rank(rank, world, workdir, a_prefix, a_shape, w, k, kw):
-    from bof_tpu_torch.apps import xml_rank as run
-    with flash_ctx(workdir, rank) as ctx:
-        A = _csr(ctx, workdir, a_prefix, a_shape)
-        s, l = run(A, _dense(ctx, workdir, w), k, mesh=_mesh(), ctx=ctx,
-                   **kw)
-        return s.read_all(), l.read_all()
+def xml_rank(rank, world, workdir, a_prefix, a_shape, w, k, kw,
+             merge_delay_s=0.0):
+    """xml_rank(mesh=) on the rank; with `merge_delay_s`, rank 0 sleeps
+    that long before each of its top-k merges, so the other ranks run
+    ahead as far as the path lets them."""
+    import importlib
+    import time
+    # the module: the package's `xml_rank` attribute is the function
+    mod = importlib.import_module("bof_tpu_torch.apps.xml_rank")
+    merge = mod._merge_topk
+
+    def slow_merge(*args, **kwargs):
+        time.sleep(merge_delay_s)
+        return merge(*args, **kwargs)
+    if merge_delay_s and rank == 0:
+        mod._merge_topk = slow_merge
+    try:
+        with flash_ctx(workdir, rank) as ctx:
+            A = _csr(ctx, workdir, a_prefix, a_shape)
+            s, l = mod.xml_rank(A, _dense(ctx, workdir, w), k, mesh=_mesh(),
+                                ctx=ctx, **kw)
+            return s.read_all(), l.read_all()
+    finally:
+        mod._merge_topk = merge
 
 
 def lanczos(rank, world, workdir, a_prefix, a_shape, n_vals, kw, cfg=None):
