@@ -531,6 +531,8 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
         from ..core.pipeline import TicketWindow
         write_tickets = TicketWindow(depth=8)
         for i, j, c_dev in blocks:
+            if isinstance(c_dev, tuple):
+                c_dev = c_dev[0].add_(c_dev[1])
             bi, bj, _ = tile_dims(i, j, 0)
             # tile-major C stores the full padded tile — hand the whole
             # buffer over instead of slicing the logical tail
@@ -581,11 +583,23 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
     alpha_s = float(np.dtype(c.dtype).type(alpha))
     beta_s = float(np.dtype(c.dtype).type(beta))
 
+    # float64 adds beta * C once the K loop is done, as bof_tpu's gemm64
+    # does (alpha * A B + beta * C): the accumulator starts at zero and
+    # carries the scaled C to the writer.  fp32 starts from beta * C, as
+    # bof_tpu's accum_step does.
+    late_beta = c.dtype == np.float64
+
     def start(c_init):
-        return (dev.scale_init(c_init, beta_s) if c_init is not None
-                else dev.zeros_block(c_full_storage, device, c.dtype))
+        if c_init is None:
+            return dev.zeros_block(c_full_storage, device, c.dtype)
+        c0 = dev.scale_init(c_init, beta_s)
+        if not late_beta:
+            return c0
+        return dev.zeros_block(c_full_storage, device, c.dtype), c0
 
     def accum(c_dev, a_dev, b_dev):
+        if isinstance(c_dev, tuple):  # (the K loop's sum, beta * C)
+            return accum(c_dev[0], a_dev, b_dev), c_dev[1]
         if xfer_int8:
             (a_q, sa), (b_q, sb_q) = a_dev, b_dev
             # bof_tpu's scale, computed as it computes it

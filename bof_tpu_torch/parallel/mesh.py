@@ -696,6 +696,8 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
         with shard_writer(c, mesh) as c_w:
             try:
                 for i, j, c_dev in blocks:
+                    if isinstance(c_dev, tuple):
+                        c_dev = c_dev[0].add_(c_dev[1])
                     bi, bj, _ = tile_dims(i, j, 0)
                     t0 = _time.perf_counter()
                     w0 = tickets.wait_s
@@ -721,11 +723,20 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
 
     c_shape = tuple(s.stop - s.start for s in box_c)
 
+    # float64 adds beta * C after the K loop (bof_tpu's gemm64 order, as
+    # in ops/gemm.py); fp32 starts from it
+    late_beta = c.dtype == np.float64
+
     def start(c_init):
-        return (c_init if c_init is not None
-                else dev.zeros_block(c_shape, device, c.dtype))
+        if c_init is None:
+            return dev.zeros_block(c_shape, device, c.dtype)
+        if not late_beta:
+            return c_init
+        return dev.zeros_block(c_shape, device, c.dtype), c_init
 
     def accum(c_dev, a_dev, b_dev):
+        if isinstance(c_dev, tuple):  # (the K loop's sum, beta * C)
+            return accum(c_dev[0], a_dev, b_dev), c_dev[1]
         if xfer_int8:
             a_q, sa = a_dev
             b_q, sb_s = b_dev

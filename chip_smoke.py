@@ -112,7 +112,9 @@ Steps, each of which raises (exit code != 0) when it fails:
    bound and the one-sweep design's floors (a pass, and all nine reads or
    writes of the block); ptxas must report no spills for either (run
    with the kernel checks of step 4);
-9c. the applications on S3's A, each through its driver: E1, block
+9c. the applications, each through its driver, X1 on S3's A and E1 and
+   T1 on its first 2^19 documents (a row cut written over spares; cut
+   for the time limit): E1, block
    Lanczos (`drivers.eigensolver`, 64 values, 1 restart, one pass):
    K2 launched (forward + transposed bands) x applications times, one
    application to 8 columns of V within rtol 1e-4 of float64 scipy,
@@ -190,7 +192,19 @@ points kmeans_fit_sharded resident and streamed (B7, all-reduces), each
 followed by one sharded Lloyd pass under S11's gate.  No collective
 crosses cards here: several cards are tested on gloo ranks on the CPU.
 
-Operands are written from seeded generators under `$BOF_SCRATCH`
+S15, on the same world after S13, over spares: `bof_tpu_torch.dryrun.
+dryrun_multichip(cards)` in-process (its seven phases, each under the
+gate of __graft_entry__.py; K1 tf32x3 and f64, K2 and B7 must launch);
+B13's one-rank reduce-scatter (8192 x 8192 fp32) and all-reduce (S11b's
+k-means statistics) timed beside their bounds; then kill and resume: a
+worker (`chip_smoke.py --resume-worker`) runs a journaled 8192^2 x 8192
+fp32 gemm at blk 2048 (16 C superblocks) on the card, a second is
+SIGKILLed once its journal holds 4 lines and started again, and its C
+must be byte-identical to the first's, with K1 launched (superblocks
+left) x 4 times by the resumed run.
+
+Operands are made on the card from seeded generators and written under
+`$BOF_SCRATCH`
 (default `build/chip_smoke` in this checkout), which must be a real
 filesystem (O_DIRECT) with about 40 GiB free.  A phase's big files
 become spares when it ends, and the phases after S9 write their files
@@ -732,19 +746,21 @@ def _reuse(path, nbytes):
     os.truncate(path, nbytes)
 
 
-def _write_operand(ctx, path, shape, order, rng):
+def _write_operand(ctx, path, shape, order, gen, dev):
     """Create `path` through the port's map_array and fill it with
-    standard normals, one chunk of storage lines at a time; returns
-    max|x|."""
+    standard normals made on the card (`gen`), one chunk of storage lines
+    at a time; returns max|x|."""
     import numpy as np
+    import torch
     import bof_tpu_torch as bt
     arr = bt.map_array(path, shape, np.float32, order, create=True, ctx=ctx)
     lines, width = shape if order == "R" else (shape[1], shape[0])
     amax = 0.0
     for l0 in range(0, lines, CHUNK):
         nl = min(CHUNK, lines - l0)
-        block = rng.standard_normal((nl, width), dtype=np.float32)
-        amax = max(amax, float(np.abs(block).max()))
+        x = torch.randn((nl, width), generator=gen, device=dev)
+        amax = max(amax, float(x.abs().max()))
+        block = x.cpu().numpy()
         if order == "R":
             arr.write_block_storage(l0, 0, nl, width, block)
         else:
@@ -789,11 +805,15 @@ def _new_ctx(dev, scratch):
 
 
 def _write_operands(dev, scratch, specs, rng) -> list:
-    """Write each (path, shape, order) through the port's map_array;
-    returns max|x| of each."""
+    """Write each (path, shape, order) through the port's map_array, the
+    normals made on the card from a seed that `rng` draws; returns max|x|
+    of each."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 62)))
     ctx = _new_ctx(dev, scratch)
     try:
-        return [_write_operand(ctx, path, shape, order, rng)
+        return [_write_operand(ctx, path, shape, order, gen, dev)
                 for path, shape, order in specs]
     finally:
         ctx.destroy()
@@ -2385,6 +2405,27 @@ def _check_lift(label, a_sp, labels, lift, tw, n_topics):
         raise AssertionError(f"[{label}] disagrees with float64")
 
 
+def _row_cut(a_sp, rows, scratch, name):
+    """The first `rows` documents of `a_sp` as a CSR triplet of their own
+    (`name`.off/.col/.csr, written over spares' blocks); returns (prefix,
+    the cut)."""
+    import numpy as np
+    a_cut = a_sp[:rows]
+    prefix = os.path.join(scratch, name)
+    for ext, arr in ((".off", a_cut.indptr.astype(np.int64)),
+                     (".col", a_cut.indices.astype(np.int64)),
+                     (".csr", a_cut.data.astype(np.float32))):
+        _reuse(prefix + ext, arr.nbytes)
+        with open(prefix + ext, "r+b") as f:
+            arr.tofile(f)
+    return prefix, a_cut
+
+
+def _retire_triplet(prefix):
+    for ext in (".off", ".col", ".csr"):
+        _retire(prefix + ext)
+
+
 def mesh_apps_phase(dev, scratch, a_sp, rows=1 << 17) -> list:
     """S14 on a row cut of S3's A (its first `rows` documents, all 2^17
     columns, written as a triplet of its own; E1 and T1 run on the whole
@@ -2422,12 +2463,8 @@ def mesh_apps_phase(dev, scratch, a_sp, rows=1 << 17) -> list:
     from bof_tpu_torch.ops import kmeans as km
     from bof_tpu_torch.parallel import make_mesh
     eig = importlib.import_module("bof_tpu_torch.apps.eigensolver")
-    a_cut = a_sp[:rows]
+    prefix, a_cut = _row_cut(a_sp, rows, scratch, "A_cut")
     m, k = a_cut.shape
-    prefix = os.path.join(scratch, "A_cut")
-    a_cut.indptr.astype(np.int64).tofile(prefix + ".off")
-    a_cut.indices.astype(np.int64).tofile(prefix + ".col")
-    a_cut.data.astype(np.float32).tofile(prefix + ".csr")
     runs = []
 
     # -- block Lanczos, every application sharded
@@ -2588,8 +2625,7 @@ def mesh_apps_phase(dev, scratch, a_sp, rows=1 << 17) -> list:
           f"lloyd_assign_ref: {differ} differ (all near-ties)", flush=True)
     _check_lift(label, a_cut, labels, seen["lift"], tw, n_topics)
     runs.append(launches)
-    for ext in (".off", ".col", ".csr"):
-        os.unlink(prefix + ext)
+    _retire_triplet(prefix)
     return runs
 
 
@@ -3547,6 +3583,216 @@ def map_phase(dev, scratch, n=1 << 29) -> dict:
     return launches
 
 
+# ------------------------------------ S15: the dry run, kill and resume
+
+RESUME_N, RESUME_BLK = 8192, 2048  # 16 C superblocks of 4 K steps each
+RESUME_KILL_AT = 4                 # journal lines before the SIGKILL
+
+
+def dryrun_phase(dev) -> dict:
+    """S15a: `bof_tpu_torch.dryrun.dryrun_multichip` over this machine's
+    cards, in-process on S14's NCCL world (one rank here): its seven
+    phases print a line each and raise at the first that misses its
+    reference gate (__graft_entry__.py:62-248).  K1 (tf32x3 and f64), K2
+    and B7 must each launch, and its collectives run."""
+    import torch
+    from bof_tpu_torch.dryrun import dryrun_multichip
+    label = f"S15 dryrun_multichip({torch.cuda.device_count()})"
+
+    def run(argv):
+        t = time.perf_counter()
+        dryrun_multichip(torch.cuda.device_count())
+        return time.perf_counter() - t
+    wall, launches, stages, peak = _drive(dev, run, [])
+    shown = {k: n for k, n in launches.items() if n}
+    print(f"[{label}] wall {wall:.3f} s, launches {shown}, peak device "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    for name in ("accum_matmul[tf32x3]", "accum_matmul[f64]", "spmm_ell",
+                 "lloyd_assign", "lloyd_accumulate"):
+        if not launches.get(name):
+            raise AssertionError(f"[{label}] {name} never launched")
+    _check_collectives(label, stages, {"reduce_scatter": None,
+                                       "all_reduce": None,
+                                       "all_gather": None})
+    return launches
+
+
+def collective_timing(dev) -> None:
+    """B13's collectives on S14's world of one NCCL rank at S14's shapes:
+    gemm_sharded's reduce-scatter of an 8192 x 8192 fp32 partial over 'y'
+    and kmeans_dp's all-reduce of S11b's statistics (k 1024, d 128: sums,
+    counts and the inertia in float64), each the median of 5 CUDA-event
+    samples of 10 calls, beside its bound (each byte read once and written
+    once over the memory rate)."""
+    import torch
+    import torch.distributed as dist
+    from bof_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(device="cuda")
+    part = torch.randn(8192, 8192, device=dev)
+    out = torch.empty_like(part)  # 'y' has one rank: the whole partial
+    stats = torch.randn(1024 * 128 + 1024 + 1, dtype=torch.float64,
+                        device=dev)
+    for name, fn, nbytes in (
+            ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                out, part, group=mesh.get_group("y")), 2 * part.nbytes),
+            ("all_reduce", lambda: dist.all_reduce(stats),
+             2 * stats.nbytes)):
+        ms = _median_ms(fn, inner=10)
+        bound = nbytes / HBM_BPS * 1e3
+        print(f"[B13 {name}] one NCCL rank, {nbytes // 2} bytes: {ms:.4f} "
+              f"ms a call, bound {bound:.4f} ms (bytes; "
+              f"{100 * bound / ms:.1f} %)", flush=True)
+    del part, out, stats
+    torch.cuda.empty_cache()
+
+
+def _resume_worker(argv) -> int:
+    """`chip_smoke.py --resume-worker A B C journal n blk`: one journaled
+    fp32 gemm of the port on the card over existing files (O_DIRECT, the
+    native engine; C written over its blocks), then `GEMM_DONE
+    launches=<K1 launches in this process>`."""
+    import numpy as np
+    sys.path.insert(0, HERE)
+    import bof_tpu_torch as bt
+    from bof_tpu_torch.ops.gemm import gemm
+    from bof_tpu_torch.ops.matmul_cuda import accum_matmul
+    *paths, journal, n, blk = argv
+    n, blk = int(n), int(blk)
+    ctx = _new_ctx("cuda", os.path.join(os.path.dirname(journal),
+                                        "scratch"))
+    try:
+        a, b, c = (bt.map_array(p, (n, n), np.float32, "R", ctx=ctx)
+                   for p in paths)
+        gemm(a, b, c, blk=blk, ctx=ctx, resume_journal=journal)
+    finally:
+        ctx.destroy()
+    print(f"GEMM_DONE launches={accum_matmul.launches} tf32x3="
+          f"{accum_matmul.variant_launches['tf32x3']}", flush=True)
+    return 0
+
+
+def _same_bytes(p, q) -> bool:
+    with open(p, "rb") as f, open(q, "rb") as g:
+        while True:
+            x, y = f.read(64 << 20), g.read(64 << 20)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def resume_phase(dev, scratch) -> None:
+    """S15b: kill and resume a journaled gemm on the card.  A worker
+    process (`--resume-worker`) runs 8192^2 x 8192 fp32 at blk 2048 (16 C
+    superblocks of 4 K steps) uninterrupted; a second is SIGKILLed once
+    its journal holds 4 lines, then started again.  Fails unless the
+    resumed C is byte-identical to the uninterrupted one, the resumed run
+    launches K1 (superblocks left) x 4 times and removes its journal, and
+    16 seeded rows of C agree with float64 on the card."""
+    import re
+    import signal
+
+    import numpy as np
+    import torch
+    from bof_tpu_torch.ops.gemm import _load_journal
+    n, blk = RESUME_N, RESUME_BLK
+    blocks, k_steps = (n // blk) ** 2, n // blk
+    label = f"S15 gemm kill-and-resume {n}^3 blk {blk}"
+    d = os.path.join(scratch, "resume")  # the journals, the workers' scratch
+    os.makedirs(os.path.join(d, "scratch"), exist_ok=True)
+    a, b, c_ref, c_kill = (os.path.join(scratch, f"resume_{x}.bin")
+                           for x in ("A", "B", "C_ref", "C_kill"))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    a_max = _write_normals(a, (n, n), gen, dev, np.float32).max()
+    b_max = _write_normals(b, (n, n), gen, dev, np.float32).max()
+    for path in (c_ref, c_kill):
+        _reuse(path, n * n * 4)
+    print(f"[{label}] operands written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def launch(c, journal):
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--resume-worker",
+             a, b, c, journal, str(n), str(blk)], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish(proc, what):
+        out, _ = proc.communicate(timeout=300)
+        found = re.search(r"GEMM_DONE launches=(\d+)", out)
+        if proc.returncode != 0 or not found:
+            raise AssertionError(f"[{label}] {what} failed (rc "
+                                 f"{proc.returncode}):\n{out[-3000:]}")
+        return int(found.group(1))
+
+    def lines(journal):
+        """Whole lines after the header (a torn last line is not one)."""
+        try:
+            with open(journal) as f:
+                return max(0, f.read().count("\n") - 1)
+        except OSError:
+            return 0
+
+    t0 = time.perf_counter()
+    full = finish(launch(c_ref, os.path.join(d, "journal_ref.txt")),
+                  "the uninterrupted run")
+    t_full = time.perf_counter() - t0
+    if full != blocks * k_steps:
+        raise AssertionError(f"[{label}] the uninterrupted run launched K1 "
+                             f"{full} times, expected {blocks * k_steps}")
+    journal = os.path.join(d, "journal_kill.txt")
+    t0 = time.perf_counter()
+    proc = launch(c_kill, journal)
+    deadline = time.monotonic() + 300
+    while proc.poll() is None and time.monotonic() < deadline:
+        if lines(journal) >= RESUME_KILL_AT:
+            proc.send_signal(signal.SIGKILL)
+            break
+        time.sleep(0.002)
+    if proc.poll() is None:
+        proc.kill()
+    proc.communicate(timeout=60)
+    t_kill = time.perf_counter() - t0
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"[{label}] the worker to kill ended by itself "
+                             f"(rc {proc.returncode})")
+    with open(journal) as f:
+        done = len(_load_journal(journal, f.readline().rstrip("\n")))
+    if not RESUME_KILL_AT <= done < blocks:
+        raise AssertionError(f"[{label}] {done} superblocks durable at the "
+                             f"kill, expected {RESUME_KILL_AT}..{blocks - 1}")
+    t0 = time.perf_counter()
+    resumed = finish(launch(c_kill, journal), "the resumed run")
+    t_resume = time.perf_counter() - t0
+    want = (blocks - done) * k_steps
+    same = _same_bytes(c_kill, c_ref)
+    print(f"[{label}] uninterrupted {t_full:.1f} s ({full} K1 launches); "
+          f"killed after {t_kill:.1f} s with {done} of {blocks} superblocks "
+          f"journaled; resumed in {t_resume:.1f} s with {resumed} K1 "
+          f"launches (expected ({blocks} - {done}) x {k_steps} = {want}); "
+          f"C byte-identical to the uninterrupted run: {same}", flush=True)
+    if resumed != want or not same or os.path.exists(journal):
+        raise AssertionError(f"[{label}] the resumed run is not the "
+                             "uninterrupted one (launches, bytes or journal)")
+    rows = np.sort(np.random.default_rng(SEED + 15).choice(
+        n, N_SAMPLES, replace=False))
+    a_rows = np.fromfile(a, np.float32).reshape(n, n)[rows]
+    b64 = torch.from_numpy(np.fromfile(b, np.float32).reshape(n, n)).to(
+        dev, torch.float64)
+    want_rows = (torch.from_numpy(a_rows).to(dev, torch.float64)
+                 @ b64).cpu().numpy()
+    del b64
+    got_rows = np.fromfile(c_ref, np.float32).reshape(n, n)[rows]
+    atol = ATOL_SCALE * np.sqrt(n) * a_max * b_max
+    _verify(label, [(got_rows, want_rows)], atol,
+            f"{ATOL_SCALE} * sqrt(k) * max|A| * max|B|")
+    for path in (a, b, c_ref, c_kill):
+        _retire(path)
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+
+
 ACC_KERNELS = ("acc_hist_kernel", "acc_scan_kernel", "acc_offsets_kernel",
                "acc_scatter_kernel", "acc_sum_kernel")
 ASSIGN_KERNELS = ("tf32_split_kernel", "lloyd_assign_kernel")
@@ -3610,11 +3856,23 @@ def main() -> int:
           f"{t2 - t1:.1f} s ({cuda_lib.BUILD_INFO['path']})")
     _ptxas_report(cuda_lib.BUILD_INFO.get("ptxas", ""))
 
-    summary = {"accum_matmul": kernel_phase(dev), **lowp_kernel_phase(dev)}
-    summary.update(s8_i32_kernel_phase(dev,
-                                       summary["accum_matmul[s8]"]["ms"]))
-    summary.update({**ell_kernel_phase(dev), **topk_kernel_phase(dev),
-                    **sort_kernel_phase(dev)})
+    walls = {}
+
+    def timed(tag, fn, *args, **kw):
+        """fn(*args, **kw), its wall added to walls[tag]."""
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            walls[tag] = walls.get(tag, 0.0) + time.perf_counter() - t
+
+    summary = {"accum_matmul": timed("kernels K1", kernel_phase, dev)}
+    summary.update(timed("kernels K1", lowp_kernel_phase, dev))
+    summary.update(timed("kernels K1", s8_i32_kernel_phase, dev,
+                         summary["accum_matmul[s8]"]["ms"]))
+    summary.update({**timed("kernels K2", ell_kernel_phase, dev),
+                    **timed("kernels B8", topk_kernel_phase, dev),
+                    **timed("kernels B10", sort_kernel_phase, dev)})
 
     scratch = os.environ.get("BOF_SCRATCH") or os.path.join(
         HERE, "build", "chip_smoke")
@@ -3636,65 +3894,65 @@ def main() -> int:
     # reads them just after (_drive); the totals go to the summary.  The
     # transfer modes run on the operands of the fp32 call before them.
     f32 = ("float32", "float32")
-    runs = gemm_phase(dev, scratch, 32768, 32768, 32768, "R", "N", "N",
-                      1.0, 0.0, (("S1", *f32), ("S6", "int8", "bfloat16")))
+    runs = timed("S1 S6", gemm_phase, dev, scratch, 32768, 32768, 32768,
+                 "R", "N", "N", 1.0, 0.0,
+                 (("S1", *f32), ("S6", "int8", "bfloat16")))
     # S14 (the sharded paths on a 1 x 1 NCCL mesh) runs on each cell's
     # files right after the cell: here fp32 and int8 on S2's
-    runs += gemm_phase(dev, scratch, 12288, 12288, 12288, "C", "T", "N",
-                       0.5, 2.0, (("S2", *f32),
-                                  ("S7", "bfloat16", "float32"),
-                                  ("S14 S2", *f32, True),
-                                  ("S14 S2", "int8", "float32", True)))
+    runs += timed("S2 S7 S14", gemm_phase, dev, scratch, 12288, 12288,
+                  12288, "C", "T", "N", 0.5, 2.0,
+                  (("S2", *f32), ("S7", "bfloat16", "float32"),
+                   ("S14 S2", *f32, True),
+                   ("S14 S2", "int8", "float32", True)))
     prefix = os.path.join(scratch, "A_fig6")
     t0 = time.perf_counter()
-    a_sp = _sparse_create(prefix, 1 << 20, 1 << 17, 131.072, SEED + 3)
+    a_sp = timed("S3 A", _sparse_create, prefix, 1 << 20, 1 << 17, 131.072,
+                 SEED + 3)
     print(f"[S3] A written by drivers.sparse_create in "
           f"{time.perf_counter() - t0:.1f} s: {a_sp.shape[0]}x{a_sp.shape[1]}"
           f", nnz {a_sp.nnz}", flush=True)
-    runs += csrmm_fig6_phase(dev, scratch, prefix, a_sp,
-                             (("S3", *f32), ("S8", "int8", "bfloat16"),
-                              ("S14 S3", *f32, True)))
-    runs += csrmm_trans_phase(dev, scratch,
-                              (("S4", *f32), ("S4b", "bfloat16", "float32")))
+    runs += timed("S3 S8 S14", csrmm_fig6_phase, dev, scratch, prefix, a_sp,
+                  (("S3", *f32), ("S8", "int8", "bfloat16"),
+                   ("S14 S3", *f32, True)))
+    runs += timed("S4 S4b", csrmm_trans_phase, dev, scratch,
+                  (("S4", *f32), ("S4b", "bfloat16", "float32")))
     for tag, trans, xfer in (("S5", "N", "float32"), ("S5", "T", "float32"),
                              ("S9", "N", "bfloat16"), ("S9", "N", "int8")):
-        runs.append(csrgemv_phase(dev, scratch, prefix, a_sp, trans, tag,
-                                  xfer))
-    # the paper's three applications on S3's A
-    walls = {}
-    for tag, phase in (("E1", eigensolver_phase), ("X1", xml_phase),
-                       ("T1", topic_phase)):
-        t0 = time.perf_counter()
-        runs.append(phase(dev, scratch, prefix, a_sp))
-        walls[tag] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    runs.append(xml_phase(dev, scratch, prefix, a_sp, sharded=True))
-    walls["S14 X1"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    runs += mesh_apps_phase(dev, scratch, a_sp)
-    walls["S14 E1+T1 cut"] = time.perf_counter() - t0
+        runs.append(timed("S5 S9", csrgemv_phase, dev, scratch, prefix, a_sp,
+                          trans, tag, xfer))
+    # the paper's three applications on S3's A: X1 on all of it, E1 and
+    # T1 on its first 2^19 documents (cut for the time limit)
+    half_prefix, a_half = timed("E1 T1 cut", _row_cut, a_sp, 1 << 19,
+                                scratch, "A_half")
+    runs.append(timed("E1", eigensolver_phase, dev, scratch, half_prefix,
+                      a_half))
+    runs.append(timed("X1", xml_phase, dev, scratch, prefix, a_sp))
+    runs.append(timed("T1", topic_phase, dev, scratch, half_prefix, a_half))
+    _retire_triplet(half_prefix)
+    del a_half
+    runs.append(timed("S14 X1", xml_phase, dev, scratch, prefix, a_sp,
+                      sharded=True))
+    runs += timed("S14 E1+T1 cut", mesh_apps_phase, dev, scratch, a_sp)
     for ext in (".off", ".col", ".csr"):
         os.unlink(prefix + ext)
     del a_sp
     # float64 gemm and k-means: their kernels first, then their main paths
-    t0 = time.perf_counter()
-    summary["accum_matmul[f64]"] = f64_kernel_phase(dev)
-    summary.update(kmeans_kernel_phase(dev))
-    walls["kernels f64 + B7"] = time.perf_counter() - t0
+    summary["accum_matmul[f64]"] = timed("kernels f64 + B7",
+                                         f64_kernel_phase, dev)
+    summary.update(timed("kernels f64 + B7", kmeans_kernel_phase, dev))
     for tag, phase in (("S10", gemm64_phase), ("S11", kmeans_phase),
                        ("S11b", kmeans_resident_phase)):
-        t0 = time.perf_counter()
-        got = phase(dev, scratch)
+        got = timed(tag, phase, dev, scratch)
         runs += got if isinstance(got, list) else [got]
-        walls[tag] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gemm_run_phase(dev, scratch)
-    walls["gemm_run"] = time.perf_counter() - t0
+    timed("gemm_run", gemm_run_phase, dev, scratch)
     # the sort and map/reduce primitives, over spares
     for tag, phase in (("S12", sort_phase), ("S13", map_phase)):
-        t0 = time.perf_counter()
-        runs.append(phase(dev, scratch))
-        walls[tag] = time.perf_counter() - t0
+        runs.append(timed(tag, phase, dev, scratch))
+    # S15 on S14's world of one NCCL rank, over spares: the dry run, B13's
+    # collectives timed, then kill-and-resume
+    runs.append(timed("S15 dryrun", dryrun_phase, dev))
+    timed("S15 collectives", collective_timing, dev)
+    timed("S15 resume", resume_phase, dev, scratch)
     shutil.rmtree(os.path.join(scratch, "spare"))
     print("phase walls (s, data making and checks included): " + ", ".join(
         f"{tag} {sec:.1f}" for tag, sec in walls.items()), flush=True)
@@ -3761,4 +4019,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-worker"]:
+        sys.exit(_resume_worker(sys.argv[2:]))
     sys.exit(main())

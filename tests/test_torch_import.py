@@ -396,3 +396,19 @@ def test_parallel_cuda_device_without_card_raises(tmp_path, entry):
         assert not c.read_all().any() and not labels.read_all().any()
     finally:
         ctx.destroy()
+
+
+def test_dryrun_imports_neither_jax_nor_bof_tpu():
+    """bof_tpu_torch.dryrun (the port of __graft_entry__.py) stands alone:
+    importing it and building entry()'s function leaves jax, ml_dtypes
+    and bof_tpu out."""
+    code = ("import sys, bof_tpu_torch.dryrun as d; fn, args = "
+            "d.entry(device='cpu'); fn(*args); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'ml_dtypes', 'bof_tpu', '__graft_entry__')); "
+            "print(bad)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
