@@ -152,6 +152,13 @@ class FlashContext:
                 self._pin_router = PinRouter(sched.cache, native)
             return self._pin_router
 
+    def pin_cache_stats(self) -> Optional[dict]:
+        """The native pin cache's counters (`NativeTileCache.stats()`:
+        used, hits, misses, evictions, entries, read_bytes), or None where
+        the context's pins take the Python TileCache."""
+        native = self.pin_cache()._nat
+        return native.stats() if native is not None else None
+
     def destroy(self):
         with self._lock:
             if self._pin_router is not None:

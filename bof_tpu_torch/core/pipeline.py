@@ -6,16 +6,23 @@ the planner-side expression of the reference's prefetch pipeline (the
 Prioritizer+backlog machinery services the pins).  `TicketWindow` bounds
 the async writes in flight.  `queue_put`, `queue_put_sentinel`,
 `queue_items` and `join_threads` are the stage threads' one shutdown
-protocol: bounded, timed queues and a shared error list.
+protocol: bounded, timed queues and a shared error list.  A get or put on
+a pipeline queue runs inside the span its caller names (METRICS.span,
+`<entry>.queue_wait`): one stage waiting on another.
 """
 from __future__ import annotations
 
-import time
-from typing import Sequence, Tuple
+import contextlib
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import METRICS
 from .cache import TileCache
+
+
+def _hand_off(span: Optional[str]):
+    return METRICS.span(span) if span else contextlib.nullcontext()
 
 
 class PrefetchSeq:
@@ -62,20 +69,21 @@ class TicketWindow:
     kernel's write-backs to the end grows host RAM to the full padded
     output size — the exact out-of-core regime these kernels exist for.
     `depth` tickets in flight keeps the disk writer busy while bounding
-    the buffers (one shared helper instead of per-kernel copies)."""
+    the buffers (one shared helper instead of per-kernel copies).  Each
+    wait, at a full window or at the end, runs inside the span `span`
+    (e.g. "gemm.write_wait"), where one is named."""
 
-    __slots__ = ("_dq", "_depth", "wait_s")
+    __slots__ = ("_dq", "_depth", "_span")
 
-    def __init__(self, depth: int = 8):
+    def __init__(self, depth: int = 8, span: Optional[str] = None):
         import collections
         self._dq = collections.deque()
         self._depth = max(1, depth)
-        self.wait_s = 0.0  # total blocked-on-write time, incl. push stalls
+        self._span = span
 
     def _wait_one(self) -> None:
-        t0 = time.perf_counter()
-        self._dq.popleft().wait()
-        self.wait_s += time.perf_counter() - t0
+        with _hand_off(self._span):
+            self._dq.popleft().wait()
 
     def push(self, t) -> None:
         self._dq.append(t)
@@ -94,19 +102,21 @@ class TicketWindow:
         return len(self._dq)
 
 
-def queue_put(q, item, errors, timeout: float = 1.0) -> bool:
+def queue_put(q, item, errors, span: Optional[str] = None,
+              timeout: float = 1.0) -> bool:
     """Timeout-put guarded by a shared error list: a dead consumer can
     never block a producer forever (the producer may be holding pinned
     tiles).  Returns False once an error is recorded.  Shared by the
     gemm/csrmm/sharded pipeline stages — one shutdown protocol, not four
-    hand-rolled copies."""
+    hand-rolled copies.  The put runs inside the span `span`."""
     import queue as _queue
-    while not errors:
-        try:
-            q.put(item, timeout=timeout)
-            return True
-        except _queue.Full:
-            continue
+    with _hand_off(span):
+        while not errors:
+            try:
+                q.put(item, timeout=timeout)
+                return True
+            except _queue.Full:
+                continue
     return False
 
 
@@ -128,18 +138,21 @@ def queue_put_sentinel(q, errors):
         pass
 
 
-def queue_items(q, errors):
+def queue_items(q, errors, span: Optional[str] = None):
     """The items of a pipeline queue up to its None: timeout-gets, so a
     consumer whose producer died (the error-path None can be dropped on a
-    full queue) ends once an error is recorded and the queue is empty."""
+    full queue) ends once an error is recorded and the queue is empty.
+    Each get runs inside the span `span`."""
     import queue as _queue
     while True:
-        try:
-            box = [q.get(timeout=1.0)]
-        except _queue.Empty:
-            if errors:
-                return
-            continue
+        with _hand_off(span):
+            box = None
+            while box is None:
+                try:
+                    box = [q.get(timeout=1.0)]
+                except _queue.Empty:
+                    if errors:
+                        return
         if box[0] is None:
             return
         # popped, not bound: the consumer alone holds the item (and may

@@ -20,7 +20,6 @@ from typing import Optional
 
 import numpy as np
 
-from ..utils import METRICS
 from .native import NativeFileStore, load_library
 from .stride import StrideInfo
 
@@ -105,10 +104,12 @@ class NativeTileCache:
         return int(r)
 
     def stats(self) -> dict:
-        s = (ctypes.c_longlong * 5)()
+        """Bytes held, hits, misses, evictions and entries, and
+        `read_bytes`: the bytes of every pin that missed and was read."""
+        s = (ctypes.c_longlong * 6)()
         self._lib.bof_cache_stats(self._h, s)
         return {"used": s[0], "hits": s[1], "misses": s[2],
-                "evictions": s[3], "entries": s[4]}
+                "evictions": s[3], "entries": s[4], "read_bytes": s[5]}
 
     def close(self):
         if self._h:
@@ -133,9 +134,7 @@ class PinRouter:
     def pin_read(self, store, offset, sinfo):
         if self._nat is not None and isinstance(store, NativeFileStore):
             eid = self._nat.pin_read(store, offset, sinfo)
-            METRICS.add("pincache.native")
             return ("__nat__", eid, sinfo.nbytes)
-        METRICS.add("pincache.python")
         return ("__py__", self._py.pin_read(store, offset, sinfo))
 
     def ready(self, key) -> bool:

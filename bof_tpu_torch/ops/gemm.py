@@ -46,7 +46,6 @@ import collections
 import os
 import queue
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -56,7 +55,7 @@ from ..core.flash_array import FlashArray
 from ..core.pipeline import (join_threads, queue_items, queue_put,
                              queue_put_sentinel)
 from ..io.native import bf16_to_f32, cast_bf16, quantize_i8
-from ..utils import LOG, METRICS, Timer, cdiv
+from ..utils import LOG, METRICS, cdiv
 from . import device as dev
 
 
@@ -204,8 +203,7 @@ def _check_finite(arr: FlashArray, access, outer: int, inner: int, sb: int,
 
 
 def _superblock_pipeline(steps, kB: int, depth: int, produce, start, accum,
-                         write_all, wait_metric: Optional[str] = None
-                         ) -> None:
+                         write_all, name: str) -> None:
     """The threaded pipeline of both out-of-core gemms (`gemm` here and
     `parallel.mesh.gemm_sharded`), each plugging in its own stages:
 
@@ -221,15 +219,19 @@ def _superblock_pipeline(steps, kB: int, depth: int, produce, start, accum,
 
     Every queue is bounded (`depth` items) and timed, and a failure in any
     stage reaches the others through one error list, so none can hang;
-    the first error is raised here once the threads have ended.
-    `wait_metric` books this thread's waits for tiles."""
+    the first error is raised here once the threads have ended.  Spans
+    (METRICS.span, `name` the entry's): this thread's waits for a tile are
+    `<name>.tile_wait` and its launches `<name>.accum`; the producer's
+    puts, the hand-off of a finished block and the writer's gets are
+    `<name>.queue_wait`."""
     tile_q: queue.Queue = queue.Queue(maxsize=depth)
     write_q: queue.Queue = queue.Queue(maxsize=max(2, depth))
     errors: list = []
+    queue_wait, accum_span = name + ".queue_wait", name + ".accum"
 
     def producer():
         try:
-            produce(lambda item: queue_put(tile_q, item, errors))
+            produce(lambda item: queue_put(tile_q, item, errors, queue_wait))
         except BaseException as e:  # pragma: no cover
             errors.append(e)
             try:
@@ -239,7 +241,7 @@ def _superblock_pipeline(steps, kB: int, depth: int, produce, start, accum,
 
     def writer():
         try:
-            write_all(queue_items(write_q, errors))
+            write_all(queue_items(write_q, errors, queue_wait))
         except BaseException as e:  # pragma: no cover
             errors.append(e)
 
@@ -248,22 +250,21 @@ def _superblock_pipeline(steps, kB: int, depth: int, produce, start, accum,
     for t in threads:
         t.start()
     c_live: dict = {}  # j -> device accumulator for the current i sweep
-    tiles = queue_items(tile_q, errors)
+    tiles = queue_items(tile_q, errors, name + ".tile_wait")
     try:
         for (i, j, l) in steps:
-            t_get = time.perf_counter()
             item = next(tiles, None)
-            if wait_metric:
-                METRICS.add(wait_metric, time.perf_counter() - t_get)
             if item is None:
                 break
             a_dev, b_dev, c_init = item
-            if l == 0:
-                c_live[j] = start(c_init)
-            c_live[j] = accum(c_live[j], a_dev, b_dev)
+            with METRICS.span(accum_span):
+                if l == 0:
+                    c_live[j] = start(c_init)
+                c_live[j] = accum(c_live[j], a_dev, b_dev)
             if l == kB - 1:
                 # timeout-put so a dead writer can't deadlock the loop
-                queue_put(write_q, (i, j, c_live.pop(j)), errors)
+                queue_put(write_q, (i, j, c_live.pop(j)), errors,
+                          queue_wait)
             if errors:
                 break
     except BaseException as e:
@@ -277,6 +278,7 @@ def _superblock_pipeline(steps, kB: int, depth: int, produce, start, accum,
         raise errors[0]
 
 
+@METRICS.span("gemm")
 def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
          alpha: float = 1.0, beta: float = 0.0,
          transa: str = "N", transb: str = "N",
@@ -432,20 +434,17 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
         """Host -> device copy (`bf16`: of bf16 bits); with telemetry_sync
         the device is drained inside the window so the rate sample is a
         transfer rate."""
-        t1 = time.perf_counter()
-        arr = (dev.to_device_bf16(host, device) if bf16
-               else dev.to_device(host, device))
-        if sync_mode:
-            dev.sync(arr)
-        t2 = time.perf_counter()
+        with METRICS.span("gemm.h2d") as sp:
+            arr = (dev.to_device_bf16(host, device) if bf16
+                   else dev.to_device(host, device))
+            if sync_mode:
+                dev.sync(arr)
+            sp.nbytes = arr.nbytes
         if sync_mode:
             METRICS.observe("gemm.h2d_tile_gbps",
-                            arr.nbytes / max(t2 - t1, 1e-9) / 1e9)
-        METRICS.add("gemm.h2d_s", t2 - t1)
-        METRICS.add("gemm.h2d_bytes", arr.nbytes)
+                            arr.nbytes / max(sp.seconds, 1e-9) / 1e9)
         return arr
 
-    timer = Timer()
     c_full_storage = (sb, sb)
 
     # ---- the superblock pipeline (_superblock_pipeline) ----------------
@@ -478,21 +477,20 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
 
             def _load(desc, hkey, st_shape):
                 pin = desc[6]
-                t0 = time.perf_counter()
-                cache.wait_ready(pin)
-                t_disk = time.perf_counter()
-                host = cache.buf(pin).view(a.dtype).reshape(st_shape)
-                scale = None
-                if xfer_bf16:
-                    # round on the host so half the bytes cross the link
-                    host = cast_bf16(host)
-                elif xfer_int8:
-                    # per-tile max-abs int8: a quarter of the bytes; K1
-                    # sums the products exactly and rescales once
-                    host, scale = quantize_i8(host)
-                padded = pad_to(host, (sb, sb))
-                METRICS.add("gemm.disk_wait_s", t_disk - t0)
-                METRICS.add("gemm.prep_s", time.perf_counter() - t_disk)
+                with METRICS.span("gemm.disk_wait"):
+                    cache.wait_ready(pin)
+                with METRICS.span("gemm.prep"):
+                    host = cache.buf(pin).view(a.dtype).reshape(st_shape)
+                    scale = None
+                    if xfer_bf16:
+                        # round on the host so half the bytes cross the
+                        # link
+                        host = cast_bf16(host)
+                    elif xfer_int8:
+                        # per-tile max-abs int8: a quarter of the bytes;
+                        # K1 sums the products exactly and rescales once
+                        host, scale = quantize_i8(host)
+                    padded = pad_to(host, (sb, sb))
                 # to_device returns only once the pinned buffer has been
                 # read, so the caller may unpin right after
                 arr = upload(padded, bf16=xfer_bf16)
@@ -503,11 +501,11 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                 bi, bj, bl = tile_dims(i, j, l)
                 c_init = None
                 if l == 0 and beta != 0.0:
-                    t0 = time.perf_counter()
-                    c_host = c.read_block_storage(i * sb, bi, j * sb, bj)
-                    c_pad = pad_to(c_host, c_full_storage)
-                    # read+pad span only — the upload is booked to h2d_s
-                    METRICS.add("gemm.c_read_s", time.perf_counter() - t0)
+                    # read+pad only: the upload is gemm.h2d
+                    with METRICS.span("gemm.c_read"):
+                        c_host = c.read_block_storage(i * sb, bi, j * sb,
+                                                      bj)
+                        c_pad = pad_to(c_host, c_full_storage)
                     c_init = upload(c_pad)
                 da, db = pinned.popleft()
                 try:
@@ -529,7 +527,7 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
 
     def write_all(blocks):
         from ..core.pipeline import TicketWindow
-        write_tickets = TicketWindow(depth=8)
+        write_tickets = TicketWindow(depth=8, span="gemm.write_wait")
         for i, j, c_dev in blocks:
             if isinstance(c_dev, tuple):
                 c_dev = c_dev[0].add_(c_dev[1])
@@ -544,40 +542,38 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                 # round the finished block on the device so half the
                 # bytes cross the link; the accumulation ran in fp32
                 c_dev = dev.to_bf16(c_dev)
-            t0 = time.perf_counter()
-            dev.sync(c_dev)
-            t1 = time.perf_counter()
-            c_full = dev.from_device(c_dev)
-            t2 = time.perf_counter()
-            METRICS.add("gemm.accum_wait_s", t1 - t0)
-            METRICS.add("gemm.d2h_s", t2 - t1)
+            with METRICS.span("gemm.accum_wait"):
+                dev.sync(c_dev)
+            with METRICS.span("gemm.d2h") as sp:
+                c_full = dev.from_device(c_dev)
+                c_host = c_full[:ci_shape[0], :ci_shape[1]]
+                sp.nbytes = c_host.nbytes
             if sync_mode:
                 METRICS.observe("gemm.d2h_tile_gbps",
-                                c_full.nbytes / max(t2 - t1, 1e-9) / 1e9)
-            c_host = c_full[:ci_shape[0], :ci_shape[1]]
-            METRICS.add("gemm.d2h_bytes", c_host.nbytes)
+                                c_full.nbytes / max(sp.seconds, 1e-9) / 1e9)
             if c_xfer_bf16:  # widen back (exactly) for fp32 storage
                 c_host = bf16_to_f32(c_host)
             if journal_f is None:
-                write_tickets.push(c.write_block_storage_async(
-                    i * sb, j * sb, bi, bj, c_host))
+                # a copy where C is in DRAM, a submitted write to a file
+                with METRICS.span("gemm.write"):
+                    ticket = c.write_block_storage_async(
+                        i * sb, j * sb, bi, bj, c_host)
+                write_tickets.push(ticket)
             else:
                 # durability order is the journal's correctness: the
                 # block's bytes reach disk (wait + fsync) BEFORE its
                 # journal line does — a crash between the two re-does
                 # the block, never skips a missing one
-                t0 = time.perf_counter()
-                c.write_block_storage_async(
-                    i * sb, j * sb, bi, bj, c_host).wait()
-                c.store.flush()
-                METRICS.add("gemm.write_wait_s", time.perf_counter() - t0)
+                with METRICS.span("gemm.write_wait"):
+                    c.write_block_storage_async(
+                        i * sb, j * sb, bi, bj, c_host).wait()
+                    c.store.flush()
                 journal_f.write(f"{i} {j}\n")
                 journal_f.flush()
                 os.fsync(journal_f.fileno())
+        # with the waits inside push() when the window was full, so
+        # disk-bound write stalls are not under-reported
         write_tickets.wait_all()
-        # includes waits absorbed inside push() when the window was full,
-        # so disk-bound write stalls are not under-reported
-        METRICS.add("gemm.write_wait_s", write_tickets.wait_s)
 
     # alpha and beta in C's dtype, as bof_tpu passes them
     alpha_s = float(np.dtype(c.dtype).type(alpha))
@@ -611,7 +607,7 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
 
     try:
         _superblock_pipeline(steps, kB, depth, produce, start, accum,
-                             write_all, wait_metric="gemm.tile_wait_s")
+                             write_all, "gemm")
     except BaseException:
         if journal_f is not None:
             journal_f.close()  # keep the journal: the next call resumes
@@ -626,10 +622,6 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
         except OSError:
             pass
     hbm.clear()
-    METRICS.add("gemm.ms", timer.elapsed_ms())
-    flops = 2.0 * m * n * k
-    LOG.debug("gemm %dx%dx%d done in %.1f ms (%.1f GFLOP/s)",
-              m, n, k, timer.elapsed_ms(), flops / timer.elapsed_ms() / 1e6)
 
 
 def gemm_in_mem(a_np: np.ndarray, b_np: np.ndarray,

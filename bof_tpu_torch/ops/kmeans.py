@@ -22,7 +22,6 @@ tensors only.
 """
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -331,9 +330,8 @@ def lloyds_iter(points: FlashArray, centers: np.ndarray,
     write_tickets = TicketWindow(depth=8)
     try:
         for bi, (r0, bn) in enumerate(spans):
-            t0 = time.perf_counter()
-            p_host = pf.get(bi).view(points.dtype).reshape(bn, d)
-            METRICS.add("kmeans.disk_wait_s", time.perf_counter() - t0)
+            with METRICS.span("kmeans.disk_wait"):
+                p_host = pf.get(bi).view(points.dtype).reshape(bn, d)
             # einsum accumulates in f64 without materializing a full f64
             # copy + squared temporary of the block
             blk_norm2 = float(np.einsum("ij,ij->", p_host, p_host,
@@ -351,18 +349,16 @@ def lloyds_iter(points: FlashArray, centers: np.ndarray,
                 sums_h += onehot.T @ p_host
             else:
                 p_norm2 += blk_norm2
-                t0 = time.perf_counter()
-                p_blk = dev.to_device(p_host.astype(np.float32, copy=False),
-                                      device)
-                METRICS.add("kmeans.h2d_s", time.perf_counter() - t0)
-                METRICS.add("kmeans.h2d_bytes", p_blk.nbytes)
+                with METRICS.span("kmeans.h2d") as sp:
+                    p_blk = dev.to_device(
+                        p_host.astype(np.float32, copy=False), device)
+                    sp.nbytes = p_blk.nbytes
                 labels = step.block(p_blk)
             pf.done(bi)
             if labels_out is not None:
                 if not host_mode:
-                    t0 = time.perf_counter()
-                    lab_np = dev.from_device(labels)
-                    METRICS.add("kmeans.d2h_s", time.perf_counter() - t0)
+                    with METRICS.span("kmeans.d2h"):
+                        lab_np = dev.from_device(labels)
                 _write_labels(labels_out, r0, lab_np, write_tickets)
     finally:
         pf.close()  # an exception mid-stream must not leak pinned tiles
@@ -564,16 +560,15 @@ def kmeans_fit(points: FlashArray, n_centers: int, n_iters: int = 10,
                  state_path, start_attempt, start_it)
     for attempt in range(start_attempt, max(1, n_init)):
         rng = np.random.default_rng(seed + attempt)
-        t_seed = time.perf_counter()
-        if attempt == start_attempt and resume_centers is not None:
-            centers = resume_centers
-        elif init == "kmeans++":
-            centers = _kmeanspp_sample(points, n_centers, rng)
-        else:
-            idx = _sample_indices(n, n_centers, rng)
-            centers = np.stack([points.read_block(int(i), 1, 0, d)[0]
-                                for i in idx])
-        METRICS.add("kmeans.seed_s", time.perf_counter() - t_seed)
+        with METRICS.span("kmeans.seed"):
+            if attempt == start_attempt and resume_centers is not None:
+                centers = resume_centers
+            elif init == "kmeans++":
+                centers = _kmeanspp_sample(points, n_centers, rng)
+            else:
+                idx = _sample_indices(n, n_centers, rng)
+                centers = np.stack([points.read_block(int(i), 1, 0, d)[0]
+                                    for i in idx])
         inertia = np.inf
         it0 = start_it if attempt == start_attempt else 0
         for it in range(it0, n_iters):

@@ -22,7 +22,6 @@ provide the same bound without serializing.
 from __future__ import annotations
 
 import threading
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -94,22 +93,20 @@ def bof_map(src: FlashArray, dst: FlashArray, fn: Callable,
         tfn = _torch_fn(fn)
 
         def apply(x):
-            t0 = time.perf_counter()
-            t = torch.from_numpy(x).to(dev, copy=True)
-            t1 = time.perf_counter()
-            out = tfn(t)
-            if not isinstance(out, torch.Tensor):
-                # e.g. a jax.numpy fn, which would take the tensor to the
-                # host through numpy (and cannot read one on the card)
-                raise TypeError(
-                    f"bof_map fn returned a {type(out).__module__}."
-                    f"{type(out).__name__}, not a torch.Tensor: for elements "
-                    "of under 8 bytes fn maps the block's tensor with torch "
-                    "ops")
-            out = from_device(out)
-            METRICS.add("map.h2d_s", t1 - t0)
-            METRICS.add("map.fn_d2h_s", time.perf_counter() - t1)
-            return out
+            with METRICS.span("map.h2d"):
+                t = torch.from_numpy(x).to(dev, copy=True)
+            with METRICS.span("map.fn_d2h"):
+                out = tfn(t)
+                if not isinstance(out, torch.Tensor):
+                    # e.g. a jax.numpy fn, which would take the tensor to
+                    # the host through numpy (and cannot read one on the
+                    # card)
+                    raise TypeError(
+                        f"bof_map fn returned a {type(out).__module__}."
+                        f"{type(out).__name__}, not a torch.Tensor: for "
+                        "elements of under 8 bytes fn maps the block's "
+                        "tensor with torch ops")
+                return from_device(out)
     else:
         # 64-bit blocks: apply fn to the numpy block directly, fanned out
         # over host threads (the reference MapTask's OpenMP elementwise

@@ -28,7 +28,6 @@ here without serializing.
 from __future__ import annotations
 
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -127,15 +126,15 @@ def bof_sort(src: FlashArray, dst: FlashArray, descending: bool = False,
         from .sort_cuda import bits_of, sort_block as b10
         dev = resolve_device(ctx.config.device)
 
+    @METRICS.span("sort.block_sort")
     def sort_block(x):
-        t0 = time.perf_counter()
         if key is not None:
             x[:] = x[np.argsort(key(x), kind="stable")]
         elif device_sort:
             # the block as it is: no padding (bof_tpu padded to a power of
             # two only to bound XLA's compiles, bof_tpu/ops/sort.py:121-149)
-            t = bits_of(x).to(dev, copy=True)
-            METRICS.add("sort.h2d_s", time.perf_counter() - t0)
+            with METRICS.span("sort.h2d"):
+                t = bits_of(x).to(dev, copy=True)
             x[:] = from_device(b10(t, x.dtype)).view(x.dtype)
         else:
             # parallel block sort (the reference's __gnu_parallel::sort,
@@ -143,7 +142,6 @@ def bof_sort(src: FlashArray, dst: FlashArray, descending: bool = False,
             # threads + native run merge; 1-core hosts take plain np.sort
             from ..utils.hostpar import parallel_sort
             parallel_sort(x)
-        METRICS.add("sort.block_sort_s", time.perf_counter() - t0)
 
     def searchsorted_keyed(x_sorted, pivots):
         if key is None:
@@ -154,34 +152,33 @@ def bof_sort(src: FlashArray, dst: FlashArray, descending: bool = False,
     # only flips bucket placement and fragment order in phase 3.
 
     # ---- phase 1: block sort + sample -----------------------------------
-    t_phase = time.perf_counter()
-    samples: list = [None] * n_blks
-    lock = threading.Lock()
-    p1 = []
-    for bi in range(n_blks):
-        b0 = bi * blk
-        bn = min(blk, n - b0)
-        off, sinfo = src.block_access(b0, bn)
+    with METRICS.span("sort.phase1"):
+        samples: list = [None] * n_blks
+        lock = threading.Lock()
+        p1 = []
+        for bi in range(n_blks):
+            b0 = bi * blk
+            bn = min(blk, n - b0)
+            off, sinfo = src.block_access(b0, bn)
 
-        def run(task, bi=bi, off=off, sinfo=sinfo, bn=bn):
-            x = task.buf(src.store, off, sinfo, dt)
-            sort_block(x)  # ascending (in key order) in place
-            # per-task generator: numpy Generators are not thread-safe,
-            # and compute threads run phase-1 tasks concurrently
-            rng = np.random.default_rng(0xB0F + bi)
-            idx = np.sort(rng.integers(0, bn, min(oversample, bn)))
-            picked = x[idx]
-            with lock:
-                samples[bi] = (np.asarray(key(picked)) if key is not None
-                               else picked.copy())
-        t = FnTask(run)
-        t.add_read(src.store, off, sinfo)
-        t.add_write(src.store, off, sinfo)
-        p1.append(t)
-    sched.add_tasks(p1)
-    sched.wait_for(p1)
-    sched.flush_cache()
-    t_phase = _phase_done("sort.phase1_s", t_phase)
+            def run(task, bi=bi, off=off, sinfo=sinfo, bn=bn):
+                x = task.buf(src.store, off, sinfo, dt)
+                sort_block(x)  # ascending (in key order) in place
+                # per-task generator: numpy Generators are not thread-safe,
+                # and compute threads run phase-1 tasks concurrently
+                rng = np.random.default_rng(0xB0F + bi)
+                idx = np.sort(rng.integers(0, bn, min(oversample, bn)))
+                picked = x[idx]
+                with lock:
+                    samples[bi] = (np.asarray(key(picked)) if key is not None
+                                   else picked.copy())
+            t = FnTask(run)
+            t.add_read(src.store, off, sinfo)
+            t.add_write(src.store, off, sinfo)
+            p1.append(t)
+        sched.add_tasks(p1)
+        sched.wait_for(p1)
+        sched.flush_cache()
     METRICS.add("sort.blocks", n_blks)
 
     if n_blks == 1:
@@ -189,95 +186,88 @@ def bof_sort(src: FlashArray, dst: FlashArray, descending: bool = False,
         dst.write_all(data[::-1] if descending else data)
         return
 
-    # ---- host: pivots (reference sorts/shuffles samples, sort.tpp:59-65)
-    all_samples = np.concatenate(samples)
-    all_samples.sort()
-    pick = np.linspace(0, len(all_samples) - 1, n_blks + 1)[1:-1]
-    pivots = all_samples[pick.astype(np.int64)]
-    n_buckets = len(pivots) + 1
+    with METRICS.span("sort.phase2"):
+        # ---- host: pivots (reference sorts/shuffles samples, sort.tpp:59-65)
+        all_samples = np.concatenate(samples)
+        all_samples.sort()
+        pick = np.linspace(0, len(all_samples) - 1, n_blks + 1)[1:-1]
+        pivots = all_samples[pick.astype(np.int64)]
+        n_buckets = len(pivots) + 1
 
-    # ---- phase 2: per-block bucket boundaries ---------------------------
-    counts = np.zeros((n_blks, n_buckets), dtype=np.int64)
-    bounds = [None] * n_blks
-    p2 = []
-    for bi in range(n_blks):
-        b0 = bi * blk
-        bn = min(blk, n - b0)
-        off, sinfo = src.block_access(b0, bn)
-
-        def run(task, bi=bi, off=off, sinfo=sinfo, bn=bn):
-            x = task.buf(src.store, off, sinfo, dt)
-            # block is sorted ascending (in key space): binary search
-            edge = searchsorted_keyed(x, pivots)
-            b = np.concatenate([[0], edge, [bn]])
-            with lock:
-                bounds[bi] = b
-                counts[bi] = np.diff(b)
-        t = FnTask(run)
-        t.add_read(src.store, off, sinfo)
-        p2.append(t)
-    sched.add_tasks(p2)
-    sched.wait_for(p2)
-    t_phase = _phase_done("sort.phase2_s", t_phase)
-
-    # ---- host: bucket output offsets (sort.tpp:87-131) ------------------
-    bucket_sizes = counts.sum(axis=0)
-    bucket_starts = np.concatenate([[0], np.cumsum(bucket_sizes)])
-    if bucket_starts[-1] != n:
-        fatal("sample sort bucket accounting mismatch: %d != %d",
-              bucket_starts[-1], n)
-
-    # ---- phase 3: merge each bucket -------------------------------------
-    # duplicate-heavy data can funnel most elements into one pivot bucket,
-    # whose merge task would then exceed the cache budget and fail deep in
-    # the scheduler; surface the limit up front with a remedy (the
-    # reference's sample sort shares this failure mode, sort.tpp:87-131)
-    max_bucket = int(bucket_sizes.max()) if n_buckets else 0
-    cache_cap = sched.cache.max_size
-    if max_bucket * src.itemsize * 2 > cache_cap:
-        raise ValueError(
-            f"sample sort bucket of {max_bucket} elements needs "
-            f"{max_bucket * src.itemsize * 2} B in-memory (> program "
-            f"budget {cache_cap}); the input is too duplicate-heavy for "
-            "the sampled pivots — raise program_budget or pre-partition "
-            "the input")
-    p3 = []
-    for kb in range(n_buckets):
-        outn = int(bucket_sizes[kb])
-        if descending:
-            out0 = int(n - bucket_starts[kb] - outn)
-        else:
-            out0 = int(bucket_starts[kb])
-        if outn == 0:
-            continue
-        frags = []
+        # ---- phase 2: per-block bucket boundaries ---------------------------
+        counts = np.zeros((n_blks, n_buckets), dtype=np.int64)
+        bounds = [None] * n_blks
+        p2 = []
         for bi in range(n_blks):
-            s, e = int(bounds[bi][kb]), int(bounds[bi][kb + 1])
-            if e > s:
-                frags.append(src.block_access(bi * blk + s, e - s))
-        doff, dsin = dst.block_access(out0, outn)
+            b0 = bi * blk
+            bn = min(blk, n - b0)
+            off, sinfo = src.block_access(b0, bn)
 
-        def run(task, frags=tuple(frags), doff=doff, dsin=dsin, outn=outn):
-            parts = [task.buf(src.store, fo, fs, dt) for fo, fs in frags]
-            merged = np.concatenate(parts)
-            sort_block(merged)
+            def run(task, bi=bi, off=off, sinfo=sinfo, bn=bn):
+                x = task.buf(src.store, off, sinfo, dt)
+                # block is sorted ascending (in key space): binary search
+                edge = searchsorted_keyed(x, pivots)
+                b = np.concatenate([[0], edge, [bn]])
+                with lock:
+                    bounds[bi] = b
+                    counts[bi] = np.diff(b)
+            t = FnTask(run)
+            t.add_read(src.store, off, sinfo)
+            p2.append(t)
+        sched.add_tasks(p2)
+        sched.wait_for(p2)
+
+    with METRICS.span("sort.phase3"):
+        # ---- host: bucket output offsets (sort.tpp:87-131) ------------------
+        bucket_sizes = counts.sum(axis=0)
+        bucket_starts = np.concatenate([[0], np.cumsum(bucket_sizes)])
+        if bucket_starts[-1] != n:
+            fatal("sample sort bucket accounting mismatch: %d != %d",
+                  bucket_starts[-1], n)
+
+        # ---- phase 3: merge each bucket -------------------------------------
+        # duplicate-heavy data can funnel most elements into one pivot bucket,
+        # whose merge task would then exceed the cache budget and fail deep in
+        # the scheduler; surface the limit up front with a remedy (the
+        # reference's sample sort shares this failure mode, sort.tpp:87-131)
+        max_bucket = int(bucket_sizes.max()) if n_buckets else 0
+        cache_cap = sched.cache.max_size
+        if max_bucket * src.itemsize * 2 > cache_cap:
+            raise ValueError(
+                f"sample sort bucket of {max_bucket} elements needs "
+                f"{max_bucket * src.itemsize * 2} B in-memory (> program "
+                f"budget {cache_cap}); the input is too duplicate-heavy for "
+                "the sampled pivots — raise program_budget or pre-partition "
+                "the input")
+        p3 = []
+        for kb in range(n_buckets):
+            outn = int(bucket_sizes[kb])
             if descending:
-                merged = merged[::-1]
-            task.buf(dst.store, doff, dsin, dt)[:] = merged
-        t = FnTask(run)
-        for fo, fs in frags:
-            t.add_read(src.store, fo, fs)
-        t.add_write(dst.store, doff, dsin)
-        p3.append(t)
-    sched.add_tasks(p3)
-    sched.wait_for(p3)
-    sched.flush_cache()
-    _phase_done("sort.phase3_s", t_phase)
+                out0 = int(n - bucket_starts[kb] - outn)
+            else:
+                out0 = int(bucket_starts[kb])
+            if outn == 0:
+                continue
+            frags = []
+            for bi in range(n_blks):
+                s, e = int(bounds[bi][kb]), int(bounds[bi][kb + 1])
+                if e > s:
+                    frags.append(src.block_access(bi * blk + s, e - s))
+            doff, dsin = dst.block_access(out0, outn)
+
+            def run(task, frags=tuple(frags), doff=doff, dsin=dsin, outn=outn):
+                parts = [task.buf(src.store, fo, fs, dt) for fo, fs in frags]
+                merged = np.concatenate(parts)
+                sort_block(merged)
+                if descending:
+                    merged = merged[::-1]
+                task.buf(dst.store, doff, dsin, dt)[:] = merged
+            t = FnTask(run)
+            for fo, fs in frags:
+                t.add_read(src.store, fo, fs)
+            t.add_write(dst.store, doff, dsin)
+            p3.append(t)
+        sched.add_tasks(p3)
+        sched.wait_for(p3)
+        sched.flush_cache()
     METRICS.add("sort.buckets", len(p3))
-
-
-def _phase_done(name: str, t0: float) -> float:
-    """Add the wall since t0 to METRICS[name]; returns now."""
-    now = time.perf_counter()
-    METRICS.add(name, now - t0)
-    return now

@@ -472,8 +472,6 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
     this rank's C shards back.  All 8 {order}x{transA}x{transB} configs via
     storage-major blocks; float32 (with the transfer modes) and float64
     (K1 'f64' a shard)."""
-    import time as _time
-
     from ..context import get_context
     from ..core.flash_array import check_output_distinct
     from ..core.pipeline import PrefetchSeq, TicketWindow
@@ -638,51 +636,47 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                     c_host = c.read_block_storage(i * sb, bi, j * sb, bj)
                     c_init = dev.to_device(
                         beta_s * pad(c_host, (sb, sb))[box_c], device)
-                t0 = _time.perf_counter()
                 (b_store, b_off, b_si), b_shp = b_specs[idx]
                 b_key = (store_uid(b_store), b_off, b_si)
                 b_dev = b_lru.pop(b_key, None)  # pop+reinsert = LRU touch
                 b_uploaded = b_dev is None
-                if sharded_reads:
-                    a_host, sa = read_shard(a_plan, idx, seq_a, a.dtype)
-                    if b_dev is None:
-                        b_host, sb_s = read_shard(b_plan, idx, seq_b,
-                                                  b.dtype)
+                with METRICS.span("gemm_sharded.disk_wait"):
+                    if sharded_reads:
+                        a_host, sa = read_shard(a_plan, idx, seq_a, a.dtype)
+                        if b_dev is None:
+                            b_host, sb_s = read_shard(b_plan, idx, seq_b,
+                                                      b.dtype)
+                        else:
+                            METRICS.add("gemm_sharded.b_hbm_hits")
+                            pidx = b_plan[idx][3]
+                            if pidx is not None:  # keep the seq in order
+                                seq_b.get(pidx)
+                                seq_b.done(pidx)
                     else:
-                        METRICS.add("gemm_sharded.b_hbm_hits")
-                        pidx = b_plan[idx][3]
-                        if pidx is not None:  # keep the seq in order
-                            seq_b.get(pidx)
-                            seq_b.done(pidx)
-                else:
-                    a_host, sa = _xfer(seq_a.get(idx).view(a.dtype).reshape(
-                        a_specs[idx][1]))
-                    a_host = pad(a_host, (sb, sb))[box_a]
+                        a_host, sa = _xfer(seq_a.get(idx).view(
+                            a.dtype).reshape(a_specs[idx][1]))
+                        a_host = pad(a_host, (sb, sb))[box_a]
+                        if b_dev is None:
+                            b_host, sb_s = _xfer(seq_b.get(idx).view(
+                                b.dtype).reshape(b_shp))
+                            b_host = pad(b_host, (sb, sb))[box_b]
+                        else:
+                            seq_b.get(idx)  # keep the seq in lockstep
+                            METRICS.add("gemm_sharded.b_hbm_hits")
+                with METRICS.span("gemm_sharded.h2d") as sp:
+                    a_up = _upload(a_host)
+                    a_dev = (a_up, sa) if xfer_int8 else a_up
                     if b_dev is None:
-                        b_host, sb_s = _xfer(seq_b.get(idx).view(
-                            b.dtype).reshape(b_shp))
-                        b_host = pad(b_host, (sb, sb))[box_b]
-                    else:
-                        seq_b.get(idx)  # keep the prefetch seq in lockstep
-                        METRICS.add("gemm_sharded.b_hbm_hits")
-                t1 = _time.perf_counter()
-                a_up = _upload(a_host)
-                a_dev = (a_up, sa) if xfer_int8 else a_up
-                if b_dev is None:
-                    b_up = _upload(b_host)
-                    b_dev = (b_up, sb_s) if xfer_int8 else b_up
-                t2 = _time.perf_counter()
+                        b_up = _upload(b_host)
+                        b_dev = (b_up, sb_s) if xfer_int8 else b_up
+                    sp.nbytes = (a_host.size + (b_host.size if b_uploaded
+                                                else 0)) * x_isize
                 if not sharded_reads:
                     seq_a.done(idx)
                     seq_b.done(idx)
                 b_lru[b_key] = b_dev
                 while len(b_lru) > b_cap:
                     b_lru.pop(next(iter(b_lru)))
-                METRICS.add("gemm_sharded.disk_wait_s", t1 - t0)
-                METRICS.add("gemm_sharded.h2d_s", t2 - t1)
-                METRICS.add("gemm_sharded.h2d_bytes",
-                            (a_host.size + (b_host.size if b_uploaded
-                                            else 0)) * x_isize)
                 if not put((a_dev, b_dev, c_init)):
                     return
         finally:
@@ -692,34 +686,33 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                 seq_b.close()
 
     def write_all(blocks):
-        tickets = TicketWindow(depth=8)
+        tickets = TicketWindow(depth=8, span="gemm_sharded.write_wait")
         with shard_writer(c, mesh) as c_w:
             try:
                 for i, j, c_dev in blocks:
                     if isinstance(c_dev, tuple):
                         c_dev = c_dev[0].add_(c_dev[1])
                     bi, bj, _ = tile_dims(i, j, 0)
-                    t0 = _time.perf_counter()
-                    w0 = tickets.wait_s
-                    c_loc = dev.from_device(c_dev)
-                    if sharded_reads:
-                        rows, cols = box_c
-                        tickets.extend(_writeback_shards(
-                            c_loc, c_w, i * sb, j * sb, bi, bj,
-                            (rows.start, rows.stop, cols.start, cols.stop)))
-                    else:
-                        ci = ((sb, sb) if c_tiled
-                              else _storage_shape(c, (bi, bj)))
-                        tickets.push(c_w.write_block_storage_async(
-                            i * sb, j * sb, bi, bj, c_loc[:ci[0], :ci[1]]))
-                    # push() may stall on the window's oldest disk write —
-                    # book that as write wait, not device download time
-                    METRICS.add("gemm_sharded.d2h_s",
-                                _time.perf_counter() - t0
-                                - (tickets.wait_s - w0))
+                    with METRICS.span("gemm_sharded.d2h"):
+                        c_loc = dev.from_device(c_dev)
+                    with METRICS.span("gemm_sharded.write"):
+                        if sharded_reads:
+                            rows, cols = box_c
+                            written = _writeback_shards(
+                                c_loc, c_w, i * sb, j * sb, bi, bj,
+                                (rows.start, rows.stop, cols.start,
+                                 cols.stop))
+                        else:
+                            ci = ((sb, sb) if c_tiled
+                                  else _storage_shape(c, (bi, bj)))
+                            written = [c_w.write_block_storage_async(
+                                i * sb, j * sb, bi, bj,
+                                c_loc[:ci[0], :ci[1]])]
+                    # a push may stall on the window's oldest disk write:
+                    # gemm_sharded.write_wait
+                    tickets.extend(written)
             finally:
                 tickets.wait_all()  # no write may outlive c_w's store
-        METRICS.add("gemm_sharded.write_wait_s", tickets.wait_s)
 
     c_shape = tuple(s.stop - s.start for s in box_c)
 
@@ -745,12 +738,13 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
         return step(c_dev, a_dev, b_dev, alpha_s)
 
     m_before = METRICS.snapshot()
-    t_start = _time.perf_counter()
-    _superblock_pipeline(steps, kB, depth, produce, start, accum, write_all)
-    c.store.flush()
-    if world > 1:
-        barrier()  # every rank's C shards are on disk
-    wall = _time.perf_counter() - t_start
+    with METRICS.span("gemm_sharded") as call:
+        _superblock_pipeline(steps, kB, depth, produce, start, accum,
+                             write_all, "gemm_sharded")
+        c.store.flush()
+        if world > 1:
+            barrier()  # every rank's C shards are on disk
+    wall = call.seconds
     m_after = METRICS.snapshot()
     busy = sum(m_after.get(key, 0.0) - m_before.get(key, 0.0)
                for key in ("gemm_sharded.disk_wait_s", "gemm_sharded.h2d_s",

@@ -14,12 +14,11 @@ accumulation (csrgemv_task.h:169-176): one scipy CSC matvec per block
 summed into a float64 y.  fp64 values take exact per-block scipy products
 on the host (the device kernels are fp32).
 
-Both paths meter the stage partition into METRICS (csrgemv.disk_wait_s /
-prep_s / compute_s / h2d_s / dispatch_s / d2h_s).
+Both paths run their stages in METRICS spans (csrgemv.disk_wait / prep /
+compute / h2d / dispatch / d2h), inside the call's span `csrgemv`.
 """
 from __future__ import annotations
 
-import time
 from typing import Union
 
 import numpy as np
@@ -35,21 +34,20 @@ from .csr import CsrFlashMatrix, fill_row_blocks, stream_row_blocks
 
 def _metered_blocks(a, ia_np, blocks, ctx):
     """stream_row_blocks with the time blocked on disk/pin-cache arrival
-    recorded as csrgemv.disk_wait_s."""
+    in the span csrgemv.disk_wait."""
     it = stream_row_blocks(a, ia_np, blocks, ctx)
     try:
         while True:
-            t0 = time.perf_counter()
-            try:
-                item = next(it)
-            except StopIteration:
+            with METRICS.span("csrgemv.disk_wait"):
+                item = next(it, None)
+            if item is None:
                 return
-            METRICS.add("csrgemv.disk_wait_s", time.perf_counter() - t0)
             yield item
     finally:
         it.close()
 
 
+@METRICS.span("csrgemv")
 def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
             trans: str = "N", ctx=None) -> np.ndarray:
     """y = op(A) x.  x and the returned y are host vectors (the reference
@@ -77,67 +75,58 @@ def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
             y = np.empty(m, dtype=vdt)
             for r, e, ja_blk, va_blk in _metered_blocks(
                     a, ia_np, blocks, ctx):
-                t0 = time.perf_counter()
-                blk_ia = (ia_np[r:e + 1] - int(ia_np[r])).astype(np.int64)
-                blk = sps.csr_matrix(
-                    (va_blk, ja_blk.astype(np.int64), blk_ia),
-                    shape=(e - r, k))
-                METRICS.add("csrgemv.prep_s", time.perf_counter() - t0)
-                t0 = time.perf_counter()
-                y[r:e] = blk @ x
-                METRICS.add("csrgemv.compute_s", time.perf_counter() - t0)
+                with METRICS.span("csrgemv.prep"):
+                    blk_ia = (ia_np[r:e + 1]
+                              - int(ia_np[r])).astype(np.int64)
+                    blk = sps.csr_matrix(
+                        (va_blk, ja_blk.astype(np.int64), blk_ia),
+                        shape=(e - r, k))
+                with METRICS.span("csrgemv.compute"):
+                    y[r:e] = blk @ x
             return y
         device = dev.resolve_device(cfg.device)
         ell_vdt = sdev.ell_val_dtype(vdt, cfg)
         v_quant = sdev.ell_val_quantize(vdt, cfg)
         y = np.empty(m, dtype=vdt)
-        t0 = time.perf_counter()
-        x_dev = dev.to_device(x, device)
-        METRICS.add("csrgemv.h2d_s", time.perf_counter() - t0)
+        with METRICS.span("csrgemv.h2d", x.nbytes):
+            x_dev = dev.to_device(x, device)
         ell_idt = sdev.ell_idx_dtype(k, cfg.ell_idx_narrow)
         for r, e, ja_blk, va_blk in _metered_blocks(a, ia_np, blocks, ctx):
-            t0 = time.perf_counter()
-            blk_ia = ia_np[r:e + 1] - int(ia_np[r])
-            counts = np.diff(blk_ia)
-            # count-sorted ELL banding (see sparse/csrmm.py): tight rmax
-            # per band on skewed rows
-            order = (np.argsort(counts, kind="stable") if cfg.ell_sort_rows
-                     else np.arange(e - r))
-            METRICS.add("csrgemv.prep_s", time.perf_counter() - t0)
+            with METRICS.span("csrgemv.prep"):
+                blk_ia = ia_np[r:e + 1] - int(ia_np[r])
+                counts = np.diff(blk_ia)
+                # count-sorted ELL banding (see sparse/csrmm.py): tight
+                # rmax per band on skewed rows
+                order = (np.argsort(counts, kind="stable")
+                         if cfg.ell_sort_rows else np.arange(e - r))
+                bands = sdev.ell_row_ranges(counts[order], entry_cap)
             # the bands partition the block's rows and each writes its
             # own rows of y_blk in place: one download per block
             y_blk = torch.empty(e - r, dtype=torch.float32, device=device)
-            for (s0, s1) in sdev.ell_row_ranges(counts[order], entry_cap):
-                t0 = time.perf_counter()
-                rows_sel = order[s0:s1]
-                ja_ell, va_ell = sdev.to_ell_rows(blk_ia, ja_blk, va_blk,
-                                                  rows_sel,
-                                                  idx_dtype=ell_idt,
-                                                  val_dtype=ell_vdt,
-                                                  counts=counts)
-                if v_quant:  # int8 + one scale a row
-                    va_ell = sdev.quantize_ell_i8(va_ell)
-                counts_sel = counts[rows_sel].astype(np.int32)
-                rows_sel = rows_sel.astype(np.int32)
-                t1 = time.perf_counter()
-                METRICS.add("csrgemv.prep_s", t1 - t0)
-                rows_d = dev.to_device(rows_sel, device)
-                counts_d = dev.to_device(counts_sel, device)
-                ja_d = dev.to_device(ja_ell, device)
-                va_d, scale_d, va_bytes = sdev.upload_ell_vals(va_ell,
-                                                               device)
-                t2 = time.perf_counter()
-                METRICS.add("csrgemv.h2d_s", t2 - t1)
-                METRICS.add("csrgemv.h2d_bytes",
-                            ja_ell.nbytes + va_bytes + rows_sel.nbytes
-                            + counts_sel.nbytes)
-                sdev.spmv_ell_block(x_dev, ja_d, va_d, counts=counts_d,
-                                    rows=rows_d, out=y_blk,
-                                    va_scale=scale_d)
-                METRICS.add("csrgemv.dispatch_s", time.perf_counter() - t2)
-            t0 = time.perf_counter()
-            y[r:e] = dev.from_device(y_blk)
-            METRICS.add("csrgemv.d2h_s", time.perf_counter() - t0)
+            for (s0, s1) in bands:
+                with METRICS.span("csrgemv.prep"):
+                    rows_sel = order[s0:s1]
+                    ja_ell, va_ell = sdev.to_ell_rows(
+                        blk_ia, ja_blk, va_blk, rows_sel,
+                        idx_dtype=ell_idt, val_dtype=ell_vdt, counts=counts)
+                    if v_quant:  # int8 + one scale a row
+                        va_ell = sdev.quantize_ell_i8(va_ell)
+                    counts_sel = counts[rows_sel].astype(np.int32)
+                    rows_sel = rows_sel.astype(np.int32)
+                with METRICS.span("csrgemv.h2d") as sp:
+                    rows_d = dev.to_device(rows_sel, device)
+                    counts_d = dev.to_device(counts_sel, device)
+                    ja_d = dev.to_device(ja_ell, device)
+                    va_d, scale_d, va_bytes = sdev.upload_ell_vals(va_ell,
+                                                                   device)
+                    sp.nbytes = (ja_ell.nbytes + va_bytes + rows_sel.nbytes
+                                 + counts_sel.nbytes)
+                with METRICS.span("csrgemv.dispatch"):
+                    sdev.spmv_ell_block(x_dev, ja_d, va_d, counts=counts_d,
+                                        rows=rows_d, out=y_blk,
+                                        va_scale=scale_d)
+            with METRICS.span("csrgemv.d2h", y_blk.nbytes):
+                y[r:e] = dev.from_device(y_blk)
         return y
 
     # trans: y[k] += A_blk^T x_blk — a scatter over columns, accumulated
@@ -149,14 +138,12 @@ def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
     import scipy.sparse as sps
     y = np.zeros(k, dtype=np.float64)
     for r, e, ja_blk, va_blk in _metered_blocks(a, ia_np, blocks, ctx):
-        t0 = time.perf_counter()
-        blk_ia = (ia_np[r:e + 1] - int(ia_np[r])).astype(np.int64)
-        blk = sps.csr_matrix((va_blk, ja_blk, blk_ia), shape=(e - r, k))
-        xb = np.ascontiguousarray(x[r:e], dtype=vdt)
-        METRICS.add("csrgemv.prep_s", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        y += xb @ blk
-        METRICS.add("csrgemv.compute_s", time.perf_counter() - t0)
+        with METRICS.span("csrgemv.prep"):
+            blk_ia = (ia_np[r:e + 1] - int(ia_np[r])).astype(np.int64)
+            blk = sps.csr_matrix((va_blk, ja_blk, blk_ia), shape=(e - r, k))
+            xb = np.ascontiguousarray(x[r:e], dtype=vdt)
+        with METRICS.span("csrgemv.compute"):
+            y += xb @ blk
     return y.astype(vdt)
 
 

@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 from typing import Optional
 
 import numpy as np
@@ -46,7 +45,7 @@ from ..core.flash_array import FlashArray
 from ..core.pipeline import PrefetchSeq
 from ..io.native import bf16_to_f32
 from ..ops import device as dev
-from ..utils import LOG, METRICS, Timer
+from ..utils import LOG, METRICS
 from . import spmm_device as sdev
 from .csr import CsrFlashMatrix, fill_row_blocks
 
@@ -77,6 +76,7 @@ def _resolve_sparse_compute(cfg, m: int, k: int, n: int, nnz: int) -> str:
     return "host" if t_host < t_dev else "device"
 
 
+@METRICS.span("csrmm")
 def csrmm(a: CsrFlashMatrix, b: FlashArray, c: FlashArray,
           alpha: float = 1.0, beta: float = 0.0, transa: str = "N",
           ctx=None) -> None:
@@ -127,7 +127,6 @@ def csrmm(a: CsrFlashMatrix, b: FlashArray, c: FlashArray,
             f"mixed dtypes not supported: vals {a.vals.dtype}, "
             f"B {b.dtype}, C {c.dtype}")
 
-    timer = Timer()
     ia_np = a.read_ia()
     blocks = fill_row_blocks(ia_np, cfg.max_nnzs)
     cb = _col_block_width(n, k, cfg)
@@ -172,16 +171,12 @@ def csrmm(a: CsrFlashMatrix, b: FlashArray, c: FlashArray,
     from ..core.pipeline import TicketWindow
     for ri, (k0, k1) in enumerate(k_ranges):
         beta_eff = beta if ri == 0 else 1.0
-        write_tickets = TicketWindow(depth=8)
+        write_tickets = TicketWindow(depth=8, span="csrmm.write_wait")
         _csrmm_range(a, b, c, alpha, beta_eff, k0, k1, k_r_pad, blocks,
                      ia_np, seq_accesses, cb, entry_cap, cache, cfg,
                      device, idt, vdt, write_tickets)
         write_tickets.wait_all()  # range barrier: later ranges RMW C
-        METRICS.add("csrmm.write_wait_s", write_tickets.wait_s)
     c.store.flush()
-    METRICS.add("csrmm.ms", timer.elapsed_ms())
-    LOG.debug("csrmm %dx%dx%d nnz=%d done in %.1f ms (%d k-ranges)",
-              m, k, n, a.nnz, timer.elapsed_ms(), len(k_ranges))
 
 
 def _csrmm_trans_streaming(a, b, c, alpha, beta, ctx):
@@ -206,7 +201,6 @@ def _csrmm_trans_streaming(a, b, c, alpha, beta, ctx):
             f"mixed dtypes not supported: vals {a.vals.dtype}, "
             f"B {b.dtype}, C {c.dtype}")
 
-    timer = Timer()
     vdt = a.vals.dtype
     ia_np = a.read_ia()
     blocks = fill_row_blocks(ia_np, cfg.max_nnzs)
@@ -225,9 +219,6 @@ def _csrmm_trans_streaming(a, b, c, alpha, beta, ctx):
             acc[r0:r0 + rn] += beta * c.read_block(r0, rn, 0, n)
         c.write_block(r0, acc[r0:r0 + rn].astype(vdt), 0)
     c.store.flush()
-    METRICS.add("csrmm.ms", timer.elapsed_ms())
-    LOG.debug("csrmm 'T' streaming %dx%dx%d nnz=%d done in %.1f ms",
-              m, k, n, a.nnz, timer.elapsed_ms())
 
 
 def _upload_b_panel(b_host, b_order, k_sub, bc, k_r_pad, cb, device):
@@ -272,25 +263,23 @@ def spmm_bands(b_panel, bands, buf, alpha: float = 1.0,
                impl: str = "auto", sync_mode: bool = False) -> None:
     """K2 on each of a row block's `ell_bands` into its rows of `buf`, the
     block's (rows, cb) device buffer, with alpha applied; every row of
-    `buf` is written (an empty row with alpha * 0).  Uploads are booked
-    to `csrmm.h2d_*` (with `sync_mode`, drained in the window so the rate
+    `buf` is written (an empty row with alpha * 0).  Uploads are the span
+    `csrmm.h2d` (with `sync_mode`, drained in the window so the rate
     sample is a transfer rate)."""
     device = buf.device
     for rows_sel, counts_sel, ja_ell, va_ell in bands:
-        th = time.perf_counter()
-        rows_d = dev.to_device(rows_sel, device)
-        counts_d = dev.to_device(counts_sel, device)
-        ja_d = dev.to_device(ja_ell, device)
-        va_d, scale_d, va_bytes = sdev.upload_ell_vals(va_ell, device)
-        nbytes = (ja_ell.nbytes + va_bytes + rows_sel.nbytes
-                  + counts_sel.nbytes)
+        with METRICS.span("csrmm.h2d") as sp:
+            rows_d = dev.to_device(rows_sel, device)
+            counts_d = dev.to_device(counts_sel, device)
+            ja_d = dev.to_device(ja_ell, device)
+            va_d, scale_d, va_bytes = sdev.upload_ell_vals(va_ell, device)
+            sp.nbytes = (ja_ell.nbytes + va_bytes + rows_sel.nbytes
+                         + counts_sel.nbytes)
+            if sync_mode:
+                dev.sync(va_d)
         if sync_mode:
-            dev.sync(va_d)
             METRICS.observe("csrmm.h2d_tile_gbps",
-                            nbytes / max(time.perf_counter() - th, 1e-9)
-                            / 1e9)
-        METRICS.add("csrmm.h2d_s", time.perf_counter() - th)
-        METRICS.add("csrmm.h2d_bytes", nbytes)
+                            sp.nbytes / max(sp.seconds, 1e-9) / 1e9)
         sdev.spmm_ell_block_dispatch(
             b_panel, ja_d, va_d, impl=impl, counts=counts_d, rows=rows_d,
             out=buf, alpha=alpha, va_scale=scale_d)
@@ -308,24 +297,21 @@ def _download_rows(buf, bc, sync_mode, bf16=False):
     device time as whole downloads on an H100 host; PERF.md §6).  With
     `bf16` each piece is cast on the device (so the cast, too, needs no
     more than a piece of device memory), downloaded at half the bytes and
-    widened exactly on the host."""
-    if sync_mode:
-        t0 = time.perf_counter()
-        dev.sync(buf)  # wait for the block's K2s
-        METRICS.add("csrmm.accum_wait_s", time.perf_counter() - t0)
+    widened exactly on the host.  The wait for the block's K2s is the
+    span `csrmm.accum_wait`, each piece's download `csrmm.d2h`."""
+    with METRICS.span("csrmm.accum_wait"):
+        dev.sync(buf)
     step = max(1, PIECE_BYTES // (buf.shape[1] * buf.element_size()))
     for p0 in range(0, buf.shape[0], step):
         piece_dev = buf[p0:p0 + step]
         if bf16:
             piece_dev = dev.to_bf16(piece_dev)
-        t0 = time.perf_counter()
-        piece = dev.from_device(piece_dev)
-        dt = time.perf_counter() - t0
-        METRICS.add("csrmm.d2h_s", dt)
-        METRICS.add("csrmm.d2h_bytes", piece.nbytes)
+        with METRICS.span("csrmm.d2h") as sp:
+            piece = dev.from_device(piece_dev)
+            sp.nbytes = piece.nbytes
         if sync_mode:
             METRICS.observe("csrmm.d2h_tile_gbps",
-                            piece.nbytes / max(dt, 1e-9) / 1e9)
+                            piece.nbytes / max(sp.seconds, 1e-9) / 1e9)
         if bf16:
             piece = bf16_to_f32(piece)
         yield p0, piece[:, :bc]
@@ -367,12 +353,11 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                           else np.ascontiguousarray(b_host.T))
             b_panel = None
         else:
-            t_up = time.perf_counter()
-            b_panel = _upload_b_panel(b_host, b_order, k_sub, bc, k_r_pad,
-                                      cb, device)
-            if sync_mode:
-                dev.sync(b_panel)
-            METRICS.add("csrmm.h2d_s", time.perf_counter() - t_up)
+            with METRICS.span("csrmm.h2d", b_host.nbytes):
+                b_panel = _upload_b_panel(b_host, b_order, k_sub, bc,
+                                          k_r_pad, cb, device)
+                if sync_mode:
+                    dev.sync(b_panel)
             del b_host
 
         flat = [acc for pair in seq_accesses for acc in pair]
@@ -392,7 +377,7 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                                      queue_put, queue_put_sentinel)
 
         def _put(q, item) -> bool:
-            return queue_put(q, item, errors)
+            return queue_put(q, item, errors, "csrmm.queue_wait")
 
         def _put_sentinel(q):
             queue_put_sentinel(q, errors)
@@ -401,49 +386,49 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
         # product IS the compute); device path: prepper feeds the uploader
         prep_dest = out_q if host_compute else prep_q
 
+        def prep(bi, r, e, ja_blk, va_blk):
+            """The payload of row block bi: its ELL bands (device path) or
+            its scipy block product (host path)."""
+            i0, i1 = int(ia_np[r]), int(ia_np[e])
+            nnz_b, rows_b = i1 - i0, e - r
+            if cfg.debug_checks:
+                from .csr import verify_csr_block
+                verify_csr_block(ia_np[r:e + 1], ja_blk, a.shape[1], nnz_b)
+            if full_k:
+                blk_ia = ia_np[r:e + 1] - i0
+                blk_ja, blk_va = ja_blk, va_blk
+            else:
+                # K-split: keep only entries in [k0, k1), shifted
+                sel = (ja_blk >= k0) & (ja_blk < k1)
+                row_ids = sdev.expand_row_ids(ia_np[r:e + 1])
+                cnt = np.bincount(row_ids[sel], minlength=rows_b)
+                blk_ia = np.zeros(rows_b + 1, np.int64)
+                np.cumsum(cnt, out=blk_ia[1:])
+                blk_ja = ja_blk[sel] - k0
+                blk_va = va_blk[sel]
+            if host_compute:
+                import scipy.sparse as sps
+                blk_sp = sps.csr_matrix(
+                    (blk_va, blk_ja.astype(np.int64),
+                     blk_ia.astype(np.int64)), shape=(rows_b, k_sub))
+                # reference-style CPU block product (MKL's role)
+                return (r, rows_b, blk_sp @ b_panel_np)
+            bands = ell_bands(
+                blk_ia, blk_ja, blk_va, entry_cap, cfg,
+                sdev.ell_idx_dtype(k_sub, cfg.ell_idx_narrow),
+                ell_vdt, quantize=v_quant)
+            return (r, rows_b, bands)
+
         def prepper():
             try:
                 for bi, (r, e) in enumerate(blocks):
-                    i0, i1 = int(ia_np[r]), int(ia_np[e])
-                    nnz_b, rows_b = i1 - i0, e - r
-                    t0 = time.perf_counter()
-                    ja_blk = pf.get(2 * bi).view(idt)
-                    va_blk = pf.get(2 * bi + 1).view(vdt)
-                    t1 = time.perf_counter()
-                    METRICS.add("csrmm.disk_wait_s", t1 - t0)
-                    if cfg.debug_checks:
-                        from .csr import verify_csr_block
-                        verify_csr_block(ia_np[r:e + 1], ja_blk,
-                                         a.shape[1], nnz_b)
-                    if full_k:
-                        blk_ia = ia_np[r:e + 1] - i0
-                        blk_ja, blk_va = ja_blk, va_blk
-                    else:
-                        # K-split: keep only entries in [k0, k1), shifted
-                        sel = (ja_blk >= k0) & (ja_blk < k1)
-                        row_ids = sdev.expand_row_ids(ia_np[r:e + 1])
-                        cnt = np.bincount(row_ids[sel], minlength=rows_b)
-                        blk_ia = np.zeros(rows_b + 1, np.int64)
-                        np.cumsum(cnt, out=blk_ia[1:])
-                        blk_ja = ja_blk[sel] - k0
-                        blk_va = va_blk[sel]
-                    if host_compute:
-                        import scipy.sparse as sps
-                        blk_sp = sps.csr_matrix(
-                            (blk_va, blk_ja.astype(np.int64),
-                             blk_ia.astype(np.int64)),
-                            shape=(rows_b, k_sub))
-                        # reference-style CPU block product (MKL's role)
-                        payload = (r, rows_b, blk_sp @ b_panel_np)
-                    else:
-                        bands = ell_bands(
-                            blk_ia, blk_ja, blk_va, entry_cap, cfg,
-                            sdev.ell_idx_dtype(k_sub, cfg.ell_idx_narrow),
-                            ell_vdt, quantize=v_quant)
-                        payload = (r, rows_b, bands)
-                    pf.done(2 * bi)
-                    pf.done(2 * bi + 1)
-                    METRICS.add("csrmm.prep_s", time.perf_counter() - t1)
+                    with METRICS.span("csrmm.disk_wait"):
+                        ja_blk = pf.get(2 * bi).view(idt)
+                        va_blk = pf.get(2 * bi + 1).view(vdt)
+                    with METRICS.span("csrmm.prep"):
+                        payload = prep(bi, r, e, ja_blk, va_blk)
+                        pf.done(2 * bi)
+                        pf.done(2 * bi + 1)
                     if not _put(prep_dest, payload):
                         return
                 _put_sentinel(prep_dest)
@@ -456,16 +441,15 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
 
         def uploader():
             try:
-                for r, rows_b, bands in queue_items(prep_q, errors):
-                    t1 = time.perf_counter()
-                    buf = torch.empty((rows_b, cb), dtype=torch.float32,
-                                      device=device)
-                    spmm_bands(b_panel, bands, buf,
-                               alpha=1.0 if c_bf16 else alpha,
-                               impl=cfg.sparse_device_impl,
-                               sync_mode=sync_mode)
-                    METRICS.add("csrmm.dispatch_s",
-                                time.perf_counter() - t1)
+                for r, rows_b, bands in queue_items(prep_q, errors,
+                                                    "csrmm.queue_wait"):
+                    with METRICS.span("csrmm.dispatch"):
+                        buf = torch.empty((rows_b, cb), dtype=torch.float32,
+                                          device=device)
+                        spmm_bands(b_panel, bands, buf,
+                                   alpha=1.0 if c_bf16 else alpha,
+                                   impl=cfg.sparse_device_impl,
+                                   sync_mode=sync_mode)
                     ok = _put(out_q, (r, rows_b, buf))
                     del buf  # the writer holds the only reference now
                     if not ok:
@@ -486,31 +470,31 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
             if c_bf16:
                 blk *= alpha
             if beta != 0.0:
-                t0 = time.perf_counter()
-                blk += beta * c.read_block(r0, nr, c0, bc)
-                METRICS.add("csrmm.c_read_s", time.perf_counter() - t0)
-            blk = np.ascontiguousarray(blk, dtype=vdt)
-            if c_tiled:
-                # general-window RMW through the tile grid (sync; no
-                # ticket — the k-range barrier is implicit)
-                c.write_block(r0, blk, c0)
-                return
-            if c.order != "R":
-                blk = np.ascontiguousarray(blk.T)
-            write_tickets.push(c.write_block_storage_async(r0, c0, nr, bc,
-                                                           blk))
+                with METRICS.span("csrmm.c_read"):
+                    blk += beta * c.read_block(r0, nr, c0, bc)
+            with METRICS.span("csrmm.write"):
+                blk = np.ascontiguousarray(blk, dtype=vdt)
+                if c_tiled:
+                    # general-window RMW through the tile grid (sync; no
+                    # ticket — the k-range barrier is implicit)
+                    c.write_block(r0, blk, c0)
+                    return
+                if c.order != "R":
+                    blk = np.ascontiguousarray(blk.T)
+                # a copy where C is in DRAM, a submitted write to a file
+                ticket = c.write_block_storage_async(r0, c0, nr, bc, blk)
+            write_tickets.push(ticket)
 
         def writer():
             try:
-                for r, rows_b, res in queue_items(out_q, errors):
+                for r, rows_b, res in queue_items(out_q, errors,
+                                                  "csrmm.queue_wait"):
                     if isinstance(res, np.ndarray):
                         # host block product: already in DRAM, alpha here
-                        t0 = time.perf_counter()
-                        c_np = np.empty((rows_b, bc), vdt)
-                        c_np[:] = res[:, :bc]
-                        c_np *= alpha
-                        METRICS.add("csrmm.assemble_s",
-                                    time.perf_counter() - t0)
+                        with METRICS.span("csrmm.assemble"):
+                            c_np = np.empty((rows_b, bc), vdt)
+                            c_np[:] = res[:, :bc]
+                            c_np *= alpha
                         pieces = [(0, c_np)]
                     else:
                         # the row-block buffer the bands filled in place,

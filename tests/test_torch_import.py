@@ -104,7 +104,9 @@ def test_native_engine_builds_outside_the_reference_package():
 
 def test_native_engine_source_is_the_ports_own_copy():
     """The engine builds from sources inside bof_tpu_torch/, which are
-    byte-identical to the reference's while bof_tpu is frozen."""
+    the reference's, byte for byte, but for the pin cache's `read_bytes`
+    counter: its lines taken out, the port's bof_cache.inc is the
+    reference's."""
     from bof_tpu_torch.io import native
     ref_dir = os.path.join(REPO, "bof_tpu", "native")
     for path in (native._SRC, native._INC):
@@ -112,7 +114,9 @@ def test_native_engine_source_is_the_ports_own_copy():
             os.path.realpath(PKG) + os.sep), path
         with open(path, "rb") as f, open(os.path.join(
                 ref_dir, os.path.basename(path)), "rb") as g:
-            assert f.read() == g.read(), path
+            lines = f.read().splitlines(keepends=True)
+            assert b"".join(x for x in lines if b"read_bytes" not in x) \
+                == g.read(), path
 
 
 def test_sparse_slice_imports_neither_jax_nor_ml_dtypes():

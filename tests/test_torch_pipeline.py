@@ -84,7 +84,7 @@ def test_superblock_pipeline_accumulates_each_block_over_k(grouped):
             written[(i, j)] = c
 
     _superblock_pipeline(steps, kB, 2, produce, lambda c_init: [c_init],
-                         accum, write_all)
+                         accum, write_all, "gemm")
     assert written == {(i, j): [f"C{i}{j}"] + [(l, (i, j))
                                                for l in range(kB)]
                        for i in range(mB) for j in range(nB)}
@@ -113,4 +113,4 @@ def test_superblock_pipeline_raises_a_stage_failure_without_hanging(stage):
 
     with pytest.raises(RuntimeError, match=f"{stage} failed"):
         _superblock_pipeline(steps, 3, 1, produce, lambda c: 0, accum,
-                             write_all)
+                             write_all, "gemm")
