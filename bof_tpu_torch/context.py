@@ -33,6 +33,7 @@ class FlashContext:
             apply_engine_config(self.config)
         self._scheduler = None
         self._pin_router = None
+        self._d2h_ring = None
         self._scratch_files: set[str] = set()
 
     def _resolve_backend(self) -> str:
@@ -152,6 +153,20 @@ class FlashContext:
                 self._pin_router = PinRouter(sched.cache, native)
             return self._pin_router
 
+    def d2h_ring(self, device):
+        """The context's download ring for `device` (ops/device.py:
+        `D2HRing`, 64 MiB of page-locked host slots on a card), made at
+        its first use and kept until `destroy`."""
+        if device.type == "cuda" and device.index is None:
+            import torch
+            device = torch.device("cuda", torch.cuda.current_device())
+        with self._lock:
+            ring = self._d2h_ring
+            if ring is None or ring.device != device:
+                from .ops.device import D2HRing
+                ring = self._d2h_ring = D2HRing(device)
+            return ring
+
     def pin_cache_stats(self) -> Optional[dict]:
         """The native pin cache's counters (`NativeTileCache.stats()`:
         used, hits, misses, evictions, entries, read_bytes), or None where
@@ -171,6 +186,7 @@ class FlashContext:
             if self._py_pool is not None:
                 self._py_pool.close()
                 self._py_pool = None
+            self._d2h_ring = None
         for path in list(self._scratch_files):
             try:
                 os.unlink(path)

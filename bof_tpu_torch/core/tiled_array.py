@@ -177,6 +177,25 @@ class TiledFlashArray(FlashArray):
         self._invalidate(off, sinfo)
         return self.store.write(off, sinfo, buf.view(np.uint8).ravel())
 
+    def write_tile_rows_async(self, r0: int, c0: int, row0: int,
+                              rows_buf: np.ndarray):
+        """Storage rows [row0, row0 + len(rows_buf)) of the stored tile
+        at the tile-aligned logical (r0, c0), as one contiguous run:
+        the gemm writers hand a finished tile over in runs of whole
+        (tile-wide, padding included) rows."""
+        ts = self.tile
+        buf = np.ascontiguousarray(rows_buf, dtype=self.dtype)
+        if r0 % ts or c0 % ts:
+            raise ValueError(f"({r0}, {c0}) is not on the {ts}-tile grid")
+        if (buf.ndim != 2 or buf.shape[1] != ts
+                or not 0 <= row0 <= ts - buf.shape[0]):
+            raise ValueError(f"rows {row0}.. of shape {buf.shape} are not "
+                             f"whole rows of a ({ts}, {ts}) tile")
+        off = self._tile_off(r0 // ts, c0 // ts) + row0 * ts * self.itemsize
+        sinfo = StrideInfo.contiguous(buf.nbytes)
+        self._invalidate(off, sinfo)
+        return self.store.write(off, sinfo, buf.view(np.uint8).ravel())
+
     def _coerce_tile(self, storage_buf: np.ndarray, r0: int, c0: int,
                      nr: int, nc: int) -> np.ndarray:
         """Accept either the full (ts, ts) padded buffer (the gemm writer

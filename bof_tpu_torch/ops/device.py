@@ -8,18 +8,27 @@ accumulator in place — the K chain is ordered by the CUDA stream, as the
 reference orders it with parent chains (gemm.cpp:114-126).
 
 Blocks arrive in storage-major layout and K1 absorbs the transposes, so
-no host or device transposition happens.  Every transfer here is
-synchronous with respect to the host buffer it reads or fills: the
-pipeline unpins a host tile right after `to_device` returns, so a copy
-still in flight would read a recycled buffer.
+no host or device transposition happens.  Uploads (`to_device`) are
+synchronous with respect to the host buffer they read: the pipeline
+unpins a host tile right after `to_device` returns, so a copy still in
+flight would read a recycled buffer.  `from_device` is synchronous too.
+gemm's finished C blocks go down otherwise: `D2HRing`, a context's two
+reused page-locked slots filled on a copy stream of their own, after an
+event (`Finished`) that the computing thread recorded behind the block's
+last kernel, so the download neither drains nor waits on that thread's
+stream.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import threading
 import time
 
 import numpy as np
 import torch
 
+from ..utils import METRICS
 from .matmul_cuda import accum_matmul
 
 
@@ -56,6 +65,149 @@ def from_device(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view(np.uint16)
     return t.cpu().numpy()
+
+
+class Finished:
+    """A finished device block on its way from the thread that computed
+    it to the one that downloads it: `block`, a tensor or gemm's
+    (K loop's sum, beta * C) pair, and `ready`, an event recorded on the
+    computing thread's current stream behind the block's last kernel
+    (None on a CPU device).  `D2HRing.download` takes `block` out, so the
+    hand-off holds no device memory once the download has begun."""
+
+    __slots__ = ("block", "ready")
+
+    def __init__(self, block):
+        self.block = block
+        t = block[0] if isinstance(block, tuple) else block
+        self.ready = None
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            self.ready = torch.cuda.Event()
+            self.ready.record(torch.cuda.current_stream(t.device))
+
+
+RING_SLOT_BYTES = 32 << 20  # one slot; a finished 8192^2 fp32 block is 8
+RING_SLOTS = 2              # the link fills one while the host empties one
+
+
+class D2HRing:
+    """Downloads finished device blocks through RING_SLOTS reused host
+    slots of RING_SLOT_BYTES, page-locked on a CUDA device and filled by
+    copies on a copy stream of the ring's own, so a download neither
+    drains nor queues behind the computing thread's stream and faults in
+    no fresh pages (a new pageable 256 MiB array a block went down at
+    1.7 GB/s in gemm; PERF.md §6).  On a CPU device the slots are
+    ordinary host memory and each copy is done when issued: the same
+    schedule, run by the CPU tests.  One ring a context
+    (`FlashContext.d2h_ring`); one download at a time."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        cuda = device.type == "cuda"
+        self._slot_bytes = RING_SLOT_BYTES
+        self._slots = [torch.empty(self._slot_bytes, dtype=torch.uint8,
+                                   pin_memory=cuda)
+                       for _ in range(RING_SLOTS)]
+        self._host = [s.numpy() for s in self._slots]
+        self._stream = torch.cuda.Stream(device) if cuda else None
+        self._filled = [torch.cuda.Event() if cuda else None
+                        for _ in range(RING_SLOTS)]
+        # the store ticket that still reads each slot (None: free)
+        self._held = [None] * RING_SLOTS
+        self._next = 0
+        self._lock = threading.Lock()
+
+    def _on_stream(self):
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _take_slot(self, name: str) -> int:
+        s = self._next
+        self._next = (s + 1) % RING_SLOTS
+        held, self._held[s] = self._held[s], None
+        if held is not None:
+            with METRICS.span(name + ".d2h_slot_wait"):
+                try:
+                    held.wait()
+                except IOError:
+                    pass  # the write's owner waits on it too and raises
+        return s
+
+    def download(self, fin: Finished, prepare, rows: int, cols: int,
+                 consume, name: str):
+        """Bring `prepare(fin.block)[:rows, :cols]` to the host in runs
+        of whole rows, each at most a slot, and hand each to
+        `consume(first_row, host)` in order: `host` is a (run rows, cols)
+        numpy view of a slot (bf16 as its np.uint16 bits), valid until
+        `consume` returns, unless it returns a ticket that still reads
+        it: the slot is then reused only once that ticket is done.
+        `prepare` runs on the copy stream after `fin.ready` (the block
+        itself where it needs nothing), so a cast or sum there adds
+        nothing to the computing thread's stream.  The block is dropped
+        once its last run is queued.  Spans, `name` the entry's: the
+        wait for the block's last kernel `<name>.accum_wait`, each run's
+        wait for its copy `<name>.d2h` (with its bytes), a wait for a
+        slot's store write `<name>.d2h_slot_wait`; the counter
+        `d2h.ring_bytes` counts every byte downloaded.  Returns the
+        seconds spent in `<name>.d2h`."""
+        with self._lock:
+            block, fin.block = fin.block, None
+            if self._stream is not None:
+                self._stream.wait_event(fin.ready)
+                for t in (block if isinstance(block, tuple) else (block,)):
+                    t.record_stream(self._stream)
+            with self._on_stream():
+                t = prepare(block)
+            del block
+            if t.dtype == torch.bfloat16:
+                t, np_dtype = t.view(torch.int16), np.dtype(np.uint16)
+            else:
+                np_dtype = np.dtype(torch.empty(0, dtype=t.dtype)
+                                    .numpy().dtype)
+            row_bytes = max(cols, 0) * t.element_size()
+            if row_bytes > self._slot_bytes:
+                raise ValueError(f"a row of {row_bytes} bytes does not fit "
+                                 f"a {self._slot_bytes}-byte ring slot")
+            step = self._slot_bytes // max(row_bytes, 1)
+            runs = ([(r, min(r + step, rows)) for r in range(0, rows, step)]
+                    if row_bytes else [])
+            queued = collections.deque()
+
+            def issue(k):
+                nonlocal t
+                r0, r1 = runs[k]
+                s = self._take_slot(name)
+                nbytes = (r1 - r0) * row_bytes
+                view = self._slots[s][:nbytes].view(t.dtype)
+                with self._on_stream():
+                    view.view(r1 - r0, cols).copy_(t[r0:r1, :cols],
+                                                  non_blocking=True)
+                    if self._stream is not None:
+                        self._filled[s].record(self._stream)
+                if k == len(runs) - 1:
+                    t = None  # recorded on the copy stream: safe to drop
+                queued.append((r0, s, nbytes))
+
+            for k in range(min(RING_SLOTS, len(runs))):
+                issue(k)
+            with METRICS.span(name + ".accum_wait"):
+                if fin.ready is not None:
+                    fin.ready.synchronize()
+            d2h_s = 0.0
+            for k in range(len(runs)):
+                r0, s, nbytes = queued.popleft()
+                with METRICS.span(name + ".d2h", nbytes) as sp:
+                    if self._filled[s] is not None:
+                        self._filled[s].synchronize()
+                d2h_s += sp.seconds
+                METRICS.add("d2h.ring_bytes", nbytes)
+                host = self._host[s][:nbytes].view(np_dtype).reshape(
+                    nbytes // row_bytes, cols)
+                self._held[s] = consume(r0, host)
+                if k + RING_SLOTS < len(runs):
+                    issue(k + RING_SLOTS)
+            return d2h_s
 
 
 def to_bf16(t: torch.Tensor) -> torch.Tensor:

@@ -16,13 +16,17 @@ supported without any host or device transposition: blocks are read
 storage-major and kernel K1 (ops/matmul_cuda.py) absorbs the transposes.
 Superblocks are zero-padded to the full block size, as in bof_tpu.
 
-Streams: the producer (uploads), the main thread (K1 launches) and the
-writer (downloads) all use their thread's current stream, which is the
-device's default stream unless the caller set another on all three.  One
-stream orders every upload before the kernels that read it and every
-download after the last accumulate into its block, and makes the caching
-allocator's reuse of a dropped tile safe; overlapping uploads with
-compute on a side stream is later work (ROADMAP).
+Streams: the producer (uploads) and the main thread (K1 launches) use
+their thread's current stream, which is the device's default stream
+unless the caller set another on both.  That one stream orders every
+upload before the kernels that read it and makes the caching allocator's
+reuse of a dropped tile safe; uploads on a side stream are later work
+(ROADMAP N4).  The writer downloads on a copy stream of its own: the
+main thread hands each finished block on with an event recorded behind
+its last K1 launch (`device.Finished`), the copy stream waits on that
+event alone, and the block goes down in runs of rows through the
+context's page-locked ring (`device.D2HRing`), each run written into C
+while the next one downloads.
 
 Transfer modes, as in bof_tpu (FlashConfig): transfer_dtype='bfloat16'
 rounds each A/B tile to bf16 on the host (half the bytes cross the link)
@@ -126,6 +130,20 @@ def _storage_shape(arr: FlashArray, logical_shape):
     return (r, c) if arr.order == "R" else (c, r)
 
 
+def _write_rows_async(c: FlashArray, i0: int, j0: int, bi: int, bj: int,
+                      r: int, host: np.ndarray):
+    """Write storage rows [r, r + len(host)) of the C block at logical
+    (i0, j0), real extent bi x bj, into C, whose storage rows are logical
+    rows in row-major C and logical columns in column-major C; a
+    tile-major C takes whole padded rows of its tile.  Returns the
+    write's ticket."""
+    if getattr(c, "tile", None) is not None:
+        return c.write_tile_rows_async(i0, j0, r, host)
+    if c.order == "R":
+        return c.write_block_storage_async(i0 + r, j0, len(host), bj, host)
+    return c.write_block_storage_async(i0, j0 + r, bi, len(host), host)
+
+
 def _journal_header(m, n, k, alpha, beta, transa, transb, sb, dtype,
                     xfer_mode) -> str:
     """Identical to bof_tpu's header, so a journal names the same problem
@@ -213,9 +231,10 @@ def _superblock_pipeline(steps, kB: int, depth: int, produce, start, accum,
       once `put` returns False (another stage failed);
     - this thread keeps one device accumulator a live j: `start(c_init)`
       at l == 0, then `c = accum(c, a_dev, b_dev)` each step, handed on
-      after l == kB - 1 (the K1 launches);
+      after l == kB - 1 (the K1 launches) as a `device.Finished`, which
+      records an event behind the block's last launch;
     - a writer thread runs `write_all(blocks)`, downloading and writing
-      each finished (i, j, c_dev) as the iterator yields it.
+      each finished (i, j, Finished) as the iterator yields it.
 
     Every queue is bounded (`depth` items) and timed, and a failure in any
     stage reaches the others through one error list, so none can hang;
@@ -263,8 +282,8 @@ def _superblock_pipeline(steps, kB: int, depth: int, produce, start, accum,
                 c_live[j] = accum(c_live[j], a_dev, b_dev)
             if l == kB - 1:
                 # timeout-put so a dead writer can't deadlock the loop
-                queue_put(write_q, (i, j, c_live.pop(j)), errors,
-                          queue_wait)
+                queue_put(write_q, (i, j, dev.Finished(c_live.pop(j))),
+                          errors, queue_wait)
             if errors:
                 break
     except BaseException as e:
@@ -525,48 +544,54 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                 _unpin(da)
                 _unpin(db)
 
+    def finish(c_dev):
+        """A finished block as it goes down, on the ring's copy stream:
+        float64's beta * C added, c_transfer_dtype='bfloat16''s rounding
+        (on the device, so half the bytes cross the link; the
+        accumulation ran in fp32)."""
+        if isinstance(c_dev, tuple):
+            c_dev = c_dev[0].add_(c_dev[1])
+        return dev.to_bf16(c_dev) if c_xfer_bf16 else c_dev
+
     def write_all(blocks):
         from ..core.pipeline import TicketWindow
         write_tickets = TicketWindow(depth=8, span="gemm.write_wait")
-        for i, j, c_dev in blocks:
-            if isinstance(c_dev, tuple):
-                c_dev = c_dev[0].add_(c_dev[1])
+        ring = ctx.d2h_ring(device)
+        for i, j, fin in blocks:
             bi, bj, _ = tile_dims(i, j, 0)
-            # tile-major C stores the full padded tile — hand the whole
-            # buffer over instead of slicing the logical tail
-            ci_shape = ((sb, sb) if c_tiled
-                        else _storage_shape(c, (bi, bj)))
-            # split the wait for the block's last accumulate from the
-            # download itself (stages partition the wall time)
-            if c_xfer_bf16:
-                # round the finished block on the device so half the
-                # bytes cross the link; the accumulation ran in fp32
-                c_dev = dev.to_bf16(c_dev)
-            with METRICS.span("gemm.accum_wait"):
-                dev.sync(c_dev)
-            with METRICS.span("gemm.d2h") as sp:
-                c_full = dev.from_device(c_dev)
-                c_host = c_full[:ci_shape[0], :ci_shape[1]]
-                sp.nbytes = c_host.nbytes
+            # tile-major C stores the full padded tile — hand whole rows
+            # of it over instead of slicing the logical tail
+            lines, width = ((sb, sb) if c_tiled
+                            else _storage_shape(c, (bi, bj)))
+            tickets = []
+
+            def write_run(r, host):
+                """Storage rows [r, r + len(host)) of block (i, j) into C:
+                a copy where C is in DRAM, a submitted write to a file."""
+                if c_xfer_bf16:  # widen back (exactly) for fp32 storage
+                    host = bf16_to_f32(host)
+                with METRICS.span("gemm.write"):
+                    t = _write_rows_async(c, i * sb, j * sb, bi, bj, r, host)
+                tickets.append(t)
+                return t
+
+            d2h_s = ring.download(fin, finish, lines, width, write_run,
+                                  "gemm")
             if sync_mode:
                 METRICS.observe("gemm.d2h_tile_gbps",
-                                c_full.nbytes / max(sp.seconds, 1e-9) / 1e9)
-            if c_xfer_bf16:  # widen back (exactly) for fp32 storage
-                c_host = bf16_to_f32(c_host)
+                                lines * width * (2 if c_xfer_bf16 else
+                                                 c.itemsize)
+                                / max(d2h_s, 1e-9) / 1e9)
             if journal_f is None:
-                # a copy where C is in DRAM, a submitted write to a file
-                with METRICS.span("gemm.write"):
-                    ticket = c.write_block_storage_async(
-                        i * sb, j * sb, bi, bj, c_host)
-                write_tickets.push(ticket)
+                write_tickets.extend(tickets)
             else:
                 # durability order is the journal's correctness: the
                 # block's bytes reach disk (wait + fsync) BEFORE its
                 # journal line does — a crash between the two re-does
                 # the block, never skips a missing one
                 with METRICS.span("gemm.write_wait"):
-                    c.write_block_storage_async(
-                        i * sb, j * sb, bi, bj, c_host).wait()
+                    for t in tickets:
+                        t.wait()
                     c.store.flush()
                 journal_f.write(f"{i} {j}\n")
                 journal_f.flush()

@@ -480,7 +480,8 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
     from ..io.store import store_uid
     from ..ops import device as dev
     from ..ops.gemm import (_check_finite, _check_slice, _op_block_reader,
-                            _storage_shape, _superblock_pipeline)
+                            _storage_shape, _superblock_pipeline,
+                            _write_rows_async)
     from ..utils import LOG, cdiv
 
     ctx = ctx or c.ctx or get_context()
@@ -685,32 +686,43 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
             if seq_b is not None:
                 seq_b.close()
 
+    def finish(c_dev):
+        """float64's beta * C added, on the ring's copy stream."""
+        return c_dev[0].add_(c_dev[1]) if isinstance(c_dev, tuple) else c_dev
+
     def write_all(blocks):
         tickets = TicketWindow(depth=8, span="gemm_sharded.write_wait")
+        ring = ctx.d2h_ring(device)
+        rows, cols = box_c
         with shard_writer(c, mesh) as c_w:
             try:
-                for i, j, c_dev in blocks:
-                    if isinstance(c_dev, tuple):
-                        c_dev = c_dev[0].add_(c_dev[1])
+                for i, j, fin in blocks:
                     bi, bj, _ = tile_dims(i, j, 0)
-                    with METRICS.span("gemm_sharded.d2h"):
-                        c_loc = dev.from_device(c_dev)
-                    with METRICS.span("gemm_sharded.write"):
-                        if sharded_reads:
-                            rows, cols = box_c
-                            written = _writeback_shards(
-                                c_loc, c_w, i * sb, j * sb, bi, bj,
-                                (rows.start, rows.stop, cols.start,
-                                 cols.stop))
-                        else:
-                            ci = ((sb, sb) if c_tiled
-                                  else _storage_shape(c, (bi, bj)))
-                            written = [c_w.write_block_storage_async(
-                                i * sb, j * sb, bi, bj,
-                                c_loc[:ci[0], :ci[1]])]
-                    # a push may stall on the window's oldest disk write:
-                    # gemm_sharded.write_wait
-                    tickets.extend(written)
+                    lines, width = ((sb, sb) if c_tiled
+                                    else _storage_shape(c, (bi, bj)))
+                    # this rank's shard of the block's real storage
+                    # extent (all of it in a world of one rank)
+                    n_rows = max(0, min(rows.stop, lines) - rows.start)
+                    n_cols = max(0, min(cols.stop, width) - cols.start)
+
+                    def write_run(r, host):
+                        with METRICS.span("gemm_sharded.write"):
+                            if sharded_reads:
+                                s0 = rows.start + r
+                                written = _writeback_shards(
+                                    host, c_w, i * sb, j * sb, bi, bj,
+                                    (s0, s0 + len(host), cols.start,
+                                     cols.stop))
+                            else:
+                                written = [_write_rows_async(
+                                    c_w, i * sb, j * sb, bi, bj, r, host)]
+                        # a push may stall on the window's oldest disk
+                        # write: gemm_sharded.write_wait
+                        tickets.extend(written)
+                        return written[0] if written else None
+
+                    ring.download(fin, finish, n_rows, n_cols, write_run,
+                                  "gemm_sharded")
             finally:
                 tickets.wait_all()  # no write may outlive c_w's store
 

@@ -17,6 +17,7 @@ TF32 is off, so the plain versions are full fp32; tolerance rtol 2e-4,
 the repo's fp32 invariant (accumulation order differs from cuBLAS).
 """
 import itertools
+import json
 import os
 
 import numpy as np
@@ -304,6 +305,70 @@ def test_s8_refuses_a_large_k_on_the_card(cuda_device):
     torch.cuda.synchronize()
     assert rc != 0
     assert not c.any()
+
+
+def test_gemm_downloads_c_through_the_pinned_ring(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """One gemm of 2 x 2 x 2 blocks into a file-backed C: its bytes equal
+    those of the download the ring replaced (one `from_device` of each
+    whole block, `test_torch_d2h_ring._whole_block`), every DtoH copy
+    under torch.profiler goes to page-locked memory on a stream no K1
+    launch runs on, and `d2h.ring_bytes` counts C's bytes.  Slots of
+    1 MiB split each 4 MiB block into four runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bof_tpu_torch.ops import device as dev
+    from bof_tpu_torch.utils import METRICS
+    from test_torch_d2h_ring import _whole_block
+    monkeypatch.setattr(dev, "RING_SLOT_BYTES", 1 << 20)
+    m = n = k = 2048
+    blk = 1024
+    rng = np.random.default_rng(18)
+    a = rng.standard_normal((m, k), dtype=np.float32)
+    b = rng.standard_normal((k, n), dtype=np.float32)
+
+    def run(tag, traced):
+        d = tmp_path / tag
+        d.mkdir()
+        ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+            device="cuda", scratch_dir=str(d / "s")))
+        try:
+            A = bof_tpu_torch.mem_array((m, k), np.float32, data=a, ctx=ctx)
+            B = bof_tpu_torch.mem_array((k, n), np.float32, data=b, ctx=ctx)
+            C = bof_tpu_torch.map_array(str(d / "C"), (m, n), np.float32,
+                                        create=True, ctx=ctx)
+            ring0 = METRICS.get("d2h.ring_bytes")
+            if traced:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    bof_tpu_torch.gemm(A, B, C, alpha=0.5, blk=blk, ctx=ctx)
+                    torch.cuda.synchronize()
+                prof.export_chrome_trace(str(d / "trace.json"))
+            else:
+                bof_tpu_torch.gemm(A, B, C, alpha=0.5, blk=blk, ctx=ctx)
+            moved = METRICS.get("d2h.ring_bytes") - ring0
+        finally:
+            ctx.destroy()
+        return (d / "C").read_bytes(), moved, d / "trace.json"
+
+    got, moved, trace = run("ring", True)
+    assert moved == m * n * 4
+    events = json.loads(trace.read_text())["traceEvents"]
+    dtoh = [e for e in events if e.get("cat") == "gpu_memcpy"
+            and "DtoH" in e["name"]]
+    k1_streams = {e["args"]["stream"] for e in events
+                  if e.get("cat") == "kernel" and "accum" in e["name"]}
+    assert len(dtoh) >= 16 and k1_streams
+    assert all("Pinned" in e["name"] for e in dtoh), {e["name"]
+                                                      for e in dtoh}
+    assert not {e["args"]["stream"] for e in dtoh} & k1_streams
+    monkeypatch.setattr(dev.D2HRing, "download", _whole_block)
+    want, moved, _ = run("whole", False)
+    assert moved == 0
+    assert got == want
+    np.testing.assert_allclose(
+        np.frombuffer(got, np.float32).reshape(m, n),
+        0.5 * (a.astype(np.float64) @ b), rtol=2e-4, atol=2e-3)
 
 
 @pytest.mark.parametrize("order,ta,tb", [("R", "N", "N"), ("C", "T", "N")])

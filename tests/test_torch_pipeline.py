@@ -80,8 +80,8 @@ def test_superblock_pipeline_accumulates_each_block_over_k(grouped):
         return c + [(a, b)]
 
     def write_all(blocks):
-        for i, j, c in blocks:
-            written[(i, j)] = c
+        for i, j, fin in blocks:  # fin: a device.Finished
+            written[(i, j)] = fin.block
 
     _superblock_pipeline(steps, kB, 2, produce, lambda c_init: [c_init],
                          accum, write_all, "gemm")
