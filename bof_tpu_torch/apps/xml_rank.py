@@ -10,9 +10,11 @@ document):
 
 Two execution paths, as in bof_tpu:
 
-- **Fused device path (default on the card).** Per label block, the
-  (vocab x lb_max) fp32 W panel is uploaded once and transposed on the
-  card; sparse row blocks stream through the pin cache and each ELL band
+- **Fused device path (default on the card).** Per label block, W's
+  label rows stream through the Program Cache (the pin cache, a lookahead
+  inside its budget), go up once from the pinned rows and are transposed
+  on the card into the (vocab x lb_max) fp32 panel; sparse row blocks
+  stream through the pin cache and each ELL band
   is one launch of K2 (the block product, into a (rows x lb_max) buffer on
   the card) and one of B8 (`ops/topk_cuda.py:row_topk`: the label mask and
   the per-row top-k, in lax.top_k's order), so only (rows x k) scores and
@@ -32,7 +34,6 @@ the caller's files), and a barrier ends the call.
 """
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -131,15 +132,34 @@ def _merge_topk(scores: FlashArray, labels: FlashArray, r0: int,
     labels.write_block(r0, top_l[rows, order].astype(np.int32), 0)
 
 
+def _upload_panel(wt_st: np.ndarray, lb_max: int, device) -> torch.Tensor:
+    """The (vocab x lb_max) fp32 W operand of K2 on the card from W's
+    (lb, vocab) label rows (a pin-cache view): one upload of the rows as
+    they are, one transpose on the card, zero columns past lb.  Always
+    float32, so every label block runs the same fp32 product (bof_tpu's
+    rule)."""
+    lb, vocab = wt_st.shape
+    up = dev.to_device(wt_st.astype(np.float32, copy=False), device)
+    if lb == lb_max:
+        return up.T.contiguous()
+    panel = torch.zeros((vocab, lb_max), dtype=torch.float32, device=device)
+    panel[:, :lb] = up.T
+    return panel
+
+
 def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
                     scores: FlashArray, labels: FlashArray,
                     lb_max: int, ctx, mesh=None) -> None:
     """Fused device path: per ELL band one K2 and one B8 launch, only
     (rows x k) crossing the link; no score panel beyond one band's
-    (rows x lb_max) buffer on the card.  With `mesh`, each rank takes its
-    run of the band's rows and all-gathers of the (rows x k) results give
-    every rank the band (`_topk_band_sharded`); rank 0 merges.
-    Stage seconds and link bytes go to METRICS under `xml_rank.*`."""
+    (rows x lb_max) buffer on the card.  W's label panels stream through
+    the Program Cache (`ctx.pin_cache()`, as many panels ahead as half
+    its budget holds) and go up from the pinned rows.  With `mesh`, each
+    rank takes its run of the band's rows and all-gathers of the
+    (rows x k) results give every rank the band (`_topk_band_sharded`);
+    rank 0 merges.  Every stage runs in a span `xml_rank.<stage>`
+    (METRICS.span), which books its seconds as `xml_rank.<stage>_s`."""
+    from ..core.pipeline import PrefetchSeq
     from ..sparse import spmm_device as sdev
     from ..sparse.csr import fill_row_blocks, stream_row_blocks
 
@@ -153,87 +173,87 @@ def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
         merges = pmesh.flat_rank(mesh) == 0
     docs, vocab = a.shape
     n_labels, _ = _label_axis(w)
-    lb_max = max(lb_max, k)  # the top-k needs k <= the label axis
+    # W's pins in flight hold at most half the budget (the other half is
+    # A's blocks and what stays cached): the cache evicts only when a pin
+    # misses, so a lookahead past the budget would hold its pins over it
+    ahead = max(1, min(cfg.pipeline_depth, cfg.program_budget // 2
+                       // max(lb_max * vocab * w.itemsize, 1)))
     ia_np = a.read_ia()
     blocks = fill_row_blocks(ia_np, cfg.max_nnzs)
     entry_cap = max(1 << 14, int(cfg.hbm_budget // 6 // max(lb_max * 4, 1)))
     ell_idt = sdev.ell_idx_dtype(vocab, getattr(cfg, "ell_idx_narrow", True))
     ell_vdt = sdev.ell_val_dtype(a.vals.dtype, cfg)
 
-    for b0 in range(0, n_labels, lb_max):
-        lb = min(lb_max, n_labels - b0)
-        t0 = time.perf_counter()
-        # (lb, vocab) contiguous label rows for either W layout
-        wt_st = _wt_view(w, b0, lb, vocab).read_block_storage(0, vocab,
-                                                              0, lb)
-        METRICS.add("xml_rank.w_read_s", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        if lb < lb_max:
-            wt_pad = np.zeros((lb_max, vocab), np.float32)
-            wt_pad[:lb] = wt_st
-        else:
-            # always float32, so every label block runs the same fp32
-            # product (bof_tpu's rule)
-            wt_pad = wt_st.astype(np.float32, copy=False)
-        # (vocab, lb_max) row-major on the card: one upload, one transpose
-        b_panel = dev.to_device(wt_pad, device).T.contiguous()
-        del wt_st, wt_pad
-        mask = np.zeros(lb_max, np.float32)
-        mask[lb:] = -np.inf  # padded labels must never win the top-k
-        mask_dev = dev.to_device(mask, device)
-        METRICS.add("xml_rank.w_h2d_s", time.perf_counter() - t0)
-        METRICS.add("xml_rank.h2d_bytes", b_panel.nbytes + mask.nbytes)
-        first = b0 == 0
+    panels = [(b0, min(lb_max, n_labels - b0))
+              for b0 in range(0, n_labels, lb_max)]
+    # each panel's lb label rows, one pin: (lb, vocab) in storage order
+    # for either W layout (`_wt_view`)
+    w_pins = PrefetchSeq(ctx.pin_cache(), [
+        (w.store,) + _wt_view(w, b0, lb, vocab).block_access(0, vocab, 0, lb)
+        for b0, lb in panels], depth=ahead)
+    try:
+        for p, (b0, lb) in enumerate(panels):
+            with METRICS.span("xml_rank.w_wait"):
+                wt_st = w_pins.get(p).view(w.dtype).reshape(lb, vocab)
+            with METRICS.span("xml_rank.w_h2d"):
+                # (vocab, lb_max) row-major on the card: one upload, one
+                # transpose
+                b_panel = _upload_panel(wt_st, lb_max, device)
+                mask = np.zeros(lb_max, np.float32)
+                mask[lb:] = -np.inf  # padded labels must never win
+                mask_dev = dev.to_device(mask, device)
+            del wt_st
+            w_pins.done(p)
+            METRICS.add("xml_rank.h2d_bytes", lb * vocab * 4 + mask.nbytes)
+            first = b0 == 0
 
-        t_wait = time.perf_counter()
-        for r, e, ja_blk, va_blk in stream_row_blocks(a, ia_np, blocks,
-                                                      ctx):
-            t0 = time.perf_counter()
-            METRICS.add("xml_rank.disk_wait_s", t0 - t_wait)
-            # csrmm's count-sorted ELL bands; results stage per block so
-            # the top-k merge stays a contiguous panel write
-            bands = ell_bands(ia_np[r:e + 1] - int(ia_np[r]), ja_blk, va_blk,
-                              entry_cap, cfg, ell_idt, ell_vdt)
-            METRICS.add("xml_rank.prep_s", time.perf_counter() - t0)
-            s_stage = np.empty((e - r, k), np.float32)
-            l_stage = np.empty((e - r, k), np.int32)
-            for rows_sel, cnt, ja_ell, va_ell in bands:
-                n_sel = len(rows_sel)
-                t1 = time.perf_counter()
-                lo, hi = 0, n_sel
-                if mesh is not None:
-                    lo, hi, run = pmesh.row_run(mesh, n_sel)
-                ja_d = dev.to_device(ja_ell[lo:hi], device)
-                va_d, _, va_bytes = sdev.upload_ell_vals(
-                    va_ell[lo:hi], device)
-                cnt_d = dev.to_device(cnt[lo:hi], device)
-                t2 = time.perf_counter()
-                METRICS.add("xml_rank.h2d_s", t2 - t1)
-                METRICS.add("xml_rank.h2d_bytes",
-                            ja_d.nbytes + va_bytes + cnt_d.nbytes)
-                if mesh is None:
-                    vals, idx = _topk_step(b_panel, ja_d, va_d, cnt_d,
-                                           mask_dev, k)
-                else:
-                    vals, idx = _topk_band_sharded(
-                        mesh, b_panel, ja_d, va_d, cnt_d, mask_dev, k, run)
-                t3 = time.perf_counter()
-                METRICS.add("xml_rank.dispatch_s", t3 - t2)
-                vals_np = dev.from_device(vals)[:n_sel]  # waits for K2, B8
-                idx_np = dev.from_device(idx)[:n_sel]
-                t0 = time.perf_counter()
-                METRICS.add("xml_rank.d2h_s", t0 - t3)
-                METRICS.add("xml_rank.d2h_bytes",
-                            vals_np.nbytes + idx_np.nbytes)
-                s_stage[rows_sel] = vals_np
-                l_stage[rows_sel] = idx_np + b0
-            if merges:
-                _merge_topk(scores, labels, r, s_stage, l_stage, k, first)
-            t_wait = time.perf_counter()
-            METRICS.add("xml_rank.merge_s", t_wait - t0)
-        del b_panel
+            for r, e, ja_blk, va_blk in stream_row_blocks(
+                    a, ia_np, blocks, ctx, wait_span="xml_rank.disk_wait"):
+                with METRICS.span("xml_rank.prep"):
+                    # csrmm's count-sorted ELL bands; results stage per
+                    # block so the top-k merge stays a contiguous panel
+                    # write
+                    bands = ell_bands(ia_np[r:e + 1] - int(ia_np[r]),
+                                      ja_blk, va_blk, entry_cap, cfg,
+                                      ell_idt, ell_vdt)
+                s_stage = np.empty((e - r, k), np.float32)
+                l_stage = np.empty((e - r, k), np.int32)
+                for rows_sel, cnt, ja_ell, va_ell in bands:
+                    n_sel = len(rows_sel)
+                    lo, hi = 0, n_sel
+                    if mesh is not None:
+                        lo, hi, run = pmesh.row_run(mesh, n_sel)
+                    with METRICS.span("xml_rank.h2d") as sp:
+                        ja_d = dev.to_device(ja_ell[lo:hi], device)
+                        va_d, _, va_bytes = sdev.upload_ell_vals(
+                            va_ell[lo:hi], device)
+                        cnt_d = dev.to_device(cnt[lo:hi], device)
+                        sp.nbytes = ja_d.nbytes + va_bytes + cnt_d.nbytes
+                    with METRICS.span("xml_rank.dispatch"):
+                        if mesh is None:
+                            vals, idx = _topk_step(b_panel, ja_d, va_d,
+                                                   cnt_d, mask_dev, k)
+                        else:
+                            vals, idx = _topk_band_sharded(
+                                mesh, b_panel, ja_d, va_d, cnt_d, mask_dev,
+                                k, run)
+                    with METRICS.span("xml_rank.d2h") as sp:
+                        # waits for K2 and B8
+                        vals_np = dev.from_device(vals)[:n_sel]
+                        idx_np = dev.from_device(idx)[:n_sel]
+                        sp.nbytes = vals_np.nbytes + idx_np.nbytes
+                    s_stage[rows_sel] = vals_np
+                    l_stage[rows_sel] = idx_np + b0
+                if merges:
+                    with METRICS.span("xml_rank.merge"):
+                        _merge_topk(scores, labels, r, s_stage, l_stage, k,
+                                    first)
+            del b_panel
+    finally:
+        w_pins.close()
 
 
+@METRICS.span("xml_rank")
 def xml_rank(a: CsrFlashMatrix, w: FlashArray, k: int,
              scores_out: Optional[FlashArray] = None,
              labels_out: Optional[FlashArray] = None,
@@ -244,7 +264,9 @@ def xml_rank(a: CsrFlashMatrix, w: FlashArray, k: int,
     """Top-k labels per document: returns (scores (docs, k) float32
     descending per row, labels (docs, k) int32).  Output panels live on
     flash (caller-provided or scratch).  `label_blk` bounds the streamed
-    W panel; `doc_blk` bounds host merge memory.
+    W panel (on the fused path also half the Program Cache's budget, as
+    its label rows are pinned whole); `doc_blk` bounds host merge
+    memory.
 
     `fused` selects the fused K2 + B8 path (default: on, unless the
     link/problem heuristic picks host sparse compute — the same placement
@@ -293,6 +315,10 @@ def xml_rank(a: CsrFlashMatrix, w: FlashArray, k: int,
                       or _resolve_sparse_compute(cfg, docs, vocab, lb_max,
                                                  a.nnz) != "host"))
     if fused:
+        # a panel's label rows are pinned whole: at most half the Program
+        # Cache's budget, and at least k labels for the top-k
+        lb_max = max(k, min(lb_max, cfg.program_budget // 2
+                            // max(vocab * w.itemsize, 1)))
         _xml_rank_fused(a, w, k, scores, labels, lb_max, ctx, mesh=mesh)
         scores.store.flush()
         labels.store.flush()

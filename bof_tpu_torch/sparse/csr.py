@@ -13,12 +13,14 @@ bounded working set regardless of row skew.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from ..context import FlashContext, get_context
 from ..core.flash_array import FlashArray, flash_empty, map_array, mem_array
+from ..utils import METRICS
 
 
 class CsrFlashMatrix:
@@ -134,15 +136,17 @@ def verify_csr_block(ia_blk: np.ndarray, ja_blk: np.ndarray, n_cols: int,
 
 def stream_row_blocks(a: "CsrFlashMatrix", ia_np: np.ndarray,
                       blocks: List[Tuple[int, int]], ctx,
-                      depth: Optional[int] = None):
+                      depth: Optional[int] = None,
+                      wait_span: Optional[str] = None):
     """Generator yielding (r, e, ja_blk, va_blk) for nnz-budgeted CSR row
     blocks, prefetched through the pinned tile cache — the shared
     stream-A skeleton of every sparse planner (csrmm 'T' streaming, the
-    eigensolvers' one-pass operator, xml_rank's fused pass).  Each block's
-    buffers are pin-cache views valid only until the next iteration.
-    Honors FlashConfig.debug_checks (verify_csr_block, the reference's
-    DEBUG validation).  Closing the generator (break / exception in the
-    consumer) releases all pins."""
+    eigensolvers' one-pass operator, csrgemv, xml_rank's fused pass).
+    Each block's buffers are pin-cache views valid only until the next
+    iteration; with `wait_span`, each wait for a block's pins runs in
+    that METRICS span.  Honors FlashConfig.debug_checks
+    (verify_csr_block, the reference's DEBUG validation).  Closing the
+    generator (break / exception in the consumer) releases all pins."""
     from ..core.pipeline import PrefetchSeq
 
     cfg = ctx.config
@@ -157,8 +161,10 @@ def stream_row_blocks(a: "CsrFlashMatrix", ia_np: np.ndarray,
     try:
         for bi, (r, e) in enumerate(blocks):
             i0, i1 = int(ia_np[r]), int(ia_np[e])
-            ja_blk = pf.get(2 * bi).view(idt)
-            va_blk = pf.get(2 * bi + 1).view(vdt)
+            with (METRICS.span(wait_span) if wait_span
+                  else contextlib.nullcontext()):
+                ja_blk = pf.get(2 * bi).view(idt)
+                va_blk = pf.get(2 * bi + 1).view(vdt)
             if cfg.debug_checks:
                 verify_csr_block(ia_np[r:e + 1], ja_blk, a.shape[1],
                                  i1 - i0)

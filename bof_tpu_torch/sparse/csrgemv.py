@@ -31,20 +31,7 @@ from ..utils import METRICS
 from . import spmm_device as sdev
 from .csr import CsrFlashMatrix, fill_row_blocks, stream_row_blocks
 
-
-def _metered_blocks(a, ia_np, blocks, ctx):
-    """stream_row_blocks with the time blocked on disk/pin-cache arrival
-    in the span csrgemv.disk_wait."""
-    it = stream_row_blocks(a, ia_np, blocks, ctx)
-    try:
-        while True:
-            with METRICS.span("csrgemv.disk_wait"):
-                item = next(it, None)
-            if item is None:
-                return
-            yield item
-    finally:
-        it.close()
+WAIT = "csrgemv.disk_wait"  # the span of each wait for A's next block
 
 
 @METRICS.span("csrgemv")
@@ -73,8 +60,8 @@ def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
             # 'T' path below is host-side already)
             import scipy.sparse as sps
             y = np.empty(m, dtype=vdt)
-            for r, e, ja_blk, va_blk in _metered_blocks(
-                    a, ia_np, blocks, ctx):
+            for r, e, ja_blk, va_blk in stream_row_blocks(
+                    a, ia_np, blocks, ctx, wait_span=WAIT):
                 with METRICS.span("csrgemv.prep"):
                     blk_ia = (ia_np[r:e + 1]
                               - int(ia_np[r])).astype(np.int64)
@@ -91,7 +78,8 @@ def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
         with METRICS.span("csrgemv.h2d", x.nbytes):
             x_dev = dev.to_device(x, device)
         ell_idt = sdev.ell_idx_dtype(k, cfg.ell_idx_narrow)
-        for r, e, ja_blk, va_blk in _metered_blocks(a, ia_np, blocks, ctx):
+        for r, e, ja_blk, va_blk in stream_row_blocks(
+                a, ia_np, blocks, ctx, wait_span=WAIT):
             with METRICS.span("csrgemv.prep"):
                 blk_ia = ia_np[r:e + 1] - int(ia_np[r])
                 counts = np.diff(blk_ia)
@@ -137,7 +125,8 @@ def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
     # reference's own semantics (MKL FPTYPE).
     import scipy.sparse as sps
     y = np.zeros(k, dtype=np.float64)
-    for r, e, ja_blk, va_blk in _metered_blocks(a, ia_np, blocks, ctx):
+    for r, e, ja_blk, va_blk in stream_row_blocks(a, ia_np, blocks, ctx,
+                                                  wait_span=WAIT):
         with METRICS.span("csrgemv.prep"):
             blk_ia = (ia_np[r:e + 1] - int(ia_np[r])).astype(np.int64)
             blk = sps.csr_matrix((va_blk, ja_blk, blk_ia), shape=(e - r, k))

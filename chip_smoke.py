@@ -2207,7 +2207,7 @@ def xml_phase(dev, scratch, prefix, a_sp, n_labels=4096, k=5,
     if sharded:
         _check_collectives(label, stages, {"all_gather": 2 * want})
     _app_report(label, wall, 2.0 * a_sp.nnz * n_labels, launches, stages,
-                peak, "xml_rank.", ("w_read_s", "w_h2d_s", "disk_wait_s",
+                peak, "xml_rank.", ("w_wait_s", "w_h2d_s", "disk_wait_s",
                                     "prep_s", "h2d_s", "dispatch_s", "d2h_s",
                                     "merge_s"))
     d2h = stages.get("xml_rank.d2h_bytes")

@@ -477,9 +477,12 @@ def _labels_match_apart_from_ties(got_l, want_l, want_s):
 
 def _xml_case(ctxs, docs, vocab, n_labels, density, seed, col_major):
     rng = np.random.default_rng(0)
-    a_sp = sps.random(docs, vocab, density=density, format="csr",
-                      dtype=np.float32,
-                      random_state=np.random.RandomState(seed))
+    if density is None:
+        a_sp = _zipf_docs(docs, vocab, seed)
+    else:
+        a_sp = sps.random(docs, vocab, density=density, format="csr",
+                          dtype=np.float32,
+                          random_state=np.random.RandomState(seed))
     w_np = rng.standard_normal((n_labels, vocab)).astype(np.float32)
     A_ref, A_port = _csr(ctxs, a_sp)
     Ws = []
@@ -495,17 +498,42 @@ def _xml_case(ctxs, docs, vocab, n_labels, density, seed, col_major):
     return a_sp, w_np, (A_ref, Ws[0]), (A_port, Ws[1])
 
 
-@pytest.mark.parametrize("fused", [True, False])
-def test_xml_rank_matches_dense_topk(ctxs, fused):
+def _zipf_docs(docs, vocab, seed):
+    """Documents shaped like a tf-idf corpus, by the XML benchmark cell's
+    own generator: log-normal row lengths (mean 24), Zipf-skewed columns
+    without repeats in a row."""
+    from oocbench.entries.xml_rank import docs_csr
+    ia, ja, va = docs_csr({"docs": docs, "vocab": vocab,
+                           "nnz_per_doc_mean": 24, "nnz_per_doc_sigma": 1.0,
+                           "nnz_per_doc_max": 2000, "zipf_exponent": 1.0},
+                          seed, "cpu")
+    return sps.csr_matrix((va.numpy(), ja.numpy(), ia.numpy()),
+                          shape=(docs, vocab))
+
+
+# (docs, vocab, labels, density (None: Zipf-skewed), seed, k, label_blk)
+XML_INPUTS = {
+    "uniform": (257, 96, 83, 0.1, 5, 7, 19),
+    # vocab odd: W's rows (4 * vocab bytes) sit off 4 KiB alignment, as
+    # Amazon-670K's 543,636 B do; labels not a multiple of the panel
+    "zipf": (300, 1001, 203, None, 2**31 + 19, 5, 64),
+}
+
+
+@pytest.mark.parametrize("fused,docs", [
+    (True, "uniform"), (False, "uniform"), (True, "zipf"), (False, "zipf")],
+    ids=["True", "False", "True-zipf", "False-zipf"])
+def test_xml_rank_matches_dense_topk(ctxs, fused, docs):
     """Many label and doc blocks (paper Table 6's shape): the port's top-k
     against dense scores and bof_tpu's, on the fused K2 + B8 path and the
-    csrmm-composition path."""
-    a_sp, w_np, ref, port = _xml_case(ctxs, 257, 96, 83, 0.1, 5, False)
-    k = 7
+    csrmm-composition path, on uniform and on Zipf-skewed documents."""
+    n_docs, vocab, n_labels, density, seed, k, lb = XML_INPUTS[docs]
+    a_sp, w_np, ref, port = _xml_case(ctxs, n_docs, vocab, n_labels,
+                                      density, seed, False)
     _set(ctxs, max_nnzs=512)
-    s, l = port_xml.xml_rank(*port, k, label_blk=19, doc_blk=41,
+    s, l = port_xml.xml_rank(*port, k, label_blk=lb, doc_blk=41,
                              fused=fused, ctx=ctxs[1])
-    rs, rl = ref_xml.xml_rank(*ref, k, label_blk=19, doc_blk=41, fused=fused,
+    rs, rl = ref_xml.xml_rank(*ref, k, label_blk=lb, doc_blk=41, fused=fused,
                               ctx=ctxs[0])
     want = (a_sp @ w_np.T).astype(np.float32)
     got_s, got_l = s.read_all(), l.read_all()

@@ -6,7 +6,7 @@ bytes as the counters the stages booked before spans existed, and only
 while spans are switched on (`utils/profiling.set_spans`, which
 `profiling.trace` sets for its region) records a torch.profiler range on
 its own thread.  gemm, csrmm and csrgemv run their stages in spans on the
-threads of their pipelines; the native cache counts the bytes of the pins
+threads of their pipelines, xml_rank's fused path on the caller's; the native cache counts the bytes of the pins
 that missed (`read_bytes`), which `FlashContext.pin_cache_stats()`
 returns."""
 import gc
@@ -88,7 +88,21 @@ def run_csrgemv(tmp_path, ctx):
     np.testing.assert_allclose(y, a @ x, rtol=1e-4, atol=1e-4)
 
 
-RUN = {"gemm": run_gemm, "csrmm": run_csrmm, "csrgemv": run_csrgemv}
+def run_xml_rank(tmp_path, ctx):
+    """The fused top-5 of A W^T, W 37 x 120 in label panels of 16."""
+    a, a_f = _csr(tmp_path, ctx)
+    w = np.random.default_rng(4).standard_normal((37, 120)).astype(F32)
+    w.tofile(str(tmp_path / "W"))
+    w_f = bof_tpu_torch.map_array(str(tmp_path / "W"), w.shape, F32,
+                                  ctx=ctx)
+    s, _ = bof_tpu_torch.xml_rank(a_f, w_f, 5, label_blk=16, fused=True,
+                                  ctx=ctx)
+    want = -np.sort(-(a @ w.T), axis=1)[:, :5]
+    np.testing.assert_allclose(s.read_all(), want, rtol=1e-4, atol=1e-4)
+
+
+RUN = {"gemm": run_gemm, "csrmm": run_csrmm, "csrgemv": run_csrgemv,
+       "xml_rank": run_xml_rank}
 # the counters each entry's stages booked before they ran in spans
 BOOKED = {
     "gemm": ("disk_wait_s", "prep_s", "h2d_s", "h2d_bytes", "tile_wait_s",
@@ -97,6 +111,9 @@ BOOKED = {
               "accum_wait_s", "d2h_s", "d2h_bytes", "write_wait_s"),
     "csrgemv": ("disk_wait_s", "prep_s", "h2d_s", "h2d_bytes",
                 "dispatch_s", "d2h_s"),
+    "xml_rank": ("w_wait_s", "w_h2d_s", "disk_wait_s", "prep_s", "h2d_s",
+                 "h2d_bytes", "dispatch_s", "d2h_s", "d2h_bytes",
+                 "merge_s"),
 }
 
 
@@ -187,6 +204,9 @@ THREADS = {
               ("csrmm.accum_wait", "csrmm.d2h", "csrmm.write")),
     "csrgemv": (("csrgemv", "csrgemv.disk_wait", "csrgemv.prep",
                  "csrgemv.h2d", "csrgemv.dispatch", "csrgemv.d2h"),),
+    "xml_rank": (("xml_rank", "xml_rank.w_wait", "xml_rank.w_h2d",
+                  "xml_rank.disk_wait", "xml_rank.prep", "xml_rank.h2d",
+                  "xml_rank.dispatch", "xml_rank.d2h", "xml_rank.merge"),),
 }
 
 
@@ -213,7 +233,7 @@ def test_spans_on_record_each_stage_on_its_own_thread(tmp_path, entry):
         assert bands and _inside(bands, spans["csrmm.dispatch"])
         assert len(panels) == 1 and _inside(panels, call)
         assert len(bands) + len(panels) == len(spans["csrmm.h2d"])
-    if entry != "csrgemv":
+    if entry in ("gemm", "csrmm"):
         # the hand-offs: a stage waiting on another, on the stage's thread
         waits = {t for t, _, _ in spans[f"{entry}.queue_wait"]}
         assert waits <= set(tids) and len(waits) >= 2
