@@ -132,14 +132,19 @@ def _merge_topk(scores: FlashArray, labels: FlashArray, r0: int,
     labels.write_block(r0, top_l[rows, order].astype(np.int32), 0)
 
 
-def _upload_panel(wt_st: np.ndarray, lb_max: int, device) -> torch.Tensor:
+def _upload_panel(wt_st: np.ndarray, lb_max: int, device,
+                  lock) -> torch.Tensor:
     """The (vocab x lb_max) fp32 W operand of K2 on the card from W's
-    (lb, vocab) label rows (a pin-cache view): one upload of the rows as
-    they are, one transpose on the card, zero columns past lb.  Always
-    float32, so every label block runs the same fp32 product (bof_tpu's
-    rule)."""
+    (lb, vocab) label rows (a pin-cache buffer, whole): one upload of the
+    rows as they are, one transpose on the card, zero columns past lb.
+    Always float32, so every label block runs the same fp32 product
+    (bof_tpu's rule).  Where the rows go up as they stand (fp32 W),
+    `lock()` first page-locks their buffer."""
     lb, vocab = wt_st.shape
-    up = dev.to_device(wt_st.astype(np.float32, copy=False), device)
+    src = wt_st.astype(np.float32, copy=False)
+    if dev.is_whole(src, wt_st):
+        lock()
+    up = dev.to_device(src, device)
     if lb == lb_max:
         return up.T.contiguous()
     panel = torch.zeros((vocab, lb_max), dtype=torch.float32, device=device)
@@ -198,7 +203,8 @@ def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
             with METRICS.span("xml_rank.w_h2d"):
                 # (vocab, lb_max) row-major on the card: one upload, one
                 # transpose
-                b_panel = _upload_panel(wt_st, lb_max, device)
+                b_panel = _upload_panel(wt_st, lb_max, device,
+                                        lambda: w_pins.lock(p))
                 mask = np.zeros(lb_max, np.float32)
                 mask[lb:] = -np.inf  # padded labels must never win
                 mask_dev = dev.to_device(mask, device)

@@ -131,7 +131,9 @@ class FlashContext:
     def pin_cache(self):
         """Pin API for streaming pipelines: native C++ tile cache for
         file-backed native stores, Python TileCache for everything else
-        (FlashConfig.tile_cache_backend: auto|native|python)."""
+        (FlashConfig.tile_cache_backend: auto|native|python).  On a CUDA
+        device the native cache page-locks the buffers uploads read whole
+        (`PinRouter.lock`)."""
         sched = self.scheduler()
         with self._lock:
             if self._pin_router is None:
@@ -145,8 +147,12 @@ class FlashContext:
                         "tile_cache_backend='native' requires the native "
                         f"io backend (resolved: {self._backend})")
                 if backend != "python" and self._backend == "native":
+                    import torch
+                    from .ops.device import host_lock_fns
                     try:
-                        native = NativeTileCache(self.config.program_budget)
+                        native = NativeTileCache(
+                            self.config.program_budget,
+                            host_lock_fns(torch.device(self.config.device)))
                     except RuntimeError:
                         if backend == "native":
                             raise
@@ -169,8 +175,9 @@ class FlashContext:
 
     def pin_cache_stats(self) -> Optional[dict]:
         """The native pin cache's counters (`NativeTileCache.stats()`:
-        used, hits, misses, evictions, entries, read_bytes), or None where
-        the context's pins take the Python TileCache."""
+        used, hits, misses, evictions, entries, read_bytes and the
+        page-lock counters), or None where the context's pins take the
+        Python TileCache."""
         native = self.pin_cache()._nat
         return native.stats() if native is not None else None
 

@@ -52,6 +52,11 @@ class PrefetchSeq:
         self._cache.wait_ready(key)
         return self._cache.buf(key)
 
+    def lock(self, idx: int) -> bool:
+        """Page-lock access idx's pinned buffer, which the caller is about
+        to upload whole (`PinRouter.lock`); True if it is page-locked."""
+        return self._cache.lock(self._keys[idx])
+
     def done(self, idx: int):
         key = self._keys.pop(idx, None)
         if key is not None:

@@ -7,6 +7,16 @@ directly to the C++ I/O engine — the reference's Program Cache read path
 buffers as zero-copy numpy views whose GC releases a borrow count, so
 eviction can never free memory a consumer still references.
 
+On a CUDA device the cache is handed the runtime's page-lock functions
+(`ops/device.py:host_lock_fns`).  A caller about to upload a buffer whole
+asks `lock(key)` first: the buffer is then page-locked once, for its life
+in the cache, and every upload from it is a DMA the copy engine reads
+directly.  A buffer is unlocked before it is freed, or handed still locked
+to the miss whose eviction released it when that miss wants its size.
+Locking that fails leaves the buffer pageable and is counted
+(`stats()["lock_fails"]`); it never raises.  Without the functions (a CPU
+device) `lock` is a no-op.
+
 `PinRouter` presents the pin API over mixed stores: NativeFileStore
 accesses go native; MemStore/PyFileStore accesses fall back to the Python
 TileCache.  Keys are opaque to callers (PrefetchSeq, kernel pipelines).
@@ -20,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils import METRICS
 from .native import NativeFileStore, load_library
 from .stride import StrideInfo
 
@@ -41,18 +52,32 @@ def _bind(lib):
     lib.bof_cache_stats.argtypes = [ctypes.c_longlong,
                                     ctypes.POINTER(ctypes.c_longlong)]
     lib.bof_cache_invalidate.argtypes = [ctypes.c_longlong] * 4
+    lib.bof_cache_set_lock_fns.argtypes = [ctypes.c_longlong] + \
+        [ctypes.c_void_p] * 3
+    lib.bof_cache_lock.argtypes = [ctypes.c_longlong, ctypes.c_longlong,
+                                   ctypes.c_int]
     lib._cache_bound = True
     return lib
 
 
+_STATS = ("used", "hits", "misses", "evictions", "entries", "read_bytes",
+          "locks", "lock_bytes", "lock_ns", "lock_fails", "unlocks",
+          "recycles")
+
+
 class NativeTileCache:
-    def __init__(self, budget_bytes: int):
+    def __init__(self, budget_bytes: int, lock_fns=None):
+        """`lock_fns`: the addresses of cudaHostRegister,
+        cudaHostUnregister and cudaGetLastError (`host_lock_fns`), or
+        None to keep every buffer pageable."""
         lib = load_library()
         if lib is None:
             raise RuntimeError("native engine unavailable")
         self._lib = _bind(lib)
         self._budget = int(budget_bytes)
         self._h = self._lib.bof_cache_create(budget_bytes)
+        if lock_fns is not None:
+            self._lib.bof_cache_set_lock_fns(self._h, *lock_fns)
 
     def pin_read(self, store: NativeFileStore, offset: int,
                  sinfo: StrideInfo) -> int:
@@ -90,6 +115,16 @@ class NativeTileCache:
     def unpin(self, key: int):
         self._lib.bof_cache_unpin(self._h, key)
 
+    def lock(self, key: int, nbytes: int) -> bool:
+        """Page-lock pinned entry `key`'s buffer (of `nbytes`), which the
+        caller is about to upload whole; True if it is page-locked.  The
+        registration itself runs in the span `pin_cache.lock`."""
+        r = self._lib.bof_cache_lock(self._h, key, 0)
+        if r == 2:
+            with METRICS.span("pin_cache.lock", nbytes):
+                r = self._lib.bof_cache_lock(self._h, key, 1)
+        return r == 1
+
     def wait_ready(self, key: int, pump: bool = True):
         while not self.ready(key):
             time.sleep(0.0002)
@@ -104,12 +139,16 @@ class NativeTileCache:
         return int(r)
 
     def stats(self) -> dict:
-        """Bytes held, hits, misses, evictions and entries, and
-        `read_bytes`: the bytes of every pin that missed and was read."""
-        s = (ctypes.c_longlong * 6)()
+        """Bytes held, hits, misses, evictions and entries; `read_bytes`:
+        the bytes of every pin that missed and was read; `locks`,
+        `lock_bytes`, `lock_s`: the registrations made, their bytes and
+        seconds; `lock_fails` (left pageable), `unlocks` (before a free)
+        and `recycles` (a miss given an evicted locked buffer)."""
+        s = (ctypes.c_longlong * len(_STATS))()
         self._lib.bof_cache_stats(self._h, s)
-        return {"used": s[0], "hits": s[1], "misses": s[2],
-                "evictions": s[3], "entries": s[4], "read_bytes": s[5]}
+        out = dict(zip(_STATS, s))
+        out["lock_s"] = out.pop("lock_ns") / 1e9
+        return out
 
     def close(self):
         if self._h:
@@ -152,6 +191,14 @@ class PinRouter:
             self._nat.unpin(key[1])
         else:
             self._py.unpin(key[1])
+
+    def lock(self, key) -> bool:
+        """Page-lock the buffer of pin `key` before an upload reads it
+        whole (`NativeTileCache.lock`); the Python TileCache's stay
+        pageable."""
+        if key[0] == "__nat__":
+            return self._nat.lock(key[1], key[2])
+        return False
 
     def wait_ready(self, key, pump: bool = True):
         if key[0] == "__nat__":

@@ -11,7 +11,15 @@ Blocks arrive in storage-major layout and K1 absorbs the transposes, so
 no host or device transposition happens.  Uploads (`to_device`) are
 synchronous with respect to the host buffer they read: the pipeline
 unpins a host tile right after `to_device` returns, so a copy still in
-flight would read a recycled buffer.  `from_device` is synchronous too.
+flight would read a recycled buffer.  An upload that reads a Program
+Cache buffer whole (`is_whole`) finds it page-locked, since the caller
+asks the cache to lock it first (`PinRouter.lock`, with the runtime's
+functions from `host_lock_fns`): the copy engine then reads it by DMA
+instead of the driver staging it through pageable bounce buffers, still
+synchronously and on the caller's stream.  Casts, quantized and padded
+tiles and ELL bands are fresh arrays and go up pageable.  `to_device`
+counts `h2d.bytes` and, for page-locked sources, `h2d.locked_bytes`.
+`from_device` is synchronous too.
 gemm's finished C blocks go down otherwise: `D2HRing`, a context's two
 reused page-locked slots filled on a copy stream of their own, after an
 event (`Finished`) that the computing thread recorded behind the block's
@@ -22,6 +30,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
+import os
 import threading
 import time
 
@@ -47,8 +57,63 @@ def resolve_device(name: str) -> torch.device:
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """A private device copy of `x` (always a copy, also on the CPU: the
-    source may be a pin-cache buffer that is recycled after this call)."""
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device, copy=True)
+    source may be a pin-cache buffer that is recycled after this call).
+    Counts `h2d.bytes`, and `h2d.locked_bytes` where the source is
+    page-locked (a Program Cache buffer the caller locked): the copy
+    engine then reads it directly instead of the driver staging it."""
+    src = torch.from_numpy(np.ascontiguousarray(x))
+    METRICS.add("h2d.bytes", src.nbytes)
+    if device.type == "cuda" and src.is_pinned():
+        METRICS.add("h2d.locked_bytes", src.nbytes)
+    return src.to(device, copy=True)
+
+
+def is_whole(arr: np.ndarray, buf: np.ndarray) -> bool:
+    """True iff `arr` is `buf`'s bytes as they stand, all of them and in
+    order (a view, not a cast, quantized or padded copy): an upload of
+    `arr` then reads a Program Cache buffer whole, and the caller asks
+    the cache to page-lock it first."""
+    return (arr.flags.c_contiguous and arr.nbytes == buf.nbytes
+            and arr.ctypes.data == buf.ctypes.data)
+
+
+def _cudart():
+    """The CUDA runtime library torch has loaded (found among the
+    process's mappings), else the one of torch's CUDA major version;
+    None where neither loads."""
+    torch.cuda.init()
+    try:
+        with open("/proc/self/maps") as f:
+            paths = {line.split()[-1] for line in f
+                     if "libcudart.so" in line}
+    except OSError:
+        paths = set()
+    names = sorted(p for p in paths if os.path.basename(p).startswith(
+        "libcudart.so"))
+    names.append(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+    for name in names:
+        try:
+            return ctypes.CDLL(name)
+        except OSError:
+            continue
+    return None
+
+
+def host_lock_fns(device: torch.device):
+    """The native pin cache's page-lock hooks for `device`: the addresses
+    of `cudaHostRegister`, `cudaHostUnregister` and `cudaGetLastError` (a
+    failed registration must not leave the runtime's last error set for
+    the thread's next launch check) in torch's CUDA runtime.  None on a
+    CPU device, or where the runtime cannot be found: buffers then stay
+    pageable."""
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return None
+    lib = _cudart()
+    if lib is None:
+        return None
+    return tuple(ctypes.cast(getattr(lib, name), ctypes.c_void_p).value
+                 for name in ("cudaHostRegister", "cudaHostUnregister",
+                              "cudaGetLastError"))
 
 
 def to_device_bf16(bits: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -20,8 +20,11 @@ Streams: the producer (uploads) and the main thread (K1 launches) use
 their thread's current stream, which is the device's default stream
 unless the caller set another on both.  That one stream orders every
 upload before the kernels that read it and makes the caching allocator's
-reuse of a dropped tile safe; uploads on a side stream are later work
-(ROADMAP N4).  The writer downloads on a copy stream of its own: the
+reuse of a dropped tile safe.  An fp32 tile goes up straight from its
+pin-cache buffer, which the producer has the cache page-lock first
+(`device.is_whole`), so the upload is a DMA and leaves the stream soon;
+the device LRU forgets each tile after the last step that reads it.  The
+writer downloads on a copy stream of its own: the
 main thread hands each finished block on with an event recorded behind
 its last K1 launch (`device.Finished`), the copy stream waits on that
 event alone, and the block goes down in runs of rows through the
@@ -100,6 +103,13 @@ class HbmCache:
         self._used += nbytes
         METRICS.add("hbm.miss")
         return arr
+
+    def drop(self, key):
+        """Forget `key`'s tile, which no later step reads; a consumer
+        queued in the pipeline keeps its own reference."""
+        hit = self._map.pop(key, None)
+        if hit is not None:
+            self._used -= hit[1]
 
     def clear(self):
         self._map.clear()
@@ -438,6 +448,19 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
         return (_prep(a, a_access, i * sb, l * sb, bi, bl),
                 _prep(b, b_access, l * sb, j * sb, bl, bj))
 
+    def step_keys(i, j, l):
+        bi, bj, bl = tile_dims(i, j, l)
+        return [(store_uid(arr.store),) + fn(r0, c0, d0, d1)[0]
+                for arr, fn, r0, c0, d0, d1 in (
+                    (a, a_access, i * sb, l * sb, bi, bl),
+                    (b, b_access, l * sb, j * sb, bl, bj))]
+
+    # the last step that reads each operand tile: the producer drops the
+    # tile from the device LRU there, so the call holds on the device only
+    # tiles it reads again while finished C blocks wait for the writer
+    last_read = {key: idx for idx, step in enumerate(steps)
+                 for key in step_keys(*step)}
+
     def _unpin(desc):
         if desc[0] == "pin":
             cache.unpin(desc[6])
@@ -499,7 +522,8 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                 with METRICS.span("gemm.disk_wait"):
                     cache.wait_ready(pin)
                 with METRICS.span("gemm.prep"):
-                    host = cache.buf(pin).view(a.dtype).reshape(st_shape)
+                    buf = cache.buf(pin)
+                    host = buf.view(a.dtype).reshape(st_shape)
                     scale = None
                     if xfer_bf16:
                         # round on the host so half the bytes cross the
@@ -510,6 +534,8 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                         # K1 sums the products exactly and rescales once
                         host, scale = quantize_i8(host)
                     padded = pad_to(host, (sb, sb))
+                if dev.is_whole(padded, buf):
+                    cache.lock(pin)  # the upload then reads it by DMA
                 # to_device returns only once the pinned buffer has been
                 # read, so the caller may unpin right after
                 arr = upload(padded, bf16=xfer_bf16)
@@ -532,6 +558,9 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                         pinned.append(pin_pair(idx + depth))
                     a_dev = get_dev(da)
                     b_dev = get_dev(db)
+                    for desc in (da, db):
+                        if last_read[desc[1]] == idx:
+                            hbm.drop(desc[1])
                 finally:
                     _unpin(da)  # release current-step pins even on error
                     _unpin(db)

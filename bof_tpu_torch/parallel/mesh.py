@@ -654,13 +654,19 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                                 seq_b.get(pidx)
                                 seq_b.done(pidx)
                     else:
-                        a_host, sa = _xfer(seq_a.get(idx).view(
-                            a.dtype).reshape(a_specs[idx][1]))
+                        a_buf = seq_a.get(idx)
+                        a_host, sa = _xfer(a_buf.view(a.dtype).reshape(
+                            a_specs[idx][1]))
                         a_host = pad(a_host, (sb, sb))[box_a]
+                        if dev.is_whole(a_host, a_buf):
+                            seq_a.lock(idx)  # uploaded by DMA
                         if b_dev is None:
-                            b_host, sb_s = _xfer(seq_b.get(idx).view(
+                            b_buf = seq_b.get(idx)
+                            b_host, sb_s = _xfer(b_buf.view(
                                 b.dtype).reshape(b_shp))
                             b_host = pad(b_host, (sb, sb))[box_b]
+                            if dev.is_whole(b_host, b_buf):
+                                seq_b.lock(idx)
                         else:
                             seq_b.get(idx)  # keep the seq in lockstep
                             METRICS.add("gemm_sharded.b_hbm_hits")

@@ -371,6 +371,69 @@ def test_gemm_downloads_c_through_the_pinned_ring(cuda_device, tmp_path,
         0.5 * (a.astype(np.float64) @ b), rtol=2e-4, atol=2e-3)
 
 
+def _record_uploads(monkeypatch):
+    """Wrap `to_device`: the list gets (bytes, source page-locked) of
+    every upload from now on."""
+    from bof_tpu_torch.ops import device as dev
+    seen = []
+    real = dev.to_device
+
+    def recording(x, device):
+        src = torch.from_numpy(np.ascontiguousarray(x))
+        seen.append((src.nbytes, src.is_pinned()))
+        return real(x, device)
+
+    monkeypatch.setattr(dev, "to_device", recording)
+    return seen
+
+
+def test_gemm_uploads_cached_tiles_page_locked(cuda_device, tmp_path,
+                                               monkeypatch):
+    """A gemm of 2 x 2 x 2 blocks from files whose Program Cache holds
+    every tile, called twice: on the second call every upload reads a
+    page-locked source (`h2d.locked_bytes` == `h2d.bytes`), each tile's
+    buffer was locked once over both calls, and C is byte-equal to the
+    first call's."""
+    from bof_tpu_torch.utils import METRICS
+    m = n = k = 2048
+    blk = 1024
+    rng = np.random.default_rng(20)
+    a = rng.standard_normal((m, k), dtype=np.float32)
+    b = rng.standard_normal((k, n), dtype=np.float32)
+    a.tofile(str(tmp_path / "A"))
+    b.tofile(str(tmp_path / "B"))
+    seen = _record_uploads(monkeypatch)
+    ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+        device="cuda", scratch_dir=str(tmp_path / "s"),
+        io_backend="native", program_budget=256 << 20))
+    try:
+        A = bof_tpu_torch.map_array(str(tmp_path / "A"), (m, k), np.float32,
+                                    ctx=ctx)
+        B = bof_tpu_torch.map_array(str(tmp_path / "B"), (k, n), np.float32,
+                                    ctx=ctx)
+        out = []
+        for _ in range(2):
+            C = bof_tpu_torch.mem_array((m, n), np.float32, ctx=ctx)
+            seen.clear()
+            h0 = (METRICS.get("h2d.bytes"), METRICS.get("h2d.locked_bytes"))
+            bof_tpu_torch.gemm(A, B, C, alpha=0.5, blk=blk, ctx=ctx)
+            moved = (METRICS.get("h2d.bytes") - h0[0],
+                     METRICS.get("h2d.locked_bytes") - h0[1])
+            out.append(C.read_all().tobytes())
+        stats = ctx.pin_cache_stats()
+    finally:
+        ctx.destroy()
+    tile = blk * blk * 4
+    assert moved[0] == moved[1] and moved[0] >= 8 * tile
+    assert seen and all(pinned for _, pinned in seen), seen
+    assert stats["misses"] == stats["locks"] == 8
+    assert stats["lock_fails"] == 0
+    assert out[0] == out[1]
+    np.testing.assert_allclose(
+        np.frombuffer(out[1], np.float32).reshape(m, n),
+        0.5 * (a.astype(np.float64) @ b), rtol=2e-4, atol=2e-3)
+
+
 @pytest.mark.parametrize("order,ta,tb", [("R", "N", "N"), ("C", "T", "N")])
 def test_gemm_on_card_matches_cpu(cuda_device, tmp_path, order, ta, tb):
     """The whole pipeline through K1 against the same files on the CPU,
@@ -1342,6 +1405,50 @@ def test_xml_rank_on_card_matches_cpu(cuda_device, tmp_path):
     apart[:, 1:] &= d
     apart[:, :-1] &= d
     np.testing.assert_array_equal(gl[apart], wl[apart])
+
+
+def test_xml_rank_uploads_w_panels_page_locked(cuda_device, tmp_path,
+                                              monkeypatch):
+    """The fused XML path with W (fp32, in a file) in a Program Cache
+    that holds it, called twice: on the second call each W panel goes up
+    from a page-locked source and their bytes are all that
+    `h2d.locked_bytes` counts (the ELL bands and the mask are fresh
+    arrays), each panel's buffer was locked once, and the scores and
+    labels are byte-equal to the first call's."""
+    import scipy.sparse as sps
+
+    from bof_tpu_torch.utils import METRICS
+    rng = np.random.default_rng(22)
+    docs, vocab, n_labels, k, panel = 900, 3001, 200, 5, 64
+    a_sp = sps.random(docs, vocab, density=0.02, format="csr",
+                      dtype=np.float32, random_state=np.random.RandomState(3))
+    w = rng.standard_normal((n_labels, vocab), dtype=np.float32)
+    w.tofile(str(tmp_path / "W"))
+    seen = _record_uploads(monkeypatch)
+    ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+        device="cuda", scratch_dir=str(tmp_path / "s"), io_backend="native",
+        max_nnzs=4096, program_budget=64 << 20))
+    try:
+        A = bof_tpu_torch.CsrFlashMatrix.from_scipy(a_sp, ctx=ctx)
+        W = bof_tpu_torch.map_array(str(tmp_path / "W"), w.shape,
+                                    np.float32, ctx=ctx)
+        out = []
+        for _ in range(2):
+            seen.clear()
+            locked0 = METRICS.get("h2d.locked_bytes")
+            s, l = bof_tpu_torch.xml_rank(A, W, k, label_blk=panel,
+                                          fused=True, ctx=ctx)
+            locked = METRICS.get("h2d.locked_bytes") - locked0
+            out.append((s.read_all().tobytes(), l.read_all().tobytes()))
+        stats = ctx.pin_cache_stats()
+    finally:
+        ctx.destroy()
+    panels = [min(panel, n_labels - b0) * vocab * 4
+              for b0 in range(0, n_labels, panel)]
+    assert locked == w.nbytes
+    assert sorted(nb for nb, pinned in seen if pinned) == sorted(panels)
+    assert stats["locks"] == len(panels) and stats["lock_fails"] == 0
+    assert out[0] == out[1]
 
 
 def test_eigensolver_on_card_matches_cpu(cuda_device, tmp_path):

@@ -102,11 +102,27 @@ def test_native_engine_builds_outside_the_reference_package():
     assert os.path.basename(so).startswith("libbof_io-")
 
 
+def _reference_lines(lines):
+    """The lines of a port's native source that are the reference's: those
+    of the pin cache's `read_bytes` counter and of the port's additions
+    (a line marked `// port`, a block from `// port {` to `// port }`)
+    taken out."""
+    kept, block = [], False
+    for x in lines:
+        if b"// port {" in x:
+            block = True
+        elif b"// port }" in x:
+            block = False
+        elif not block and b"read_bytes" not in x and b"// port" not in x:
+            kept.append(x)
+    return b"".join(kept)
+
+
 def test_native_engine_source_is_the_ports_own_copy():
     """The engine builds from sources inside bof_tpu_torch/, which are
     the reference's, byte for byte, but for the pin cache's `read_bytes`
-    counter: its lines taken out, the port's bof_cache.inc is the
-    reference's."""
+    counter and the port's marked additions (page-locking): those taken
+    out, the port's bof_cache.inc is the reference's."""
     from bof_tpu_torch.io import native
     ref_dir = os.path.join(REPO, "bof_tpu", "native")
     for path in (native._SRC, native._INC):
@@ -114,9 +130,10 @@ def test_native_engine_source_is_the_ports_own_copy():
             os.path.realpath(PKG) + os.sep), path
         with open(path, "rb") as f, open(os.path.join(
                 ref_dir, os.path.basename(path)), "rb") as g:
-            lines = f.read().splitlines(keepends=True)
-            assert b"".join(x for x in lines if b"read_bytes" not in x) \
-                == g.read(), path
+            ref = g.read()
+            assert b"// port" not in ref
+            assert _reference_lines(f.read().splitlines(keepends=True)) \
+                == ref, path
 
 
 def test_sparse_slice_imports_neither_jax_nor_ml_dtypes():
