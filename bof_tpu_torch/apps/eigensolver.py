@@ -97,11 +97,11 @@ def _one_pass_stream(a: CsrFlashMatrix, v_np: np.ndarray, ctx, device,
     nnz-budgeted row blocks, band each block's rows by count (count-sorted
     ELL banding), transpose each band on the host (block-local CSC; the
     block is already in DRAM) and band its columns the same way.  Per
-    band, `fwd_product(v_dev, ja, va, counts)` gives W_sub = A_sub V on
-    the card (a row a band row, padding rows past them ignored), and per
-    column band `t_product(w, cja, cva, ccounts)` gives (lo, hi, u) with u
-    the float64 host rows of A_sub^T W_sub for the band's columns
-    [lo, hi), folded into the float64 U on the host.  `finalize(U)` (the
+    band (an `EllBand`), `fwd_product(v_dev, band)` gives W_sub = A_sub V
+    on the card (a row a band row, padding rows past them ignored), and
+    per column band `t_product(w, cband)` gives (lo, hi, u) with u the
+    float64 host rows of A_sub^T W_sub for the band's columns [lo, hi),
+    folded into the float64 U on the host.  `finalize(U)` (the
     identity by default) is the operator's value.  Host prep time goes to
     `eig.prep_s`, the wait for A's blocks to `eig.disk_wait_s`."""
     import scipy.sparse as sps
@@ -127,56 +127,55 @@ def _one_pass_stream(a: CsrFlashMatrix, v_np: np.ndarray, ctx, device,
         counts = np.diff(blk_ia)
         # forward rows band by nnz; the transposed build selects the
         # same rows so its indices line up with W's row order
-        order = (np.argsort(counts, kind="stable") if sort_rows
-                 else np.arange(e - r))
+        order, ranges = sdev.band_plan(counts, entry_cap, sort_rows)
         blk_sp = sps.csr_matrix(
             (va_blk, ja_blk.astype(np.int64), blk_ia.astype(np.int64)),
             shape=(e - r, k))
         t0 = time.perf_counter()
-        for s0, s1 in sdev.ell_row_ranges(counts[order], entry_cap):
+        for s0, s1 in ranges:
             rows_sel = order[s0:s1]
-            n_sel = len(rows_sel)
-            ja_e, va_e = sdev.to_ell_rows(blk_ia, ja_blk, va_blk,
-                                          rows_sel, idx_dtype=fwd_idt,
-                                          counts=counts)
+            band = sdev.build_band(blk_ia, ja_blk, va_blk, rows_sel, counts,
+                                   fwd_idt)
             METRICS.add("eig.prep_s", time.perf_counter() - t0)
-            w = fwd_product(v_dev, ja_e[:n_sel], va_e[:n_sel],
-                            counts[rows_sel].astype(np.int32))
+            w = fwd_product(v_dev, band)
             # transpose the selected rows in DRAM; the CSC's row indices
-            # are positions within rows_sel, exactly W's rows (W has at
-            # least n_sel rows, so every index is below its height)
+            # are positions within rows_sel, exactly W's rows (W has a
+            # row for each, so every index is below its height).  Its
+            # columns always band sorted
             t0 = time.perf_counter()
             sub = blk_sp[rows_sel].tocsc()
             ccounts = np.diff(sub.indptr)
-            csort = np.argsort(ccounts, kind="stable")
-            t_idt = sdev.ell_idx_dtype(n_sel, narrow)
-            for c0, c1 in sdev.ell_row_ranges(ccounts[csort], entry_cap):
-                cols_sel = csort[c0:c1]
-                n_cols = len(cols_sel)
-                cja, cva = sdev.to_ell_rows(
-                    sub.indptr.astype(np.int64), sub.indices, sub.data,
-                    cols_sel, idx_dtype=t_idt, counts=ccounts)
+            csort, cranges = sdev.band_plan(ccounts, entry_cap)
+            t_idt = sdev.ell_idx_dtype(len(rows_sel), narrow)
+            for c0, c1 in cranges:
+                cband = sdev.build_band(sub.indptr.astype(np.int64),
+                                        sub.indices, sub.data, csort[c0:c1],
+                                        ccounts, t_idt)
                 METRICS.add("eig.prep_s", time.perf_counter() - t0)
-                lo, hi, u_np = t_product(w, cja[:n_cols], cva[:n_cols],
-                                         ccounts[cols_sel].astype(np.int32))
-                U[cols_sel[lo:hi]] += u_np
+                lo, hi, u_np = t_product(w, cband)
+                U[cband.rows[lo:hi]] += u_np
                 t0 = time.perf_counter()
         t_wait = time.perf_counter()
     METRICS.add("eig.op_applies")
     return U if finalize is None else finalize(U)
 
 
-def _ell_product(panel, ja, va, counts, device, impl):
-    """One ELL product (K2) of exactly the rows of ja/va on `device`."""
+def _upload(band, device, lo, hi):
+    """Rows [lo, hi) of a band on `device`; the host folds the results."""
     from ..sparse import spmm_device as sdev
     t0 = time.perf_counter()
-    ja_d = dev.to_device(ja, device)
-    va_d = dev.to_device(va, device)
-    counts_d = dev.to_device(counts, device)
+    up = sdev.upload_band(band, device, lo, hi, with_rows=False)
     METRICS.add("eig.h2d_s", time.perf_counter() - t0)
-    METRICS.add("eig.h2d_bytes", ja.nbytes + va.nbytes + counts.nbytes)
-    return sdev.spmm_ell_block_dispatch(panel, ja_d, va_d, impl,
-                                        counts=counts_d)
+    METRICS.add("eig.h2d_bytes", up.nbytes)
+    return up
+
+
+def _ell_product(panel, band, device, impl):
+    """One ELL product (K2) of exactly a band's rows on `device`."""
+    from ..sparse import spmm_device as sdev
+    up = _upload(band, device, 0, len(band.counts))
+    return sdev.spmm_ell_block_dispatch(panel, up.ja, up.va, impl,
+                                        counts=up.counts)
 
 
 def _download_u(u_part) -> np.ndarray:
@@ -197,11 +196,11 @@ def _apply_ata_one_pass_device(a: CsrFlashMatrix, v_np: np.ndarray,
     device = dev.resolve_device(ctx.config.device)
     impl = getattr(ctx.config, "sparse_device_impl", "auto")
 
-    def fwd(v_dev, ja, va, counts):
-        return _ell_product(v_dev, ja, va, counts, device, impl)
+    def fwd(v_dev, band):
+        return _ell_product(v_dev, band, device, impl)
 
-    def trans(w, cja, cva, ccounts):
-        u = _download_u(_ell_product(w, cja, cva, ccounts, device, impl))
+    def trans(w, cband):
+        u = _download_u(_ell_product(w, cband, device, impl))
         return 0, len(u), u
 
     return _one_pass_stream(a, v_np, ctx, device, fwd, trans)
@@ -245,29 +244,24 @@ def _apply_ata_one_pass_sharded(a: CsrFlashMatrix, v_np: np.ndarray,
     step = sharded_spmm_step(mesh)
     replicate = _replicate_step(mesh)
 
-    def own(ja, va, counts):
+    def own(band):
         """This rank's run [lo, hi) of the band's rows, on the card."""
-        lo, hi, run = pmesh.row_run(mesh, len(counts))
-        t0 = time.perf_counter()
-        parts = [dev.to_device(x[lo:hi], device) for x in (ja, va, counts)]
-        METRICS.add("eig.h2d_s", time.perf_counter() - t0)
-        METRICS.add("eig.h2d_bytes", sum(x[lo:hi].nbytes
-                                         for x in (ja, va, counts)))
-        return lo, hi, run, parts
+        lo, hi, run = pmesh.row_run(mesh, len(band.counts))
+        return lo, hi, run, _upload(band, device, lo, hi)
 
-    def fwd(v_dev, ja, va, counts):
-        lo, hi, run, (ja_d, va_d, cnt_d) = own(ja, va, counts)
+    def fwd(v_dev, band):
+        lo, hi, run, up = own(band)
         w_loc = torch.zeros((run, v_dev.shape[1]), dtype=torch.float32,
                             device=device)
         if hi > lo:
-            w_loc[:hi - lo] = step(v_dev, ja_d, va_d, cnt_d)
+            w_loc[:hi - lo] = step(v_dev, up.ja, up.va, up.counts)
         return replicate(w_loc)  # the band's W, whole on every rank
 
-    def trans(w, cja, cva, ccounts):
-        lo, hi, _, (ja_d, va_d, cnt_d) = own(cja, cva, ccounts)
+    def trans(w, cband):
+        lo, hi, _, up = own(cband)
         if hi <= lo:
             return lo, lo, np.zeros((0, w.shape[1]), np.float64)
-        return lo, hi, _download_u(step(w, ja_d, va_d, cnt_d))
+        return lo, hi, _download_u(step(w, up.ja, up.va, up.counts))
 
     def finalize(U):
         u_dev = dev.to_device(U, device)

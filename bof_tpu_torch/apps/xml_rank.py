@@ -44,7 +44,6 @@ from ..core.flash_array import FlashArray, flash_empty, flash_free
 from ..ops import device as dev
 from ..ops.topk_cuda import row_topk
 from ..sparse import CsrFlashMatrix, csrmm
-from ..sparse.csrmm import ell_bands
 from ..utils import LOG, METRICS, Timer
 
 
@@ -216,40 +215,39 @@ def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
             for r, e, ja_blk, va_blk in stream_row_blocks(
                     a, ia_np, blocks, ctx, wait_span="xml_rank.disk_wait"):
                 with METRICS.span("xml_rank.prep"):
-                    # csrmm's count-sorted ELL bands; results stage per
-                    # block so the top-k merge stays a contiguous panel
-                    # write
-                    bands = ell_bands(ia_np[r:e + 1] - int(ia_np[r]),
-                                      ja_blk, va_blk, entry_cap, cfg,
-                                      ell_idt, ell_vdt)
+                    # the count-sorted ELL bands; results stage per block
+                    # so the top-k merge stays a contiguous panel write
+                    bands = sdev.ell_bands(ia_np[r:e + 1] - int(ia_np[r]),
+                                           ja_blk, va_blk, entry_cap, cfg,
+                                           ell_idt, ell_vdt)
                 s_stage = np.empty((e - r, k), np.float32)
                 l_stage = np.empty((e - r, k), np.int32)
-                for rows_sel, cnt, ja_ell, va_ell in bands:
-                    n_sel = len(rows_sel)
+                for band in bands:
+                    n_sel = len(band.rows)
                     lo, hi = 0, n_sel
                     if mesh is not None:
                         lo, hi, run = pmesh.row_run(mesh, n_sel)
                     with METRICS.span("xml_rank.h2d") as sp:
-                        ja_d = dev.to_device(ja_ell[lo:hi], device)
-                        va_d, _, va_bytes = sdev.upload_ell_vals(
-                            va_ell[lo:hi], device)
-                        cnt_d = dev.to_device(cnt[lo:hi], device)
-                        sp.nbytes = ja_d.nbytes + va_bytes + cnt_d.nbytes
+                        # B8 writes a band row's top-k, placed on the host
+                        up = sdev.upload_band(band, device, lo, hi,
+                                              with_rows=False)
+                        sp.nbytes = up.nbytes
                     with METRICS.span("xml_rank.dispatch"):
                         if mesh is None:
-                            vals, idx = _topk_step(b_panel, ja_d, va_d,
-                                                   cnt_d, mask_dev, k)
+                            vals, idx = _topk_step(b_panel, up.ja, up.va,
+                                                   up.counts, mask_dev, k)
                         else:
                             vals, idx = _topk_band_sharded(
-                                mesh, b_panel, ja_d, va_d, cnt_d, mask_dev,
-                                k, run)
+                                mesh, b_panel, up.ja, up.va, up.counts,
+                                mask_dev, k, run)
+                    del up
                     with METRICS.span("xml_rank.d2h") as sp:
                         # waits for K2 and B8
                         vals_np = dev.from_device(vals)[:n_sel]
                         idx_np = dev.from_device(idx)[:n_sel]
                         sp.nbytes = vals_np.nbytes + idx_np.nbytes
-                    s_stage[rows_sel] = vals_np
-                    l_stage[rows_sel] = idx_np + b0
+                    s_stage[band.rows] = vals_np
+                    l_stage[band.rows] = idx_np + b0
                 if merges:
                     with METRICS.span("xml_rank.merge"):
                         _merge_topk(scores, labels, r, s_stage, l_stage, k,

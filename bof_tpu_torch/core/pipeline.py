@@ -5,10 +5,10 @@ pinned ahead in the tile cache so disk I/O overlaps with device compute —
 the planner-side expression of the reference's prefetch pipeline (the
 Prioritizer+backlog machinery services the pins).  `TicketWindow` bounds
 the async writes in flight.  `queue_put`, `queue_put_sentinel`,
-`queue_items` and `join_threads` are the stage threads' one shutdown
-protocol: bounded, timed queues and a shared error list.  A get or put on
-a pipeline queue runs inside the span its caller names (METRICS.span,
-`<entry>.queue_wait`): one stage waiting on another.
+`queue_items`, `run_stage` and `join_threads` are the stage threads' one
+shutdown protocol: bounded, timed queues and a shared error list.  A get
+or put on a pipeline queue runs inside the span its caller names
+(METRICS.span, `<entry>.queue_wait`): one stage waiting on another.
 """
 from __future__ import annotations
 
@@ -163,6 +163,17 @@ def queue_items(q, errors, span: Optional[str] = None):
         # popped, not bound: the consumer alone holds the item (and may
         # drop a device buffer in it before the next get)
         yield box.pop()
+
+
+def run_stage(stage, errors, out_q=None) -> None:
+    """A stage thread's body: `stage()`, its exception recorded in
+    `errors`, then its out-queue (if any) ended, whatever happened."""
+    try:
+        stage()
+    except BaseException as e:
+        errors.append(e)
+    if out_q is not None:
+        queue_put_sentinel(out_q, errors)
 
 
 def join_threads(threads, errors) -> None:

@@ -50,6 +50,7 @@ once and rejects a non-finite value, as bof_tpu's `gemm64` does.
 from __future__ import annotations
 
 import collections
+import functools
 import os
 import queue
 import threading
@@ -60,8 +61,9 @@ import numpy as np
 from ..context import get_context
 from ..core.flash_array import FlashArray
 from ..core.pipeline import (join_threads, queue_items, queue_put,
-                             queue_put_sentinel)
-from ..io.native import bf16_to_f32, cast_bf16, quantize_i8
+                             queue_put_sentinel, run_stage)
+from ..io.native import (bf16_to_f32, cast_bf16, quantize_i8,
+                         quantize_i8_with_amax)
 from ..utils import LOG, METRICS, cdiv
 from . import device as dev
 
@@ -230,6 +232,82 @@ def _check_finite(arr: FlashArray, access, outer: int, inner: int, sb: int,
                 cache.unpin(pin)
 
 
+# ---- the per-step stages of `gemm` and `parallel.mesh.gemm_sharded`
+
+def pad_to(mat: np.ndarray, full_shape) -> np.ndarray:
+    """`mat` zero-padded at its ends to `full_shape`."""
+    if mat.shape == full_shape:
+        return mat
+    out = np.zeros(full_shape, mat.dtype)
+    out[:mat.shape[0], :mat.shape[1]] = mat
+    return out
+
+
+def tile_extent(sb: int, m: int, n: int, k: int, i: int, j: int, l: int):
+    """(bi, bj, bl): the real extent of step (i, j, l)'s tiles at block
+    size `sb` in an (m, n, k) product; the tiles are padded to sb."""
+    return min(sb, m - i * sb), min(sb, n - j * sb), min(sb, k - l * sb)
+
+
+def link_round(host: np.ndarray, mode: str, amax=None):
+    """(array, scale): a tile (or a rank's shard of it, quantized with the
+    whole tile's max `amax`) rounded for the link in the transfer mode
+    `mode`: bf16 bits, int8 with one max-abs scale, or as it is.  The
+    rounding functions are looked up in this module at call time."""
+    if mode == "bfloat16":
+        return cast_bf16(host), None
+    if mode == "int8":
+        if amax is None:
+            return quantize_i8(host)
+        return quantize_i8_with_amax(host, amax)
+    return host, None
+
+
+def link_upload(host: np.ndarray, device, bf16: bool = False):
+    """A rounded tile to the device; `bf16`: it holds bf16 bits."""
+    return (dev.to_device_bf16(host, device) if bf16
+            else dev.to_device(host, device))
+
+
+class BlockAccumulator:
+    """A C block's (or a rank's shard's) device accumulator over its K
+    loop: `start(c_init)` (C on the device, scaled by beta in place; None
+    when beta == 0), `accum` a step through the caller's `step(c, a, b,
+    alpha)`, or int8's `step_q(c, a_q, b_q, alpha * s_a * s_b)`, and
+    `finish`.  float64 adds beta * C in `finish`, after the K loop, as
+    bof_tpu's gemm64 does; fp32 starts from it, as its accum_step does."""
+
+    def __init__(self, shape, device, dtype, alpha: float, beta: float,
+                 step, step_q=None):
+        self.shape, self.device, self.dtype = shape, device, dtype
+        self.alpha = alpha
+        # alpha and beta in C's dtype, as bof_tpu passes them
+        self.alpha_s = float(np.dtype(dtype).type(alpha))
+        self.beta_s = float(np.dtype(dtype).type(beta))
+        self.late_beta = np.dtype(dtype) == np.float64
+        self.step, self.step_q = step, step_q
+
+    def start(self, c_init):
+        if c_init is None:
+            return dev.zeros_block(self.shape, self.device, self.dtype)
+        c0 = dev.scale_init(c_init, self.beta_s)
+        if not self.late_beta:
+            return c0
+        return dev.zeros_block(self.shape, self.device, self.dtype), c0
+
+    def accum(self, c_dev, a_dev, b_dev):
+        if isinstance(c_dev, tuple):  # (the K loop's sum, beta * C)
+            return self.accum(c_dev[0], a_dev, b_dev), c_dev[1]
+        if self.step_q is not None:
+            (a_q, sa), (b_q, sb) = a_dev, b_dev
+            return self.step_q(c_dev, a_q, b_q,
+                               float(np.float32(self.alpha * sa * sb)))
+        return self.step(c_dev, a_dev, b_dev, self.alpha_s)
+
+    def finish(self, c_dev):
+        return c_dev[0].add_(c_dev[1]) if isinstance(c_dev, tuple) else c_dev
+
+
 def _superblock_pipeline(steps, kB: int, depth: int, produce, start, accum,
                          write_all, name: str) -> None:
     """The threaded pipeline of both out-of-core gemms (`gemm` here and
@@ -259,23 +337,15 @@ def _superblock_pipeline(steps, kB: int, depth: int, produce, start, accum,
     queue_wait, accum_span = name + ".queue_wait", name + ".accum"
 
     def producer():
-        try:
-            produce(lambda item: queue_put(tile_q, item, errors, queue_wait))
-        except BaseException as e:  # pragma: no cover
-            errors.append(e)
-            try:
-                tile_q.put_nowait(None)
-            except queue.Full:
-                pass
+        produce(lambda item: queue_put(tile_q, item, errors, queue_wait))
 
     def writer():
-        try:
-            write_all(queue_items(write_q, errors, queue_wait))
-        except BaseException as e:  # pragma: no cover
-            errors.append(e)
+        write_all(queue_items(write_q, errors, queue_wait))
 
-    threads = [threading.Thread(target=producer, daemon=True),
-               threading.Thread(target=writer, daemon=True)]
+    threads = [threading.Thread(target=run_stage, args=(producer, errors,
+                                                        tile_q), daemon=True),
+               threading.Thread(target=run_stage, args=(writer, errors),
+                                daemon=True)]
     for t in threads:
         t.start()
     c_live: dict = {}  # j -> device accumulator for the current i sweep
@@ -365,8 +435,8 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
     b_access, b_nk = _op_block_reader(b, tb)  # storage is (n,k)-major?
     c_nm = c.order == "C"
     prec = cfg.matmul_precision
-    xfer_bf16 = cfg.transfer_dtype == "bfloat16"
-    xfer_int8 = cfg.transfer_dtype == "int8"
+    xfer_mode = cfg.transfer_dtype
+    xfer_bf16 = xfer_mode == "bfloat16"
     c_xfer_bf16 = cfg.c_transfer_dtype == "bfloat16"
 
     cache = ctx.pin_cache()
@@ -423,8 +493,7 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
             journal_f.write(header + "\n")
             journal_f.flush()
 
-    def tile_dims(i, j, l):
-        return min(sb, m - i * sb), min(sb, n - j * sb), min(sb, k - l * sb)
+    extent = functools.partial(tile_extent, sb, m, n, k)
 
     from ..io.store import store_uid
 
@@ -444,12 +513,12 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
 
     def pin_pair(idx):
         i, j, l = steps[idx]
-        bi, bj, bl = tile_dims(i, j, l)
+        bi, bj, bl = extent(i, j, l)
         return (_prep(a, a_access, i * sb, l * sb, bi, bl),
                 _prep(b, b_access, l * sb, j * sb, bl, bj))
 
     def step_keys(i, j, l):
-        bi, bj, bl = tile_dims(i, j, l)
+        bi, bj, bl = extent(i, j, l)
         return [(store_uid(arr.store),) + fn(r0, c0, d0, d1)[0]
                 for arr, fn, r0, c0, d0, d1 in (
                     (a, a_access, i * sb, l * sb, bi, bl),
@@ -465,20 +534,12 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
         if desc[0] == "pin":
             cache.unpin(desc[6])
 
-    def pad_to(mat: np.ndarray, full_shape) -> np.ndarray:
-        if mat.shape == full_shape:
-            return mat
-        out = np.zeros(full_shape, mat.dtype)
-        out[:mat.shape[0], :mat.shape[1]] = mat
-        return out
-
     def upload(host: np.ndarray, bf16: bool = False):
         """Host -> device copy (`bf16`: of bf16 bits); with telemetry_sync
         the device is drained inside the window so the rate sample is a
         transfer rate."""
         with METRICS.span("gemm.h2d") as sp:
-            arr = (dev.to_device_bf16(host, device) if bf16
-                   else dev.to_device(host, device))
+            arr = link_upload(host, device, bf16)
             if sync_mode:
                 dev.sync(arr)
             sp.nbytes = arr.nbytes
@@ -523,16 +584,8 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                     cache.wait_ready(pin)
                 with METRICS.span("gemm.prep"):
                     buf = cache.buf(pin)
-                    host = buf.view(a.dtype).reshape(st_shape)
-                    scale = None
-                    if xfer_bf16:
-                        # round on the host so half the bytes cross the
-                        # link
-                        host = cast_bf16(host)
-                    elif xfer_int8:
-                        # per-tile max-abs int8: a quarter of the bytes;
-                        # K1 sums the products exactly and rescales once
-                        host, scale = quantize_i8(host)
+                    host, scale = link_round(
+                        buf.view(a.dtype).reshape(st_shape), xfer_mode)
                     padded = pad_to(host, (sb, sb))
                 if dev.is_whole(padded, buf):
                     cache.lock(pin)  # the upload then reads it by DMA
@@ -543,7 +596,7 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                 return hbm.put(hkey, value, arr.nbytes)
 
             for idx, (i, j, l) in enumerate(steps):
-                bi, bj, bl = tile_dims(i, j, l)
+                bi, bj, bl = extent(i, j, l)
                 c_init = None
                 if l == 0 and beta != 0.0:
                     # read+pad only: the upload is gemm.h2d
@@ -573,13 +626,22 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                 _unpin(da)
                 _unpin(db)
 
+    # K1's steps, looked up in ops/device.py at each call
+    def step(c_dev, a_dev, b_dev, alpha_s):
+        return dev.accum_step(c_dev, a_dev, b_dev, alpha_s, a_km=a_km,
+                              b_nk=b_nk, c_nm=c_nm, prec=prec)
+
+    def step_q(c_dev, a_q, b_q, scale):
+        return dev.accum_step_q(c_dev, a_q, b_q, scale, a_km=a_km,
+                                b_nk=b_nk, c_nm=c_nm)
+
+    acc = BlockAccumulator(c_full_storage, device, c.dtype, alpha, beta,
+                           step, step_q if xfer_mode == "int8" else None)
+
     def finish(c_dev):
-        """A finished block as it goes down, on the ring's copy stream:
-        float64's beta * C added, c_transfer_dtype='bfloat16''s rounding
-        (on the device, so half the bytes cross the link; the
-        accumulation ran in fp32)."""
-        if isinstance(c_dev, tuple):
-            c_dev = c_dev[0].add_(c_dev[1])
+        """A finished block as it goes down (the ring's copy stream), in
+        bf16 with c_transfer_dtype='bfloat16': half the bytes cross."""
+        c_dev = acc.finish(c_dev)
         return dev.to_bf16(c_dev) if c_xfer_bf16 else c_dev
 
     def write_all(blocks):
@@ -587,7 +649,7 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
         write_tickets = TicketWindow(depth=8, span="gemm.write_wait")
         ring = ctx.d2h_ring(device)
         for i, j, fin in blocks:
-            bi, bj, _ = tile_dims(i, j, 0)
+            bi, bj, _ = extent(i, j, 0)
             # tile-major C stores the full padded tile — hand whole rows
             # of it over instead of slicing the logical tail
             lines, width = ((sb, sb) if c_tiled
@@ -629,39 +691,9 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
         # disk-bound write stalls are not under-reported
         write_tickets.wait_all()
 
-    # alpha and beta in C's dtype, as bof_tpu passes them
-    alpha_s = float(np.dtype(c.dtype).type(alpha))
-    beta_s = float(np.dtype(c.dtype).type(beta))
-
-    # float64 adds beta * C once the K loop is done, as bof_tpu's gemm64
-    # does (alpha * A B + beta * C): the accumulator starts at zero and
-    # carries the scaled C to the writer.  fp32 starts from beta * C, as
-    # bof_tpu's accum_step does.
-    late_beta = c.dtype == np.float64
-
-    def start(c_init):
-        if c_init is None:
-            return dev.zeros_block(c_full_storage, device, c.dtype)
-        c0 = dev.scale_init(c_init, beta_s)
-        if not late_beta:
-            return c0
-        return dev.zeros_block(c_full_storage, device, c.dtype), c0
-
-    def accum(c_dev, a_dev, b_dev):
-        if isinstance(c_dev, tuple):  # (the K loop's sum, beta * C)
-            return accum(c_dev[0], a_dev, b_dev), c_dev[1]
-        if xfer_int8:
-            (a_q, sa), (b_q, sb_q) = a_dev, b_dev
-            # bof_tpu's scale, computed as it computes it
-            return dev.accum_step_q(
-                c_dev, a_q, b_q, float(np.float32(alpha * sa * sb_q)),
-                a_km=a_km, b_nk=b_nk, c_nm=c_nm)
-        return dev.accum_step(c_dev, a_dev, b_dev, alpha_s, a_km=a_km,
-                              b_nk=b_nk, c_nm=c_nm, prec=prec)
-
     try:
-        _superblock_pipeline(steps, kB, depth, produce, start, accum,
-                             write_all, "gemm")
+        _superblock_pipeline(steps, kB, depth, produce, acc.start,
+                             acc.accum, write_all, "gemm")
     except BaseException:
         if journal_f is not None:
             journal_f.close()  # keep the journal: the next call resumes

@@ -12,10 +12,10 @@ rank runs kernel K2 (`sparse/spmm_cuda.py:spmm_ell`) on its row shard
 against the replicated B panel.
 
 A world of one rank reads whole row blocks and bands their rows by count
-(bof_tpu's single-process path), through the one-card csrmm's own
-`ell_bands` and `spmm_bands`.  In a larger world each rank reads only
-the nnz ranges of its own ELL row shards and writes back only its own C
-rows (bof_tpu's multi-host branch), so the caller's C must be one file
+(bof_tpu's single-process path), through the sparse layer's `ell_bands`
+and the one-card csrmm's `spmm_bands`.  In a larger world each rank reads
+only the nnz ranges of its own ELL row shards and writes back only its own
+C rows (bof_tpu's multi-host branch), so the caller's C must be one file
 every rank sees; a barrier ends the call once every rank's rows are on
 disk.  Every rank computes the same ELL dimensions from the host-resident
 offsets, so the shards agree.
@@ -53,7 +53,7 @@ def csrmm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
     from ..ops import device as dev
     from ..sparse import spmm_device as sdev
     from ..sparse.csr import fill_row_blocks
-    from ..sparse.csrmm import _download_rows, ell_bands, spmm_bands
+    from ..sparse.csrmm import _download_rows, spmm_bands
     from . import mesh as pmesh
 
     ctx = ctx or b.ctx or get_context()
@@ -174,13 +174,13 @@ def csrmm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                             if pidx is not None:
                                 pf.done(pidx)
                                 pf.done(pidx + 1)
-                            nr = hi - lo
-                            va_d, _, _ = sdev.upload_ell_vals(va_e[:nr],
-                                                              device)
-                            out = step(b_dev, dev.to_device(ja_e[:nr], device),
-                                       va_d, dev.to_device(
-                                           np.diff(sub_ia).astype(np.int32),
-                                           device))
+                            up = sdev.upload_band(
+                                sdev.EllBand(None,
+                                             np.diff(sub_ia).astype(np.int32),
+                                             ja_e, va_e),
+                                device, 0, hi - lo, with_rows=False)
+                            out = step(b_dev, up.ja, up.va, up.counts)
+                            del up
                             write_tickets.push(finish(
                                 r + lo, c0, bc, dev.from_device(out)[:, :bc]))
                         continue
@@ -188,9 +188,9 @@ def csrmm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                     # each band's rows of the block's buffer (the per-rank
                     # reads above take contiguous nnz ranges, which sorted,
                     # scattered rows would fragment)
-                    bands = ell_bands(blk_ia, pf.get(2 * bi).view(idt),
-                                      pf.get(2 * bi + 1).view(vdt),
-                                      entry_cap, cfg, ell_idt, ell_vdt)
+                    bands = sdev.ell_bands(blk_ia, pf.get(2 * bi).view(idt),
+                                           pf.get(2 * bi + 1).view(vdt),
+                                           entry_cap, cfg, ell_idt, ell_vdt)
                     out_dev = torch.empty((rows_b, cb), dtype=torch.float32,
                                           device=device)
                     spmm_bands(b_dev, bands, out_dev)

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import functools
 import os
 from typing import NamedTuple, Optional, Tuple
 
@@ -475,13 +476,13 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
     from ..context import get_context
     from ..core.flash_array import check_output_distinct
     from ..core.pipeline import PrefetchSeq, TicketWindow
-    from ..io.native import (cast_bf16, quantize_amax, quantize_i8,
-                             quantize_i8_with_amax)
+    from ..io.native import quantize_amax
     from ..io.store import store_uid
     from ..ops import device as dev
-    from ..ops.gemm import (_check_finite, _check_slice, _op_block_reader,
-                            _storage_shape, _superblock_pipeline,
-                            _write_rows_async)
+    from ..ops.gemm import (BlockAccumulator, _check_finite, _check_slice,
+                            _op_block_reader, _storage_shape,
+                            _superblock_pipeline, _write_rows_async,
+                            link_round, link_upload, pad_to, tile_extent)
     from ..utils import LOG, cdiv
 
     ctx = ctx or c.ctx or get_context()
@@ -530,49 +531,22 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
     b_access, b_nk = _op_block_reader(b, tb)
     c_nm = c.order == "C"
     xfer_mode = cfg.transfer_dtype
+    xfer_bf16 = xfer_mode == "bfloat16"
     xfer_int8 = xfer_mode == "int8"
-    if xfer_int8:
-        step_q = sharded_accum_step_q(mesh, a_km=a_km, b_nk=b_nk, c_nm=c_nm)
-    step = sharded_accum_step(mesh, cfg.matmul_precision, a_km=a_km,
-                              b_nk=b_nk, c_nm=c_nm)
     a_spec, b_spec, c_spec = _specs(a_km, b_nk, c_nm)
     sh_a, sh_b, sh_c = (sharding_for(mesh, s) for s in (a_spec, b_spec,
                                                         c_spec))
     box_a, box_b, box_c = (sh.box((sb, sb)) for sh in (sh_a, sh_b, sh_c))
 
-    def _xfer(host, amax=None):
-        """Round one tile (or shard) for the link; returns (array, scale).
-        A shard quantizes with the whole tile's max (`amax`)."""
-        if xfer_mode == "bfloat16":
-            return cast_bf16(host), None
-        if xfer_int8:
-            if amax is None:
-                return quantize_i8(host)
-            return quantize_i8_with_amax(host, amax)
-        return host, None
-
-    def _upload(host):
-        if xfer_mode == "bfloat16":
-            return dev.to_device_bf16(host, device)
-        return dev.to_device(host, device)
-
-    def pad(mat, shape):
-        if mat.shape == shape:
-            return mat
-        out = np.zeros(shape, mat.dtype)
-        out[:mat.shape[0], :mat.shape[1]] = mat
-        return out
-
     mB, nB, kB = cdiv(m, sb), cdiv(n, sb), cdiv(k, sb)
     steps = [(i, j, l) for j in range(nB) for i in range(mB)
              for l in range(kB)]
 
-    def tile_dims(i, j, l):
-        return min(sb, m - i * sb), min(sb, n - j * sb), min(sb, k - l * sb)
+    extent = functools.partial(tile_extent, sb, m, n, k)
 
     a_specs, b_specs = [], []
     for (i, j, l) in steps:
-        bi, bj, bl = tile_dims(i, j, l)
+        bi, bj, bl = extent(i, j, l)
         (off, si), shp = a_access(i * sb, l * sb, bi, bl)
         a_specs.append(((a.store, off, si), shp))
         (off, si), shp = b_access(l * sb, j * sb, bl, bj)
@@ -594,8 +568,6 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
     if cfg.debug_checks and c.dtype == np.float64:
         _check_finite(a, a_access, m, k, sb, cache)
         _check_finite(b, b_access, k, n, sb, cache)
-    alpha_s = float(np.dtype(c.dtype).type(alpha))
-    beta_s = np.dtype(c.dtype).type(beta)
 
     # device LRU of B shards: with steps ordered j-outer/i-middle/l-inner
     # the B superblock (l, j) recurs for every i.  B is sharded over 'y'
@@ -609,7 +581,6 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
         b_flat: list = []
         a_plan = _shard_read_plan(a_specs, sh_a, sb, itemsize, a_flat)
         b_plan = _shard_read_plan(b_specs, sh_b, sb, itemsize, b_flat)
-    x_isize = {"bfloat16": 2, "int8": 1}.get(xfer_mode, itemsize)
 
     def read_shard(plan, idx, seq, dtype):
         """(this rank's shard of tile idx for the link, its scale)."""
@@ -618,7 +589,16 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
         if xfer_int8:  # the whole tile's max over every rank's shard
             (s0, s1, t0, t1), lines, width, _ = plan[idx]
             amax = host_max(quantize_amax(host[:lines, :width]))
-        return _xfer(host, amax)
+        return link_round(host, xfer_mode, amax)
+
+    def read_tile(seq, idx, dtype, shape, box):
+        """(this rank's box of whole tile idx for the link, its scale)."""
+        buf = seq.get(idx)
+        host, scale = link_round(buf.view(dtype).reshape(shape), xfer_mode)
+        host = pad_to(host, (sb, sb))[box]
+        if dev.is_whole(host, buf):
+            seq.lock(idx)  # it goes up as it stands: by DMA
+        return host, scale
 
     def produce(put):
         seq_a = seq_b = None
@@ -631,16 +611,15 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                 seq_a = PrefetchSeq(cache, [s for s, _ in a_specs], depth)
                 seq_b = PrefetchSeq(cache, [s for s, _ in b_specs], depth)
             for idx, (i, j, l) in enumerate(steps):
-                bi, bj, bl = tile_dims(i, j, l)
+                bi, bj, bl = extent(i, j, l)
                 c_init = None
                 if l == 0 and beta != 0.0:
                     c_host = c.read_block_storage(i * sb, bi, j * sb, bj)
-                    c_init = dev.to_device(
-                        beta_s * pad(c_host, (sb, sb))[box_c], device)
+                    c_init = dev.to_device(pad_to(c_host, (sb, sb))[box_c],
+                                           device)
                 (b_store, b_off, b_si), b_shp = b_specs[idx]
                 b_key = (store_uid(b_store), b_off, b_si)
                 b_dev = b_lru.pop(b_key, None)  # pop+reinsert = LRU touch
-                b_uploaded = b_dev is None
                 with METRICS.span("gemm_sharded.disk_wait"):
                     if sharded_reads:
                         a_host, sa = read_shard(a_plan, idx, seq_a, a.dtype)
@@ -654,30 +633,22 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                                 seq_b.get(pidx)
                                 seq_b.done(pidx)
                     else:
-                        a_buf = seq_a.get(idx)
-                        a_host, sa = _xfer(a_buf.view(a.dtype).reshape(
-                            a_specs[idx][1]))
-                        a_host = pad(a_host, (sb, sb))[box_a]
-                        if dev.is_whole(a_host, a_buf):
-                            seq_a.lock(idx)  # uploaded by DMA
+                        a_host, sa = read_tile(seq_a, idx, a.dtype,
+                                               a_specs[idx][1], box_a)
                         if b_dev is None:
-                            b_buf = seq_b.get(idx)
-                            b_host, sb_s = _xfer(b_buf.view(
-                                b.dtype).reshape(b_shp))
-                            b_host = pad(b_host, (sb, sb))[box_b]
-                            if dev.is_whole(b_host, b_buf):
-                                seq_b.lock(idx)
+                            b_host, sb_s = read_tile(seq_b, idx, b.dtype,
+                                                     b_shp, box_b)
                         else:
                             seq_b.get(idx)  # keep the seq in lockstep
                             METRICS.add("gemm_sharded.b_hbm_hits")
                 with METRICS.span("gemm_sharded.h2d") as sp:
-                    a_up = _upload(a_host)
+                    a_up = link_upload(a_host, device, xfer_bf16)
                     a_dev = (a_up, sa) if xfer_int8 else a_up
+                    sp.nbytes = a_up.nbytes
                     if b_dev is None:
-                        b_up = _upload(b_host)
+                        b_up = link_upload(b_host, device, xfer_bf16)
                         b_dev = (b_up, sb_s) if xfer_int8 else b_up
-                    sp.nbytes = (a_host.size + (b_host.size if b_uploaded
-                                                else 0)) * x_isize
+                        sp.nbytes += b_up.nbytes
                 if not sharded_reads:
                     seq_a.done(idx)
                     seq_b.done(idx)
@@ -692,10 +663,6 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
             if seq_b is not None:
                 seq_b.close()
 
-    def finish(c_dev):
-        """float64's beta * C added, on the ring's copy stream."""
-        return c_dev[0].add_(c_dev[1]) if isinstance(c_dev, tuple) else c_dev
-
     def write_all(blocks):
         tickets = TicketWindow(depth=8, span="gemm_sharded.write_wait")
         ring = ctx.d2h_ring(device)
@@ -703,7 +670,7 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
         with shard_writer(c, mesh) as c_w:
             try:
                 for i, j, fin in blocks:
-                    bi, bj, _ = tile_dims(i, j, 0)
+                    bi, bj, _ = extent(i, j, 0)
                     lines, width = ((sb, sb) if c_tiled
                                     else _storage_shape(c, (bi, bj)))
                     # this rank's shard of the block's real storage
@@ -727,38 +694,23 @@ def gemm_sharded(a, b, c, alpha: float = 1.0, beta: float = 0.0,
                         tickets.extend(written)
                         return written[0] if written else None
 
-                    ring.download(fin, finish, n_rows, n_cols, write_run,
-                                  "gemm_sharded")
+                    ring.download(fin, acc.finish, n_rows, n_cols,
+                                  write_run, "gemm_sharded")
             finally:
                 tickets.wait_all()  # no write may outlive c_w's store
 
     c_shape = tuple(s.stop - s.start for s in box_c)
-
-    # float64 adds beta * C after the K loop (bof_tpu's gemm64 order, as
-    # in ops/gemm.py); fp32 starts from it
-    late_beta = c.dtype == np.float64
-
-    def start(c_init):
-        if c_init is None:
-            return dev.zeros_block(c_shape, device, c.dtype)
-        if not late_beta:
-            return c_init
-        return dev.zeros_block(c_shape, device, c.dtype), c_init
-
-    def accum(c_dev, a_dev, b_dev):
-        if isinstance(c_dev, tuple):  # (the K loop's sum, beta * C)
-            return accum(c_dev[0], a_dev, b_dev), c_dev[1]
-        if xfer_int8:
-            a_q, sa = a_dev
-            b_q, sb_s = b_dev
-            return step_q(c_dev, a_q, b_q,
-                          float(np.float32(alpha * sa * sb_s)))
-        return step(c_dev, a_dev, b_dev, alpha_s)
+    step = sharded_accum_step(mesh, cfg.matmul_precision, a_km=a_km,
+                              b_nk=b_nk, c_nm=c_nm)
+    step_q = (sharded_accum_step_q(mesh, a_km=a_km, b_nk=b_nk, c_nm=c_nm)
+              if xfer_int8 else None)
+    acc = BlockAccumulator(c_shape, device, c.dtype, alpha, beta, step,
+                           step_q)
 
     m_before = METRICS.snapshot()
     with METRICS.span("gemm_sharded") as call:
-        _superblock_pipeline(steps, kB, depth, produce, start, accum,
-                             write_all, "gemm_sharded")
+        _superblock_pipeline(steps, kB, depth, produce, acc.start,
+                             acc.accum, write_all, "gemm_sharded")
         c.store.flush()
         if world > 1:
             barrier()  # every rank's C shards are on disk

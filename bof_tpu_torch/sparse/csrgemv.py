@@ -83,36 +83,26 @@ def csrgemv(a: CsrFlashMatrix, x: Union[np.ndarray, FlashArray],
             with METRICS.span("csrgemv.prep"):
                 blk_ia = ia_np[r:e + 1] - int(ia_np[r])
                 counts = np.diff(blk_ia)
-                # count-sorted ELL banding (see sparse/csrmm.py): tight
-                # rmax per band on skewed rows
-                order = (np.argsort(counts, kind="stable")
-                         if cfg.ell_sort_rows else np.arange(e - r))
-                bands = sdev.ell_row_ranges(counts[order], entry_cap)
+                order, ranges = sdev.band_plan(counts, entry_cap,
+                                               cfg.ell_sort_rows)
             # the bands partition the block's rows and each writes its
-            # own rows of y_blk in place: one download per block
+            # own rows of y_blk in place: one download per block.  One
+            # band at a time, so the host holds one band's ELL, not the
+            # block's
             y_blk = torch.empty(e - r, dtype=torch.float32, device=device)
-            for (s0, s1) in bands:
+            for (s0, s1) in ranges:
                 with METRICS.span("csrgemv.prep"):
-                    rows_sel = order[s0:s1]
-                    ja_ell, va_ell = sdev.to_ell_rows(
-                        blk_ia, ja_blk, va_blk, rows_sel,
-                        idx_dtype=ell_idt, val_dtype=ell_vdt, counts=counts)
-                    if v_quant:  # int8 + one scale a row
-                        va_ell = sdev.quantize_ell_i8(va_ell)
-                    counts_sel = counts[rows_sel].astype(np.int32)
-                    rows_sel = rows_sel.astype(np.int32)
+                    band = sdev.build_band(blk_ia, ja_blk, va_blk,
+                                           order[s0:s1], counts, ell_idt,
+                                           ell_vdt, v_quant)
                 with METRICS.span("csrgemv.h2d") as sp:
-                    rows_d = dev.to_device(rows_sel, device)
-                    counts_d = dev.to_device(counts_sel, device)
-                    ja_d = dev.to_device(ja_ell, device)
-                    va_d, scale_d, va_bytes = sdev.upload_ell_vals(va_ell,
-                                                                   device)
-                    sp.nbytes = (ja_ell.nbytes + va_bytes + rows_sel.nbytes
-                                 + counts_sel.nbytes)
+                    up = sdev.upload_band(band, device)
+                    sp.nbytes = up.nbytes
                 with METRICS.span("csrgemv.dispatch"):
-                    sdev.spmv_ell_block(x_dev, ja_d, va_d, counts=counts_d,
-                                        rows=rows_d, out=y_blk,
-                                        va_scale=scale_d)
+                    sdev.spmv_ell_block(x_dev, up.ja, up.va, counts=up.counts,
+                                        rows=up.rows, out=y_blk,
+                                        va_scale=up.va_scale)
+                del up
             with METRICS.span("csrgemv.d2h", y_blk.nbytes):
                 y[r:e] = dev.from_device(y_blk)
         return y

@@ -234,55 +234,26 @@ def _upload_b_panel(b_host, b_order, k_sub, bc, k_r_pad, cb, device):
     return b_dev.contiguous()
 
 
-def ell_bands(blk_ia, ja_blk, va_blk, entry_cap: int, cfg, idx_dtype,
-              val_dtype, quantize: bool = False) -> list:
-    """The count-sorted ELL bands of one row block (`blk_ia` its offsets
-    from 0): its rows ordered by nnz (unless `cfg.ell_sort_rows` is off)
-    and cut into ranges whose padded ELL stays under `entry_cap` entries,
-    so each band's rmax is tight to its own rows.  Returns [(rows, counts,
-    ja_ell, va_ell)], rows and counts int32; the bands partition the
-    block's rows, and K2 writes each band's rows of the block's buffer
-    through `rows`.  `quantize` ships the values as (int8, row scale)."""
-    counts = np.diff(blk_ia)
-    order = (np.argsort(counts, kind="stable") if cfg.ell_sort_rows
-             else np.arange(len(counts)))
-    bands = []
-    for (s0, s1) in sdev.ell_row_ranges(counts[order], entry_cap):
-        rows_sel = order[s0:s1]
-        ja_ell, va_ell = sdev.to_ell_rows(
-            blk_ia, ja_blk, va_blk, rows_sel, idx_dtype=idx_dtype,
-            val_dtype=val_dtype, counts=counts)
-        if quantize:  # int8 + one scale a row
-            va_ell = sdev.quantize_ell_i8(va_ell)
-        bands.append((rows_sel.astype(np.int32),
-                      counts[rows_sel].astype(np.int32), ja_ell, va_ell))
-    return bands
-
-
 def spmm_bands(b_panel, bands, buf, alpha: float = 1.0,
                impl: str = "auto", sync_mode: bool = False) -> None:
-    """K2 on each of a row block's `ell_bands` into its rows of `buf`, the
-    block's (rows, cb) device buffer, with alpha applied; every row of
-    `buf` is written (an empty row with alpha * 0).  Uploads are the span
-    `csrmm.h2d` (with `sync_mode`, drained in the window so the rate
-    sample is a transfer rate)."""
-    device = buf.device
-    for rows_sel, counts_sel, ja_ell, va_ell in bands:
+    """K2 on each of a row block's bands (`spmm_device.ell_bands`) into its
+    rows of `buf`, the block's (rows, cb) device buffer, with alpha
+    applied; every row of `buf` is written (an empty row with alpha * 0).
+    Uploads are the span `csrmm.h2d` (with `sync_mode`, drained in the
+    window so the rate sample is a transfer rate)."""
+    for band in bands:
         with METRICS.span("csrmm.h2d") as sp:
-            rows_d = dev.to_device(rows_sel, device)
-            counts_d = dev.to_device(counts_sel, device)
-            ja_d = dev.to_device(ja_ell, device)
-            va_d, scale_d, va_bytes = sdev.upload_ell_vals(va_ell, device)
-            sp.nbytes = (ja_ell.nbytes + va_bytes + rows_sel.nbytes
-                         + counts_sel.nbytes)
+            up = sdev.upload_band(band, buf.device)
+            sp.nbytes = up.nbytes
             if sync_mode:
-                dev.sync(va_d)
+                dev.sync(up.va)
         if sync_mode:
             METRICS.observe("csrmm.h2d_tile_gbps",
                             sp.nbytes / max(sp.seconds, 1e-9) / 1e9)
         sdev.spmm_ell_block_dispatch(
-            b_panel, ja_d, va_d, impl=impl, counts=counts_d, rows=rows_d,
-            out=buf, alpha=alpha, va_scale=scale_d)
+            b_panel, up.ja, up.va, impl=impl, counts=up.counts, rows=up.rows,
+            out=buf, alpha=alpha, va_scale=up.va_scale)
+        del up
 
 
 PIECE_BYTES = 8 << 20  # the largest piece of a row block's download
@@ -374,13 +345,7 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
         errors: list = []
 
         from ..core.pipeline import (join_threads, queue_items,
-                                     queue_put, queue_put_sentinel)
-
-        def _put(q, item) -> bool:
-            return queue_put(q, item, errors, "csrmm.queue_wait")
-
-        def _put_sentinel(q):
-            queue_put_sentinel(q, errors)
+                                     queue_put, run_stage)
 
         # host path: prepper feeds the writer directly (the scipy block
         # product IS the compute); device path: prepper feeds the uploader
@@ -413,54 +378,40 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
                      blk_ia.astype(np.int64)), shape=(rows_b, k_sub))
                 # reference-style CPU block product (MKL's role)
                 return (r, rows_b, blk_sp @ b_panel_np)
-            bands = ell_bands(
+            bands = sdev.ell_bands(
                 blk_ia, blk_ja, blk_va, entry_cap, cfg,
                 sdev.ell_idx_dtype(k_sub, cfg.ell_idx_narrow),
                 ell_vdt, quantize=v_quant)
             return (r, rows_b, bands)
 
         def prepper():
-            try:
-                for bi, (r, e) in enumerate(blocks):
-                    with METRICS.span("csrmm.disk_wait"):
-                        ja_blk = pf.get(2 * bi).view(idt)
-                        va_blk = pf.get(2 * bi + 1).view(vdt)
-                    with METRICS.span("csrmm.prep"):
-                        payload = prep(bi, r, e, ja_blk, va_blk)
-                        pf.done(2 * bi)
-                        pf.done(2 * bi + 1)
-                    if not _put(prep_dest, payload):
-                        return
-                _put_sentinel(prep_dest)
-            except BaseException as e:  # pragma: no cover
-                errors.append(e)
-                try:
-                    prep_dest.put_nowait(None)
-                except queue.Full:
-                    pass
+            for bi, (r, e) in enumerate(blocks):
+                with METRICS.span("csrmm.disk_wait"):
+                    ja_blk = pf.get(2 * bi).view(idt)
+                    va_blk = pf.get(2 * bi + 1).view(vdt)
+                with METRICS.span("csrmm.prep"):
+                    payload = prep(bi, r, e, ja_blk, va_blk)
+                    pf.done(2 * bi)
+                    pf.done(2 * bi + 1)
+                if not queue_put(prep_dest, payload, errors,
+                                 "csrmm.queue_wait"):
+                    return
 
         def uploader():
-            try:
-                for r, rows_b, bands in queue_items(prep_q, errors,
-                                                    "csrmm.queue_wait"):
-                    with METRICS.span("csrmm.dispatch"):
-                        buf = torch.empty((rows_b, cb), dtype=torch.float32,
-                                          device=device)
-                        spmm_bands(b_panel, bands, buf,
-                                   alpha=1.0 if c_bf16 else alpha,
-                                   impl=cfg.sparse_device_impl,
-                                   sync_mode=sync_mode)
-                    ok = _put(out_q, (r, rows_b, buf))
-                    del buf  # the writer holds the only reference now
-                    if not ok:
-                        return
-                _put_sentinel(out_q)
-            except BaseException as e:  # pragma: no cover
-                errors.append(e)
-                try:
-                    out_q.put_nowait(None)
-                except queue.Full:
-                    pass
+            for r, rows_b, bands in queue_items(prep_q, errors,
+                                                "csrmm.queue_wait"):
+                with METRICS.span("csrmm.dispatch"):
+                    buf = torch.empty((rows_b, cb), dtype=torch.float32,
+                                      device=device)
+                    spmm_bands(b_panel, bands, buf,
+                               alpha=1.0 if c_bf16 else alpha,
+                               impl=cfg.sparse_device_impl,
+                               sync_mode=sync_mode)
+                ok = queue_put(out_q, (r, rows_b, buf), errors,
+                               "csrmm.queue_wait")
+                del buf  # the writer holds the only reference now
+                if not ok:
+                    return
 
         def write_back(r0, blk):
             """C[r0 : r0 + len(blk), c0 : c0 + bc] = blk + beta * C, and
@@ -486,42 +437,40 @@ def _csrmm_range(a, b, c, alpha, beta, k0, k1, k_r_pad, blocks, ia_np,
             write_tickets.push(ticket)
 
         def writer():
-            try:
-                for r, rows_b, res in queue_items(out_q, errors,
-                                                  "csrmm.queue_wait"):
-                    if isinstance(res, np.ndarray):
-                        # host block product: already in DRAM, alpha here
-                        with METRICS.span("csrmm.assemble"):
-                            c_np = np.empty((rows_b, bc), vdt)
-                            c_np[:] = res[:, :bc]
-                            c_np *= alpha
-                        pieces = [(0, c_np)]
-                    else:
-                        # the row-block buffer the bands filled in place,
-                        # alpha applied by K2 (or by write_back after a
-                        # bf16 download)
-                        pieces = _download_rows(res, bc, sync_mode,
-                                                bf16=c_bf16)
-                    del res
-                    if c.order == "R" and not c_tiled:
-                        for p0, piece in pieces:  # to disk as they come
-                            write_back(r + p0, piece)
-                        del pieces  # release the block's device buffer
-                        continue
-                    # column-major or tile-major C: one block, as the
-                    # storage runs span every row of it
-                    c_np = np.empty((rows_b, bc), vdt)
-                    for p0, piece in pieces:
-                        c_np[p0:p0 + len(piece)] = piece
-                    del pieces
-                    write_back(r, c_np)
-            except BaseException as e:  # pragma: no cover
-                errors.append(e)
+            for r, rows_b, res in queue_items(out_q, errors,
+                                              "csrmm.queue_wait"):
+                if isinstance(res, np.ndarray):
+                    # host block product: already in DRAM, alpha here
+                    with METRICS.span("csrmm.assemble"):
+                        c_np = np.empty((rows_b, bc), vdt)
+                        c_np[:] = res[:, :bc]
+                        c_np *= alpha
+                    pieces = [(0, c_np)]
+                else:
+                    # the row-block buffer the bands filled in place,
+                    # alpha applied by K2 (or by write_back after a bf16
+                    # download)
+                    pieces = _download_rows(res, bc, sync_mode, bf16=c_bf16)
+                del res
+                if c.order == "R" and not c_tiled:
+                    for p0, piece in pieces:  # to disk as they come
+                        write_back(r + p0, piece)
+                    del pieces  # release the block's device buffer
+                    continue
+                # column-major or tile-major C: one block, as the storage
+                # runs span every row of it
+                c_np = np.empty((rows_b, bc), vdt)
+                for p0, piece in pieces:
+                    c_np[p0:p0 + len(piece)] = piece
+                del pieces
+                write_back(r, c_np)
 
-        threads = [threading.Thread(target=prepper, daemon=True),
-                   threading.Thread(target=writer, daemon=True)]
+        stages = [(prepper, prep_dest), (writer, None)]
         if not host_compute:
-            threads.insert(1, threading.Thread(target=uploader, daemon=True))
+            stages.insert(1, (uploader, out_q))
+        threads = [threading.Thread(target=run_stage,
+                                    args=(stage, errors, out), daemon=True)
+                   for stage, out in stages]
         for t in threads:
             t.start()
         join_threads(threads, errors)

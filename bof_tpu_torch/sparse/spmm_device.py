@@ -10,6 +10,9 @@ pass each band's row counts, so the kernels never read them, and the
 band's row selection, so each band writes its rows of the row-block
 output in place.
 
+Every sparse caller forms its bands here (`band_plan`, then `build_band`
+a band or `ell_bands` a block) and uploads them with `upload_band`.
+
 The host prep is bof_tpu's, unchanged, so both packages form the same
 bands from the same offsets, and so are its transfer modes' values
 (FlashConfig.transfer_dtype on fp32 storage): bf16 values (carried as
@@ -17,6 +20,8 @@ their np.uint16 bits, io/native.py) or int8 values with one fp32 scale an
 ELL row, which the kernels promote in registers.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 
@@ -48,20 +53,6 @@ def spmv_ell_block(x, ja_ell, va_ell, **where):
     """y_blk[row] = sum_s va_ell[row, s] * x[ja_ell[row, s]] (csrgemv 'N');
     `where` as for spmm_ell_block."""
     return spmv_ell(x, ja_ell, va_ell, **where)
-
-
-def upload_ell_vals(va_ell, device):
-    """One band's ELL values to the device: (values, row scales or None,
-    bytes uploaded).  va_ell is fp32 (or fp64) values, bf16 bits
-    (np.uint16, from `ell_val_dtype`), or the (int8 values, fp32 row
-    scales) pair of `quantize_ell_i8`."""
-    if isinstance(va_ell, tuple):
-        q, scale = va_ell
-        return (dev.to_device(q, device), dev.to_device(scale, device),
-                q.nbytes + scale.nbytes)
-    if va_ell.dtype == np.uint16:
-        return dev.to_device_bf16(va_ell, device), None, va_ell.nbytes
-    return dev.to_device(va_ell, device), None, va_ell.nbytes
 
 
 def expand_row_ids(ia_blk: np.ndarray) -> np.ndarray:
@@ -220,3 +211,84 @@ def ell_row_ranges(counts: np.ndarray, entry_cap: int):
     if s < n or not ranges:
         ranges.append((s, n))
     return ranges
+
+
+class EllBand(NamedTuple):
+    """A CSR row block's band: the block rows it holds (int32; None for
+    consecutive rows the caller places), their counts (int32), their
+    (rows_pad, rmax) ELL pair, `va` an (int8, row scale) pair where
+    quantized.  Rows past len(counts) are padding the kernels never read."""
+    rows: np.ndarray
+    counts: np.ndarray
+    ja: np.ndarray
+    va: object
+
+
+class DeviceBand(NamedTuple):
+    """`upload_band`'s tensors (`rows` None where it stayed on the host,
+    `va_scale` None unless int8) and the bytes that went up."""
+    rows: object
+    counts: object
+    ja: object
+    va: object
+    va_scale: object
+    nbytes: int
+
+
+def band_plan(counts: np.ndarray, entry_cap: int, sort_rows: bool = True):
+    """(order, ranges): a row block's rows ordered by count (stable; the
+    identity without `sort_rows`) and cut into ranges of that order whose
+    padded ELL stays under `entry_cap` entries, so each band's rmax is
+    tight to its own rows.  Band (s0, s1) holds rows order[s0:s1]."""
+    order = (np.argsort(counts, kind="stable") if sort_rows
+             else np.arange(len(counts)))
+    return order, ell_row_ranges(counts[order], entry_cap)
+
+
+def build_band(blk_ia, ja_blk, va_blk, rows_sel, counts,
+               idx_dtype=np.int32, val_dtype=None,
+               quantize: bool = False) -> EllBand:
+    """The band of rows `rows_sel` of a row block (`blk_ia` its offsets,
+    `counts` their np.diff) at the link's dtypes."""
+    ja_ell, va_ell = to_ell_rows(blk_ia, ja_blk, va_blk, rows_sel,
+                                 idx_dtype=idx_dtype, val_dtype=val_dtype,
+                                 counts=counts)
+    if quantize:
+        va_ell = quantize_ell_i8(va_ell)
+    return EllBand(rows_sel.astype(np.int32),
+                   counts[rows_sel].astype(np.int32), ja_ell, va_ell)
+
+
+def ell_bands(blk_ia, ja_blk, va_blk, entry_cap: int, cfg, idx_dtype,
+              val_dtype, quantize: bool = False) -> list:
+    """Every band of one row block (`blk_ia` its offsets from 0), which
+    together partition its rows."""
+    counts = np.diff(blk_ia)
+    order, ranges = band_plan(counts, entry_cap, cfg.ell_sort_rows)
+    return [build_band(blk_ia, ja_blk, va_blk, order[s0:s1], counts,
+                       idx_dtype, val_dtype, quantize)
+            for s0, s1 in ranges]
+
+
+def upload_band(band: EllBand, device, lo: int = 0, hi: int = None,
+                with_rows: bool = True) -> DeviceBand:
+    """Rows [lo, hi) of `band` (all of them, padding too, by default) to
+    the device: the rows where `with_rows` (for kernels that write each
+    row of the block's output in place), counts, ja and the values (bf16
+    where they are its np.uint16 bits).  Callers drop the result once its
+    launch is queued, so one band's buffers are on the device at a time."""
+    nbytes = 0
+
+    def up(host, bf16=False):
+        nonlocal nbytes
+        host = host[lo:hi]
+        nbytes += host.nbytes
+        return (dev.to_device_bf16 if bf16 else dev.to_device)(host, device)
+
+    rows = up(band.rows) if with_rows else None
+    counts, ja = up(band.counts), up(band.ja)
+    if isinstance(band.va, tuple):  # int8 values and their row scales
+        va, scale = up(band.va[0]), up(band.va[1])
+    else:
+        va, scale = up(band.va, band.va.dtype == np.uint16), None
+    return DeviceBand(rows, counts, ja, va, scale, nbytes)
