@@ -14,11 +14,12 @@ Two execution paths, as in bof_tpu:
   label rows stream through the Program Cache (the pin cache, a lookahead
   inside its budget), go up once from the pinned rows and are transposed
   on the card into the (vocab x lb_max) fp32 panel; sparse row blocks
-  stream through the pin cache and each ELL band
-  is one launch of K2 (the block product, into a (rows x lb_max) buffer on
-  the card) and one of B8 (`ops/topk_cuda.py:row_topk`: the label mask and
-  the per-row top-k, in lax.top_k's order), so only (rows x k) scores and
-  ids cross the link.
+  stream through the pin cache and are banded once a call (the host
+  bands serve every label block, within half the cache's budget); each
+  ELL band is one launch of K2 (the block product, into a (rows x lb_max)
+  buffer on the card) and one of B8 (`ops/topk_cuda.py:row_topk`: the
+  label mask and the per-row top-k, in lax.top_k's order), so only
+  (rows x k) scores and ids cross the link.
 - **csrmm-composition path** (host sparse compute, or `fused=False`): per
   label block, S_b = A @ W_b^T lands on flash scratch via one csrmm pass,
   then the running (docs x k) top-k panels merge per doc block on the host.
@@ -151,6 +152,12 @@ def _upload_panel(wt_st: np.ndarray, lb_max: int, device,
     return panel
 
 
+def _band_bytes(band) -> int:
+    """The host bytes of a band: its rows, counts, ja and values."""
+    return (band.rows.nbytes + band.counts.nbytes + band.ja.nbytes
+            + band.va.nbytes)
+
+
 def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
                     scores: FlashArray, labels: FlashArray,
                     lb_max: int, ctx, mesh=None) -> None:
@@ -161,7 +168,13 @@ def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
     its budget holds) and go up from the pinned rows.  With `mesh`, each
     rank takes its run of the band's rows and all-gathers of the
     (rows x k) results give every rank the band (`_topk_band_sharded`);
-    rank 0 merges.  Every stage runs in a span `xml_rank.<stage>`
+    rank 0 merges.  A row block's bands do not depend on the label panel:
+    each block is banded on the first panel and its bands are kept on the
+    host for the others while all kept bands fit half the Program Cache's
+    budget (the half A's blocks have, beside W's); a block past that is
+    streamed and banded anew each panel.  METRICS counts
+    `xml_rank.bands_built` and `xml_rank.bands_reused` (a band launched
+    from a kept band).  Every stage runs in a span `xml_rank.<stage>`
     (METRICS.span), which books its seconds as `xml_rank.<stage>_s`."""
     from ..core.pipeline import PrefetchSeq
     from ..sparse import spmm_device as sdev
@@ -195,6 +208,40 @@ def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
     w_pins = PrefetchSeq(ctx.pin_cache(), [
         (w.store,) + _wt_view(w, b0, lb, vocab).block_access(0, vocab, 0, lb)
         for b0, lb in panels], depth=ahead)
+    kept = {}  # row block -> its bands, for the panels after the first
+    kept_bytes = 0
+    keep_cap = cfg.program_budget // 2 if len(panels) > 1 else 0
+
+    def row_block_bands():
+        """(r, e, bands) of each row block in order: the bands kept for
+        it, else the block streamed through the pin cache and banded."""
+        nonlocal kept_bytes
+        fresh = stream_row_blocks(
+            a, ia_np, [blk for i, blk in enumerate(blocks) if i not in kept],
+            ctx, wait_span="xml_rank.disk_wait")
+        try:
+            for i, (r, e) in enumerate(blocks):
+                if i in kept:
+                    METRICS.add("xml_rank.bands_reused", len(kept[i]))
+                    yield r, e, kept[i]
+                    continue
+                _, _, ja_blk, va_blk = next(fresh)
+                with METRICS.span("xml_rank.prep"):
+                    # the count-sorted ELL bands
+                    bands = sdev.ell_bands(ia_np[r:e + 1] - int(ia_np[r]),
+                                           ja_blk, va_blk, entry_cap, cfg,
+                                           ell_idt, ell_vdt)
+                METRICS.add("xml_rank.bands_built", len(bands))
+                # kept bytes only grow, so a block that does not fit on the
+                # first panel fits on none
+                nbytes = sum(map(_band_bytes, bands))
+                if kept_bytes + nbytes <= keep_cap:
+                    kept[i] = bands
+                    kept_bytes += nbytes
+                yield r, e, bands
+        finally:
+            fresh.close()
+
     try:
         for p, (b0, lb) in enumerate(panels):
             with METRICS.span("xml_rank.w_wait"):
@@ -212,14 +259,9 @@ def _xml_rank_fused(a: CsrFlashMatrix, w: FlashArray, k: int,
             METRICS.add("xml_rank.h2d_bytes", lb * vocab * 4 + mask.nbytes)
             first = b0 == 0
 
-            for r, e, ja_blk, va_blk in stream_row_blocks(
-                    a, ia_np, blocks, ctx, wait_span="xml_rank.disk_wait"):
-                with METRICS.span("xml_rank.prep"):
-                    # the count-sorted ELL bands; results stage per block
-                    # so the top-k merge stays a contiguous panel write
-                    bands = sdev.ell_bands(ia_np[r:e + 1] - int(ia_np[r]),
-                                           ja_blk, va_blk, entry_cap, cfg,
-                                           ell_idt, ell_vdt)
+            for r, e, bands in row_block_bands():
+                # results stage per block so the top-k merge stays a
+                # contiguous panel write
                 s_stage = np.empty((e - r, k), np.float32)
                 l_stage = np.empty((e - r, k), np.int32)
                 for band in bands:

@@ -92,6 +92,65 @@ def test_xml_rank_sharded_matches_single_chip(pools, ctx, rng, tmp_path,
     np.testing.assert_allclose(s, rs.read_all(), rtol=2e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("keeps", [True, False])
+def test_xml_rank_sharded_bands_each_block_once(tmp_path, monkeypatch,
+                                                keeps):
+    """xml_rank(mesh=) on a world of one gloo rank, in panels of k labels:
+    within a budget whose half holds every row block's bands each block is
+    banded once a call and its bands serve the other panels; below any
+    block's bands each block is banded once a panel.  Either way the
+    scores and labels are the one-card fused path's bits."""
+    import bof_tpu_torch
+    from bof_tpu_torch.sparse import spmm_device as sdev
+    from bof_tpu_torch.utils import METRICS
+    from torch_dist_pool import one_rank_world
+    docs, vocab, n_labels, k = 96, 48, 25, 4
+    a_sp = sps.random(docs, vocab, density=0.12, format="csr",
+                      dtype=np.float32, random_state=np.random.RandomState(8))
+    w_np = np.random.default_rng(5).standard_normal(
+        (n_labels, vocab)).astype(np.float32)
+    made, real = [], sdev.ell_bands
+
+    def counting(*args, **kw):
+        bands = real(*args, **kw)
+        made.append((sum(b.rows.nbytes + b.counts.nbytes + b.ja.nbytes
+                         + b.va.nbytes for b in bands), len(bands)))
+        return bands
+    monkeypatch.setattr(sdev, "ell_bands", counting)
+
+    def run(mesh, budget):
+        ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+            device="cpu", scratch_dir=str(tmp_path / ("one" if mesh is None else "mesh")),
+            program_budget=budget, max_nnzs=128))
+        try:
+            A = bof_tpu_torch.CsrFlashMatrix.from_scipy(a_sp, ctx=ctx)
+            W = bof_tpu_torch.mem_array((n_labels, vocab), np.float32,
+                                        ctx=ctx, data=w_np)
+            m0 = METRICS.snapshot()
+            s, l = bof_tpu_torch.xml_rank(A, W, k, label_blk=k, fused=True,
+                                          mesh=mesh, ctx=ctx)
+            m1 = METRICS.snapshot()
+            return (s.read_all(), l.read_all(),
+                    *(m1.get(n, 0) - m0.get(n, 0)
+                      for n in ("xml_rank.bands_built",
+                                "xml_rank.bands_reused")))
+        finally:
+            ctx.destroy()
+
+    s0, l0, _, _ = run(None, 64 << 20)
+    blocks = list(made)
+    budget = 64 << 20 if keeps else 2 * min(nb for nb, _ in blocks) - 1
+    with one_rank_world() as mesh:
+        s, l, built, reused = run(mesh, budget)
+    np.testing.assert_array_equal(s, s0)
+    np.testing.assert_array_equal(l, l0)
+    _check_topk(s, l, (a_sp @ w_np.T).astype(np.float32), k)
+    one_pass, panels = sum(n for _, n in blocks), -(-n_labels // k)
+    assert len(blocks) > 2
+    assert built == (one_pass if keeps else one_pass * panels)
+    assert reused == (one_pass * (panels - 1) if keeps else 0)
+
+
 def test_xml_rank_composition_waits_for_rank0_merge(pools, ctx, rng,
                                                     tmp_path):
     """The composition path reuses one score panel for every label block:

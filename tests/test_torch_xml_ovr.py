@@ -208,3 +208,101 @@ def test_w_panels_stay_inside_half_the_budget(tmp_path, case, budget, panel):
     finally:
         ctx.destroy()
     assert moved == DOCS * K * 8 * -(-LABELS // panel)
+
+
+def _banding(monkeypatch):
+    """Records each `ell_bands` call of the fused path: (the host bytes of
+    the block's bands, their number)."""
+    from bof_tpu_torch.sparse import spmm_device as sdev
+    made, real = [], sdev.ell_bands
+
+    def counting(*args, **kw):
+        bands = real(*args, **kw)
+        made.append((sum(b.rows.nbytes + b.counts.nbytes + b.ja.nbytes
+                         + b.va.nbytes for b in bands), len(bands)))
+        return bands
+    monkeypatch.setattr(sdev, "ell_bands", counting)
+    return made
+
+
+def _banded_call(tmp_path, a, w, ctx, label_blk):
+    """One fused call: (scores, labels, the bands it built, the bands it
+    served from kept ones)."""
+    A, W = _files(tmp_path, a, w, ctx)
+    s, l = _outputs(ctx)
+    m0 = METRICS.snapshot()
+    bof_tpu_torch.xml_rank(A, W, K, scores_out=s, labels_out=l,
+                           label_blk=label_blk, fused=True, ctx=ctx)
+    m1 = METRICS.snapshot()
+    built, reused = (m1.get(n, 0) - m0.get(n, 0)
+                     for n in ("xml_rank.bands_built",
+                               "xml_rank.bands_reused"))
+    return s.read_all(), l.read_all(), built, reused
+
+
+# an entry cap of 2^14 (the least), so a block bands into several bands
+SMALL_HBM = 1 << 20
+
+
+def test_each_row_block_is_banded_once_a_call(tmp_path, case, monkeypatch):
+    """Within the default budget every row block's bands are kept: one
+    `ell_bands` a block, not one a block and label panel, and each kept
+    band serves the panels after the first."""
+    from bof_tpu_torch.sparse.csr import fill_row_blocks
+    a, w = case
+    made = _banding(monkeypatch)
+    ctx = _ctx(tmp_path, hbm_budget=SMALL_HBM)
+    try:
+        s, l, built, reused = _banded_call(tmp_path, a, w, ctx, PANEL)
+    finally:
+        ctx.destroy()
+    _check(a, w, s, l)
+    blocks = fill_row_blocks(a.indptr.astype(np.int64), 4096)
+    one_pass = sum(n for _, n in made)
+    assert PANELS == 4 and len(blocks) > 1 and one_pass > len(blocks)
+    assert len(made) == len(blocks)
+    assert built == one_pass and reused == one_pass * (PANELS - 1)
+
+
+@pytest.fixture(scope="module")
+def kept_everywhere(case, tmp_path_factory):
+    """A fused call in panels of k labels whose budget keeps every block's
+    bands: (scores, labels, each block's (band bytes, bands))."""
+    a, w = case
+    tmp = tmp_path_factory.mktemp("kept")
+    with pytest.MonkeyPatch.context() as mp:
+        made = _banding(mp)
+        ctx = _ctx(tmp, hbm_budget=SMALL_HBM, max_nnzs=1024)
+        try:
+            s, l, _, _ = _banded_call(tmp, a, w, ctx, K)
+        finally:
+            ctx.destroy()
+    return s, l, made
+
+
+@pytest.mark.parametrize("keeps", ["every", "first", "no"])
+def test_kept_bands_give_the_bits_of_fresh_ones(tmp_path, case,
+                                                kept_everywhere, keeps):
+    """Panels of k labels (which no budget cuts) within a budget whose half
+    holds every block's bands, only the first block's, or none: the same
+    scores and labels, bit for bit, and a band is reused only where its
+    block's bands were kept."""
+    a, w = case
+    s0, l0, made = kept_everywhere
+    panels = -(-LABELS // K)
+    sizes = [nb for nb, _ in made]
+    budget = {"every": 64 << 20, "first": 2 * sizes[0] + 1,
+              "no": 2 * min(sizes) - 1}[keeps]
+    ctx = _ctx(tmp_path, hbm_budget=SMALL_HBM, max_nnzs=1024,
+               program_budget=budget)
+    try:
+        s, l, built, reused = _banded_call(tmp_path, a, w, ctx, K)
+    finally:
+        ctx.destroy()
+    np.testing.assert_array_equal(s, s0)
+    np.testing.assert_array_equal(l, l0)
+    one_pass = sum(n for _, n in made)
+    kept = {"every": one_pass, "first": made[0][1], "no": 0}[keeps]
+    assert len(made) > 2
+    assert reused == kept * (panels - 1)
+    assert built + reused == one_pass * panels
