@@ -18,8 +18,8 @@ What is ported so far:
   (`kmeans_fit`, `lloyds_iter`) whose Lloyd block step is the CUDA kernel
   pair B7 (ops/kmeans.py); and the dense and k-means CLI drivers;
 - the paper's three applications (apps/): the block eigensolver
-  (`block_lanczos_svd`, `block_power_svd`, both halves of its one-pass
-  operator on K2), extreme multi-label ranking (`xml_rank`: K2, then the
+  (`block_lanczos_svd`, `block_power_svd`, both halves of their one-pass
+  operator `apply_gram` on K2), extreme multi-label ranking (`xml_rank`: K2, then the
   CUDA row top-k B8, ops/topk_cuda.py) and topic modeling (`topic_model`
   on csrmm and k-means), with their CLI drivers;
 - the data-processing primitives: the out-of-core sample sort `bof_sort`
@@ -43,8 +43,8 @@ from .ops.gemm64 import gemm64
 from .ops.kmeans import kmeans_fit, lloyds_iter
 from .sparse import (CsrFlashMatrix, csrcsc, csrcsc_scratch, csrgemv,
                      csrmm)
-from .apps import (block_lanczos_svd, block_power_svd, topic_model,
-                   xml_rank)
+from .apps import (apply_gram, block_lanczos_svd, block_power_svd,
+                   topic_model, xml_rank)
 
 __version__ = "0.1.0"
 
@@ -58,5 +58,6 @@ __all__ = [
     "gemm64", "gemm_in_mem", "lex_composite", "kmeans_fit",
     "lloyds_iter", "CsrFlashMatrix", "csrcsc", "csrcsc_scratch", "csrgemv",
     "csrmm",
-    "block_lanczos_svd", "block_power_svd", "topic_model", "xml_rank",
+    "apply_gram", "block_lanczos_svd", "block_power_svd", "topic_model",
+    "xml_rank",
 ]

@@ -11,14 +11,16 @@ orthogonalization.  Two solvers:
   the other;
 - `block_power_svd`: block subspace iteration, the baseline.
 
-Both apply U = A^T (A V) either in one streaming pass over A
-(`_apply_ata_one_pass`, the default) or as csrcsc + two csrmm passes (the
-reference's 'T' dispatch structure, csrmm.cpp:364-420).  On the card the
-one-pass operator runs both halves of every ELL band as kernel K2
-(`_apply_ata_one_pass_device`, bof_tpu's B9 step): W = A_band V lands in a
-device buffer of exactly the band's rows, the band's transpose (built on
-the host) multiplies W, and each U partial comes down to a float64 U on the
-host.  The host algebra is bof_tpu's, line for line.
+Both reach U = A^T (A V) through `apply_gram`, one operator application:
+either one streaming pass over A (`_apply_ata_one_pass`, the default) or
+csrcsc + two csrmm passes (the reference's 'T' dispatch structure,
+csrmm.cpp:364-420).  On the card the one-pass operator runs both halves
+of every ELL band as kernel K2 (`_apply_ata_one_pass_device`, bof_tpu's
+B9 step): W = A_band V lands in a device buffer of exactly the band's
+rows, the band's transpose over the words it touches (built on the host)
+multiplies W, and each U partial is added into a float64 U on the card,
+which comes down once an application.  The host algebra is bof_tpu's,
+line for line.
 
 With `mesh=` (a `DeviceMesh`, parallel.make_mesh) every operator
 application runs row-sharded over the mesh's ranks: by default as two
@@ -27,7 +29,6 @@ with both halves sharded (`_apply_ata_one_pass_sharded`).
 """
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -90,100 +91,225 @@ def _apply_ata_one_pass(a: CsrFlashMatrix, v_np: np.ndarray,
     return U
 
 
+FOLD_BYTES = 64 << 20  # float64 bytes of a partial the fold widens at once
+
+
+def _trim_freed() -> None:
+    """Hand the heap's free pages back to the kernel (glibc's
+    `malloc_trim`).  The band threads free gigabytes of arrays a call on
+    their own arenas, and glibc keeps an arena's freed pages mapped up to
+    its trim threshold; returned before U's host array is mapped, they
+    leave the call's peak at what is live.  Changes no setting of the
+    allocator; nothing where the C library is not glibc."""
+    import ctypes
+    try:
+        trim = ctypes.CDLL("libc.so.6").malloc_trim
+    except (OSError, AttributeError):
+        return
+    trim.argtypes = (ctypes.c_size_t,)
+    trim(0)
+
+
+def _populated(shape) -> np.ndarray:
+    """A new float64 host array whose pages the kernel maps in one go
+    (MAP_POPULATE) where it can, rather than one fault at a time under
+    the copy that first writes them (U is 3.6 GB at the eig_large cell's
+    widths; PERF.md §6)."""
+    import mmap
+    nbytes = int(np.prod(shape)) * 8
+    flag = getattr(mmap, "MAP_POPULATE", 0)
+    if not nbytes or not flag:
+        return np.empty(shape, np.float64)
+    buf = mmap.mmap(-1, nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS
+                    | flag)
+    return np.frombuffer(buf, np.float64).reshape(shape)
+
+
+def _gram_entry_cap(hbm_budget: int, k: int, b: int) -> int:
+    """ELL entries a band may hold.  V (k x b fp32) and U (k x b float64)
+    stay on the card for the whole application, 12 k b bytes; a band's W
+    and a column band's partial, at most entry_cap x b fp32 each, live
+    beside them.  The library's sixth of `hbm_budget` a band output, as
+    csrmm's, unless that leaves the two less than what V and U leave."""
+    room = min(hbm_budget // 6, (hbm_budget - 12 * k * b) // 2)
+    return max(1 << 14, int(room // (b * 4)))
+
+
+def _band_columns(blk_ia, ja_blk, va_blk, rows_sel, counts, k: int):
+    """The transpose of rows `rows_sel` of a row block (`blk_ia` its
+    offsets from 0, `counts` their np.diff) over only the words they
+    hold: (words, ia, ja, va), `words` the touched columns ascending, and
+    a CSR over them whose row j lists word words[j]'s entries: `ja` their
+    positions within rows_sel (W's rows), ascending, and `va` their
+    values.  scipy's CSC of the selection builds a k + 1 column pointer;
+    every plan, band and partial after it is over the touched words
+    alone."""
+    import scipy.sparse as sps
+    n = counts[rows_sel]
+    sub_ia = np.zeros(len(rows_sel) + 1, np.int64)
+    np.cumsum(n, out=sub_ia[1:])
+    pos = (np.repeat(blk_ia[rows_sel] - sub_ia[:-1], n)
+           + np.arange(sub_ia[-1], dtype=np.int64))
+    csc = sps.csr_matrix((va_blk[pos], ja_blk[pos], sub_ia),
+                         shape=(len(rows_sel), k)).tocsc()
+    words = np.flatnonzero(csc.indptr[1:] != csc.indptr[:-1])
+    ia = np.append(csc.indptr[words], csc.indptr[-1]).astype(np.int64)
+    return words, ia, csc.indices.astype(np.int64), csc.data
+
+
 def _one_pass_stream(a: CsrFlashMatrix, v_np: np.ndarray, ctx, device,
                      fwd_product, t_product, finalize=None) -> np.ndarray:
     """The one-pass device operator's loop (bof_tpu's B9 step with its
     planner), shared by the one-card and the sharded operators: stream
     nnz-budgeted row blocks, band each block's rows by count (count-sorted
-    ELL banding), transpose each band on the host (block-local CSC; the
-    block is already in DRAM) and band its columns the same way.  Per
-    band (an `EllBand`), `fwd_product(v_dev, band)` gives W_sub = A_sub V
-    on the card (a row a band row, padding rows past them ignored), and
-    per column band `t_product(w, cband)` gives (lo, hi, u) with u the
-    float64 host rows of A_sub^T W_sub for the band's columns [lo, hi),
-    folded into the float64 U on the host.  `finalize(U)` (the
-    identity by default) is the operator's value.  Host prep time goes to
-    `eig.prep_s`, the wait for A's blocks to `eig.disk_wait_s`."""
-    import scipy.sparse as sps
+    ELL banding), transpose each band on the host over the words it
+    touches (`_band_columns`; the block is already in DRAM) and band
+    those words the same way, a block's bands on the host's cores
+    (`utils/hostpar.fanout_threads`).  Per band (an `EllBand`), in band
+    order, `fwd_product(v_dev, band)` gives W_sub = A_sub V on the card
+    (a row a band row), and per column band `t_product(w, cband)` gives
+    (rows, u): u the fp32 rows of A_sub^T W_sub that this rank computed,
+    on the card, and `rows` their words there (None for none).  Each u
+    is added into a float64 U on the card (`U.index_add_`, a band's
+    words distinct, in band order: the host fold's additions, bit for
+    bit); `finalize(U)`, where given, completes U on the card in place
+    (the sharded operator's all-reduce), and U comes down once, through
+    the context's page-locked ring.
+
+    Link dtypes follow FlashConfig.transfer_dtype as csrmm's bands do
+    (bf16 values, or int8 with a scale an ELL row); fp32 by default.
+    Spans: `eig.disk_wait` (A's next block), `eig.prep` (forward
+    banding), `eig.transpose` (the band's columns, their plan and bands),
+    `eig.band_wait` (the launching thread waiting for the pool's next
+    band), `eig.h2d` (V and the bands, with bytes), `eig.dispatch` (K2,
+    both halves), `eig.fold`, `eig.d2h` (U, with bytes), `eig.write`
+    (U's host array: its pages, the copies out of the ring); counters
+    `eig.fwd_bands`, `eig.t_bands`, `eig.t_rows` (the words of every
+    column band), `eig.band_threads` (the pool's threads, summed over
+    applications: `eig.prep_s` and `eig.transpose_s` are those threads'
+    seconds), `eig.op_applies`."""
+    from concurrent.futures import ThreadPoolExecutor
 
     from ..sparse import spmm_device as sdev
     from ..sparse.csr import fill_row_blocks, stream_row_blocks
+    from ..utils.hostpar import fanout_threads
 
     cfg = ctx.config
     k = a.shape[1]
     ia_np = a.read_ia()
     blocks = fill_row_blocks(ia_np, cfg.max_nnzs)
-    v_dev = dev.to_device(np.ascontiguousarray(v_np, np.float32), device)
+    v32 = np.ascontiguousarray(v_np, np.float32)
+    with METRICS.span("eig.h2d", v32.nbytes):
+        v_dev = dev.to_device(v32, device)
     b = v_dev.shape[1]
-    entry_cap = max(1 << 14, int(cfg.hbm_budget // 6 // (b * 4)))
+    entry_cap = _gram_entry_cap(cfg.hbm_budget, k, b)
     sort_rows = getattr(cfg, "ell_sort_rows", True)
     narrow = getattr(cfg, "ell_idx_narrow", True)
     fwd_idt = sdev.ell_idx_dtype(k, narrow)  # forward panel height = k
-    U = np.zeros((k, b), np.float64)
-    t_wait = time.perf_counter()
-    for r, e, ja_blk, va_blk in stream_row_blocks(a, ia_np, blocks, ctx):
-        METRICS.add("eig.disk_wait_s", time.perf_counter() - t_wait)
-        blk_ia = ia_np[r:e + 1] - int(ia_np[r])
-        counts = np.diff(blk_ia)
-        # forward rows band by nnz; the transposed build selects the
-        # same rows so its indices line up with W's row order
-        order, ranges = sdev.band_plan(counts, entry_cap, sort_rows)
-        blk_sp = sps.csr_matrix(
-            (va_blk, ja_blk.astype(np.int64), blk_ia.astype(np.int64)),
-            shape=(e - r, k))
-        t0 = time.perf_counter()
-        for s0, s1 in ranges:
-            rows_sel = order[s0:s1]
+    val_dt = sdev.ell_val_dtype(a.vals.dtype, cfg)
+    quant = sdev.ell_val_quantize(a.vals.dtype, cfg)
+    fold_rows = max(1, FOLD_BYTES // (8 * b))
+
+    def bands(blk_ia, ja_blk, va_blk, counts, rows_sel):
+        """A band of the block and the column bands of its transpose;
+        the transpose's rows are positions within rows_sel, exactly W's
+        rows, and its words always band count-sorted."""
+        with METRICS.span("eig.prep"):
             band = sdev.build_band(blk_ia, ja_blk, va_blk, rows_sel, counts,
-                                   fwd_idt)
-            METRICS.add("eig.prep_s", time.perf_counter() - t0)
-            w = fwd_product(v_dev, band)
-            # transpose the selected rows in DRAM; the CSC's row indices
-            # are positions within rows_sel, exactly W's rows (W has a
-            # row for each, so every index is below its height).  Its
-            # columns always band sorted
-            t0 = time.perf_counter()
-            sub = blk_sp[rows_sel].tocsc()
-            ccounts = np.diff(sub.indptr)
-            csort, cranges = sdev.band_plan(ccounts, entry_cap)
+                                   fwd_idt, val_dt, quant)
+        with METRICS.span("eig.transpose"):
+            words, t_ia, t_ja, t_va = _band_columns(blk_ia, ja_blk, va_blk,
+                                                    rows_sel, counts, k)
+            t_counts = np.diff(t_ia)
+            corder, cranges = sdev.band_plan(t_counts, entry_cap)
             t_idt = sdev.ell_idx_dtype(len(rows_sel), narrow)
+            cbands = []
             for c0, c1 in cranges:
-                cband = sdev.build_band(sub.indptr.astype(np.int64),
-                                        sub.indices, sub.data, csort[c0:c1],
-                                        ccounts, t_idt)
-                METRICS.add("eig.prep_s", time.perf_counter() - t0)
-                lo, hi, u_np = t_product(w, cband)
-                U[cband.rows[lo:hi]] += u_np
-                t0 = time.perf_counter()
-        t_wait = time.perf_counter()
+                if c1 == c0:
+                    continue  # a band of rows that hold no word
+                cband = sdev.build_band(t_ia, t_ja, t_va, corder[c0:c1],
+                                        t_counts, t_idt, val_dt, quant)
+                cbands.append(cband._replace(
+                    rows=words[cband.rows].astype(np.int32)))
+        return band, cbands
+
+    U = torch.zeros((k, b), dtype=torch.float64, device=device)
+    threads = fanout_threads(max(
+        (int(ia_np[e] - ia_np[r]) for r, e in blocks), default=0))
+    METRICS.add("eig.band_threads", threads)
+    with ThreadPoolExecutor(threads) as pool:
+        for r, e, ja_blk, va_blk in stream_row_blocks(
+                a, ia_np, blocks, ctx, wait_span="eig.disk_wait"):
+            with METRICS.span("eig.prep"):
+                blk_ia = ia_np[r:e + 1] - int(ia_np[r])
+                counts = np.diff(blk_ia)
+                order, ranges = sdev.band_plan(counts, entry_cap, sort_rows)
+            # the block's bands are formed on the pool's threads and
+            # launched in band order, so U's additions keep it
+            formed = pool.map(lambda s: bands(blk_ia, ja_blk, va_blk,
+                                              counts, order[s[0]:s[1]]),
+                              ranges)
+            for _ in ranges:
+                with METRICS.span("eig.band_wait"):
+                    band, cbands = next(formed)
+                METRICS.add("eig.fwd_bands")
+                w = fwd_product(v_dev, band)
+                del band
+                for cband in cbands:
+                    METRICS.add("eig.t_bands")
+                    METRICS.add("eig.t_rows", len(cband.counts))
+                    rows, u = t_product(w, cband)
+                    if rows is None:
+                        continue
+                    with METRICS.span("eig.fold"):
+                        for f0 in range(0, len(rows), fold_rows):
+                            U.index_add_(0, rows[f0:f0 + fold_rows],
+                                         u[f0:f0 + fold_rows].double())
+                    del rows, u
+                del w, cbands
+    del v_dev
+    _trim_freed()
+    if finalize is not None:
+        finalize(U)
+    out = _download_u(U, ctx)
     METRICS.add("eig.op_applies")
-    return U if finalize is None else finalize(U)
+    return out
 
 
-def _upload(band, device, lo, hi):
-    """Rows [lo, hi) of a band on `device`; the host folds the results."""
+def _upload(band, device, lo, hi, with_rows=False):
+    """Rows [lo, hi) of a band on `device` (and their words where
+    `with_rows`)."""
     from ..sparse import spmm_device as sdev
-    t0 = time.perf_counter()
-    up = sdev.upload_band(band, device, lo, hi, with_rows=False)
-    METRICS.add("eig.h2d_s", time.perf_counter() - t0)
-    METRICS.add("eig.h2d_bytes", up.nbytes)
+    with METRICS.span("eig.h2d") as sp:
+        up = sdev.upload_band(band, device, lo, hi, with_rows=with_rows)
+        sp.nbytes = up.nbytes
     return up
 
 
-def _ell_product(panel, band, device, impl):
-    """One ELL product (K2) of exactly a band's rows on `device`."""
+def _k2(panel, up, impl="auto"):
+    """K2 on an uploaded band against `panel`, each row's real slots."""
     from ..sparse import spmm_device as sdev
-    up = _upload(band, device, 0, len(band.counts))
-    return sdev.spmm_ell_block_dispatch(panel, up.ja, up.va, impl,
-                                        counts=up.counts)
+    with METRICS.span("eig.dispatch"):
+        return sdev.spmm_ell_block_dispatch(panel, up.ja, up.va, impl,
+                                            counts=up.counts,
+                                            va_scale=up.va_scale)
 
 
-def _download_u(u_part) -> np.ndarray:
-    t0 = time.perf_counter()
-    u_np = dev.from_device(u_part)  # waits for the band's K2s
-    METRICS.add("eig.d2h_s", time.perf_counter() - t0)
-    METRICS.add("eig.d2h_bytes", u_np.nbytes)
-    return u_np
+def _download_u(u_dev, ctx) -> np.ndarray:
+    """U to the host once, in runs through the context's page-locked
+    ring (`eig.d2h` a run, with its bytes), into a new host array: its
+    pages mapped and each run copied in under `eig.write`."""
+    k, b = u_dev.shape
+    with METRICS.span("eig.write"):
+        out = _populated((k, b))
+
+    def consume(r0, host):
+        with METRICS.span("eig.write"):
+            out[r0:r0 + len(host)] = host
+
+    ctx.d2h_ring(u_dev.device).download(dev.Finished(u_dev), lambda t: t,
+                                        k, b, consume, "eig")
+    return out
 
 
 def _apply_ata_one_pass_device(a: CsrFlashMatrix, v_np: np.ndarray,
@@ -191,17 +317,17 @@ def _apply_ata_one_pass_device(a: CsrFlashMatrix, v_np: np.ndarray,
     """Device variant of the one-pass operator on one card: per band,
     W_sub = A_sub V and U_part = A_sub^T W_sub are both K2 launches on
     exactly the band's rows (each row's real slot count passed, so padding
-    is never read); W_sub stays on the card, and each U partial is
-    downloaded and folded into the float64 U on the host."""
+    is never read); W_sub stays on the card, and each U partial is added
+    into the float64 U on the card."""
     device = dev.resolve_device(ctx.config.device)
     impl = getattr(ctx.config, "sparse_device_impl", "auto")
 
     def fwd(v_dev, band):
-        return _ell_product(v_dev, band, device, impl)
+        return _k2(v_dev, _upload(band, device, 0, len(band.counts)), impl)
 
     def trans(w, cband):
-        u = _download_u(_ell_product(w, cband, device, impl))
-        return 0, len(u), u
+        up = _upload(cband, device, 0, len(cband.counts), with_rows=True)
+        return up.rows, _k2(w, up, impl)
 
     return _one_pass_stream(a, v_np, ctx, device, fwd, trans)
 
@@ -227,48 +353,117 @@ def _apply_ata_one_pass_sharded(a: CsrFlashMatrix, v_np: np.ndarray,
     multiple of the ranks, split into one contiguous run a rank, and K2
     runs on the rank's run (the csrmm_sharded layout); one all-gather
     makes the band's W whole on every rank; the transposed half splits
-    the band's columns the same way against that W, and each rank folds
-    its columns' float64 partials into its own U.  Every row of every
-    partial is computed by exactly one rank, so one float64 all-reduce at
-    the end sums the ranks' U into the operator's value, and A's bytes
-    still cross the disk once per rank and application.  fp64 values
-    raise (the kernels are fp32)."""
+    the band's words the same way against that W, and each rank adds its
+    words' partials into its own float64 U on the card.  Every row of
+    every partial is computed by exactly one rank, so one float64
+    all-reduce of the card's U at the end sums the ranks' U into the
+    operator's value, and A's bytes still cross the disk once per rank
+    and application.  fp64 values raise (the kernels are fp32)."""
     from ..parallel import mesh as pmesh
-    from ..parallel.csrmm_sp import sharded_spmm_step
 
     if not dev.dtype_native_on_device(a.vals.dtype):
         raise ValueError(
             f"sharded one_pass cannot represent {a.vals.dtype} on the "
             "card; use one_pass without a mesh (exact host path)")
     device = pmesh.mesh_device(mesh)
-    step = sharded_spmm_step(mesh)
     replicate = _replicate_step(mesh)
 
-    def own(band):
-        """This rank's run [lo, hi) of the band's rows, on the card."""
-        lo, hi, run = pmesh.row_run(mesh, len(band.counts))
-        return lo, hi, run, _upload(band, device, lo, hi)
-
     def fwd(v_dev, band):
-        lo, hi, run, up = own(band)
+        lo, hi, run = pmesh.row_run(mesh, len(band.counts))
         w_loc = torch.zeros((run, v_dev.shape[1]), dtype=torch.float32,
                             device=device)
         if hi > lo:
-            w_loc[:hi - lo] = step(v_dev, up.ja, up.va, up.counts)
+            w_loc[:hi - lo] = _k2(v_dev, _upload(band, device, lo, hi))
         return replicate(w_loc)  # the band's W, whole on every rank
 
     def trans(w, cband):
-        lo, hi, _, up = own(cband)
+        lo, hi, _ = pmesh.row_run(mesh, len(cband.counts))
         if hi <= lo:
-            return lo, lo, np.zeros((0, w.shape[1]), np.float64)
-        return lo, hi, _download_u(step(w, up.ja, up.va, up.counts))
+            return None, None
+        up = _upload(cband, device, lo, hi, with_rows=True)
+        return up.rows, _k2(w, up)
 
-    def finalize(U):
-        u_dev = dev.to_device(U, device)
-        pmesh.all_reduce(u_dev)
-        return dev.from_device(u_dev)
+    return _one_pass_stream(a, v_np, ctx, device, fwd, trans,
+                            pmesh.all_reduce)
 
-    return _one_pass_stream(a, v_np, ctx, device, fwd, trans, finalize)
+
+def _panel_ops(mesh, ctx):
+    """(empty, free, spmm) of the two-pass operator's panels: shared
+    panels and csrmm_sharded under a mesh, else scratch files and
+    csrmm."""
+    if mesh is not None:
+        from ..parallel import csrmm_sharded
+        from ..parallel.mesh import shared_empty, shared_free
+        return (lambda shape: shared_empty(shape, np.float32, mesh, ctx),
+                lambda arr: shared_free(arr, mesh),
+                lambda mat, x, out: csrmm_sharded(mat, x, out, mesh=mesh,
+                                                  ctx=ctx))
+    return (lambda shape: flash_empty(shape, np.float32, ctx=ctx),
+            flash_free,
+            lambda mat, x, out: csrmm(mat, x, out, ctx=ctx))
+
+
+def _apply_two_pass(a: CsrFlashMatrix, at: CsrFlashMatrix,
+                    v_np: np.ndarray, w_panel, mesh, ctx) -> np.ndarray:
+    """U = A^T (A V) as two out-of-core csrmm passes (csrmm_sharded under
+    a mesh) through an (m x w) W panel: `w_panel` where it is w wide,
+    else one made for the call; `at` is A^T (csrcsc_scratch).  U is read
+    whole after every rank wrote its rows: a shared panel under a mesh,
+    host memory on one card."""
+    m, k = a.shape
+    w = v_np.shape[1]
+    empty, free, spmm = _panel_ops(mesh, ctx)
+    Vp = mem_array((k, w), np.float32, data=v_np.astype(np.float32),
+                   ctx=ctx)
+    Wp = (w_panel if w_panel is not None and w_panel.shape[1] == w
+          else empty((m, w)))
+    Up = (empty((k, w)) if mesh is not None
+          else mem_array((k, w), np.float32, ctx=ctx))
+    try:
+        spmm(a, Vp, Wp)
+        spmm(at, Wp, Up)
+        u = Up.read_all().astype(np.float64)
+    finally:
+        if Wp is not w_panel:
+            free(Wp)
+        if mesh is not None:
+            free(Up)
+    METRICS.add("eig.op_applies")
+    return u
+
+
+@METRICS.span("eig.apply")
+def apply_gram(a: CsrFlashMatrix, v: np.ndarray, *,
+               one_pass: Optional[bool] = None, mesh=None, ctx=None,
+               at: Optional[CsrFlashMatrix] = None,
+               w_panel=None) -> np.ndarray:
+    """U = A^T (A V), (k, b) float64, for a (k, b) panel V: one operator
+    application of `block_lanczos_svd` and `block_power_svd`, which both
+    call it.
+
+    `one_pass` (default: on without a mesh, bof_tpu's rule) streams A
+    once (`_apply_ata_one_pass`, placed by FlashConfig.sparse_compute;
+    with `mesh` both ELL halves row-sharded,
+    `_apply_ata_one_pass_sharded`); one_pass=False runs two csrmm passes
+    (csrmm_sharded under a mesh) through A^T and an (m x b) W panel:
+    `at` and `w_panel` where the caller keeps them across applications,
+    else made and freed for this call."""
+    ctx = ctx or a.ctx or get_context()
+    if one_pass is None:
+        one_pass = mesh is None
+    if one_pass:
+        if mesh is not None:
+            return _apply_ata_one_pass_sharded(a, v, mesh, ctx)
+        return _apply_ata_one_pass(a, v, ctx)
+    own_at = at is None
+    if own_at:
+        at = csrcsc_scratch(a, ctx=ctx)
+    try:
+        return _apply_two_pass(a, at, v, w_panel, mesh, ctx)
+    finally:
+        if own_at:
+            for arr in (at.ia, at.ja, at.vals):
+                flash_free(arr)
 
 
 def block_power_svd(a: CsrFlashMatrix, n_vals: int, n_iters: int = 12,
@@ -289,23 +484,15 @@ def block_power_svd(a: CsrFlashMatrix, n_vals: int, n_iters: int = 12,
     rng = np.random.default_rng(seed)
     timer = Timer()
 
+    one_pass = one_pass is None or one_pass
     at = W = None
-    if one_pass is None or one_pass:
-        def half_step(v_np):
-            return _apply_ata_one_pass(a, v_np, ctx)
-    else:
+    if not one_pass:
         at = csrcsc_scratch(a, ctx=ctx)  # A^T, materialized once
         W = flash_empty((m, L), np.float32, ctx=ctx)
-        V = mem_array((k, L), np.float32, ctx=ctx)
-        U = mem_array((k, L), np.float32, ctx=ctx)
 
-        def half_step(v_np):
-            """U = (A^T A) V via two flash csrmm passes."""
-            V.write_all(v_np.astype(np.float32))
-            csrmm(a, V, W, ctx=ctx)
-            csrmm(at, W, U, ctx=ctx)
-            METRICS.add("eig.op_applies")
-            return U.read_all().astype(np.float64)
+    def half_step(v_np):
+        return apply_gram(a, v_np, one_pass=one_pass, ctx=ctx, at=at,
+                          w_panel=W)
 
     v_np, _ = np.linalg.qr(rng.standard_normal((k, L)))
     try:
@@ -381,59 +568,14 @@ def block_lanczos_svd(a: CsrFlashMatrix, n_vals: int,
     if one_pass is None:
         one_pass = mesh is None  # bof_tpu's single-process rule
     at = W = None
-    if one_pass and mesh is not None:
-        def apply_op(v_np: np.ndarray) -> np.ndarray:
-            return _apply_ata_one_pass_sharded(a, v_np, mesh, ctx)
-    elif one_pass:
-        def apply_op(v_np: np.ndarray) -> np.ndarray:
-            """B v = A^T (A v) in one streaming pass over A."""
-            return _apply_ata_one_pass(a, v_np, ctx)
-    else:
+    if not one_pass:
         at = csrcsc_scratch(a, ctx=ctx)  # A^T, materialized once
-        if mesh is not None:
-            from ..parallel import csrmm_sharded
-            from ..parallel.mesh import shared_empty, shared_free
+        W = _panel_ops(mesh, ctx)[0]((m, b))
 
-            def _empty(shape):
-                return shared_empty(shape, np.float32, mesh, ctx)
-
-            def _free(arr):
-                shared_free(arr, mesh)
-
-            def _spmm(mat, x, out):
-                csrmm_sharded(mat, x, out, mesh=mesh, ctx=ctx)
-        else:
-            def _empty(shape):
-                return flash_empty(shape, np.float32, ctx=ctx)
-
-            def _free(arr):
-                flash_free(arr)
-
-            def _spmm(mat, x, out):
-                csrmm(mat, x, out, ctx=ctx)
-        W = _empty((m, b))
-
-        def apply_op(v_np: np.ndarray) -> np.ndarray:
-            """B v = A^T (A v), (k, w) -> (k, w) float64, w <= b."""
-            w = v_np.shape[1]
-            Vp = mem_array((k, w), np.float32,
-                           data=v_np.astype(np.float32), ctx=ctx)
-            Wp = W if w == b else _empty((m, w))
-            # U is read whole after every rank wrote its rows: a shared
-            # panel under a mesh, host memory on one card
-            Up = (_empty((k, w)) if mesh is not None
-                  else mem_array((k, w), np.float32, ctx=ctx))
-            try:
-                _spmm(a, Vp, Wp)
-                _spmm(at, Wp, Up)
-                u = Up.read_all().astype(np.float64)
-            finally:
-                if Wp is not W:
-                    _free(Wp)
-                if mesh is not None:
-                    _free(Up)
-            METRICS.add("eig.op_applies")
-            return u
+    def apply_op(v_np: np.ndarray) -> np.ndarray:
+        """B v = A^T (A v), (k, w) -> (k, w) float64."""
+        return apply_gram(a, v_np, one_pass=one_pass, mesh=mesh, ctx=ctx,
+                          at=at, w_panel=W)
 
     def orthonormalize(R: np.ndarray, basis: Optional[np.ndarray]):
         """Two-pass block Gram-Schmidt against `basis`, then QR; random
@@ -525,7 +667,7 @@ def block_lanczos_svd(a: CsrFlashMatrix, n_vals: int,
         return sigma, ritz_Y.astype(np.float32)
     finally:
         if W is not None:
-            _free(W)
+            _panel_ops(mesh, ctx)[1](W)
         if at is not None:
             for arr in (at.ia, at.ja, at.vals):
                 flash_free(arr)

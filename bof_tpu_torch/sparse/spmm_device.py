@@ -239,10 +239,51 @@ def band_plan(counts: np.ndarray, entry_cap: int, sort_rows: bool = True):
     """(order, ranges): a row block's rows ordered by count (stable; the
     identity without `sort_rows`) and cut into ranges of that order whose
     padded ELL stays under `entry_cap` entries, so each band's rmax is
-    tight to its own rows.  Band (s0, s1) holds rows order[s0:s1]."""
-    order = (np.argsort(counts, kind="stable") if sort_rows
-             else np.arange(len(counts)))
-    return order, ell_row_ranges(counts[order], entry_cap)
+    tight to its own rows.  Band (s0, s1) holds rows order[s0:s1].
+
+    Unsorted rows take `ell_row_ranges`' scan.  Sorted rows give the same
+    ranges in numpy, a band at a time, for blocks of hundreds of
+    thousands of rows (the stable sort is a radix sort where the counts
+    fit 16 bits): on count-sorted rows the scan closes a band at the
+    first row r past its start s with pow2(r - s + 1) * pow2(count_r) >
+    entry_cap, and both factors only grow with r; so within each run of
+    rows sharing pow2(count) = P, the first row that closes the band is
+    s + M(P), M(P) the largest power of two with M(P) * P <= entry_cap
+    (0 where P alone exceeds it), or the run's first row if that lies
+    past s + M(P)."""
+    counts = np.asarray(counts)
+    n = len(counts)
+    if not sort_rows:
+        return np.arange(n), ell_row_ranges(counts, entry_cap)
+    if n == 0:
+        return np.arange(0), [(0, 0)]
+    keys = counts
+    if counts.min() >= 0 and counts.max() < 1 << 16:
+        keys = counts.astype(np.uint16)
+    order = np.argsort(keys, kind="stable")
+    c = np.maximum(counts[order].astype(np.int64), 1)
+    powers = np.int64(1) << np.arange(63, dtype=np.int64)
+    level = powers[np.searchsorted(powers, c)]       # pow2(count)
+    starts = np.concatenate(([0], np.flatnonzero(np.diff(level)) + 1))
+    ends = np.append(starts[1:], n)
+    runs = []
+    for a, b, p in zip(starts.tolist(), ends.tolist(),
+                       level[starts].tolist()):
+        f = int(entry_cap) // p
+        runs.append((a, b, 1 << (f.bit_length() - 1) if f else 0))
+    ranges, s, j = [], 0, 0
+    while s < n:
+        e = n
+        while runs[j][1] <= s:
+            j += 1
+        for a, b, most in runs[j:]:
+            first = max(a, s + 1, s + most)
+            if first < b:
+                e = first
+                break
+        ranges.append((s, e))
+        s = e
+    return order, ranges
 
 
 def build_band(blk_ia, ja_blk, va_blk, rows_sel, counts,

@@ -2060,13 +2060,15 @@ def _eig_bands(a_sp, b) -> tuple:
     """(forward, transposed) ELL bands the one-pass operator forms in one
     application to a V of b columns at the library's defaults: count-sorted
     rows of each nnz-budgeted row block ranged under its entry cap, and for
-    each such band, its count-sorted columns ranged the same way."""
+    each such band, the count-sorted words its rows touch ranged the same
+    way (a word no row of the band holds is never planned)."""
     import numpy as np
     import bof_tpu_torch as bt
+    from bof_tpu_torch.apps.eigensolver import _gram_entry_cap
     from bof_tpu_torch.sparse.csr import fill_row_blocks
     from bof_tpu_torch.sparse.spmm_device import ell_row_ranges
     cfg = bt.FlashConfig()
-    entry_cap = max(1 << 14, int(cfg.hbm_budget // 6 // (b * 4)))
+    entry_cap = _gram_entry_cap(cfg.hbm_budget, a_sp.shape[1], b)
     fwd = trans = 0
     for r, e in fill_row_blocks(a_sp.indptr, cfg.max_nnzs):
         blk = a_sp[r:e]
@@ -2076,7 +2078,9 @@ def _eig_bands(a_sp, b) -> tuple:
             fwd += 1
             ccounts = np.bincount(blk[order[s0:s1]].indices,
                                   minlength=a_sp.shape[1])
-            trans += len(ell_row_ranges(np.sort(ccounts), entry_cap))
+            ccounts = ccounts[ccounts > 0]
+            if len(ccounts):
+                trans += len(ell_row_ranges(np.sort(ccounts), entry_cap))
     return fwd, trans
 
 
@@ -2117,7 +2121,8 @@ def eigensolver_phase(dev, scratch, prefix, a_sp, restarts=1) -> dict:
                                       "spmm_ell[f32]": want})
     _app_report(label, wall, 4.0 * a_sp.nnz * n_vals * restarts, launches,
                 stages, peak, "eig.",
-                ("disk_wait_s", "prep_s", "h2d_s", "d2h_s"))
+                ("disk_wait_s", "prep_s", "transpose_s", "h2d_s",
+                 "dispatch_s", "fold_s", "d2h_s"))
     print(f"[{label}] {applies} operator applications, K2 launches "
           f"{launches['spmm_ell']} = ({fwd} + {trans}) x {applies}; link "
           f"up {stages.get('eig.h2d_bytes', 0) / 2**30:.3f} GiB, down "
@@ -2514,7 +2519,8 @@ def mesh_apps_phase(dev, scratch, a_sp, rows=1 << 17) -> list:
             f"{k2_one} inside the one-pass operator, {n_k2} in the run")
     _check_collectives(label, stages, {"all_gather": None, "all_reduce": 1})
     _app_report(label, wall, 4.0 * a_cut.nnz * n_vals, launches, stages,
-                peak, "eig.", ("disk_wait_s", "prep_s", "h2d_s", "d2h_s"))
+                peak, "eig.", ("disk_wait_s", "prep_s", "transpose_s",
+                               "h2d_s", "dispatch_s", "fold_s", "d2h_s"))
     sigma, v = res["out"]
     v8 = v[:, :8].astype(np.float64)
     orth = float(np.abs(v.T.astype(np.float64) @ v - np.eye(n_vals)).max())

@@ -222,3 +222,41 @@ def test_entries_book_the_upload_bytes_they_booked_before(tmp_path, entry,
     booked, sent = _entry_call(tmp_path, entry, xfer)
     assert booked == PINNED[(entry, xfer)]
     assert sent == booked  # every upload of the call is booked
+
+
+def _counts_of(kind, rng):
+    """Row counts of one kind: small, Zipf-skewed, wide (past 16 bits),
+    empty rows with a few mega-rows, none at all."""
+    n = int(rng.integers(1, 3000))
+    if kind == "small":
+        return rng.integers(0, 5, n)
+    if kind == "zipf":
+        return rng.zipf(1.3, n).clip(0, 1 << 20)
+    if kind == "wide":
+        return rng.integers(0, 1 << 18, n)
+    if kind == "mega":
+        c = np.zeros(n, np.int64)
+        c[rng.permutation(n)[:3]] = rng.integers(1 << 12, 1 << 16, 3)
+        return c
+    return np.zeros(0, np.int64)
+
+
+@pytest.mark.parametrize("kind", ["small", "zipf", "wide", "mega", "none"])
+def test_band_plan_is_ell_row_ranges_on_sorted_rows(kind):
+    """`band_plan`'s numpy planner (every sorted caller's: csrgemv,
+    csrmm, xml_rank and the eigensolver's hundreds of thousands of words
+    a band) gives the stable count order and bof_tpu's `ell_row_ranges`
+    over the count-sorted rows, range for range, on caps from below a
+    row to past every row; unsorted, the identity and the scan."""
+    rng = np.random.default_rng(["small", "zipf", "wide", "mega",
+                                 "none"].index(kind))
+    for _ in range(40):
+        counts = _counts_of(kind, rng)
+        for cap in (1, 3, 64, 1000, CAP, 1 << 20, 2_684_354):
+            order, ranges = sdev.band_plan(counts, cap)
+            np.testing.assert_array_equal(
+                order, np.argsort(counts, kind="stable"))
+            assert ranges == ref_sdev.ell_row_ranges(counts[order], cap)
+            order, ranges = sdev.band_plan(counts, cap, sort_rows=False)
+            np.testing.assert_array_equal(order, np.arange(len(counts)))
+            assert ranges == ref_sdev.ell_row_ranges(counts, cap)

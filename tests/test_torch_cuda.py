@@ -1480,6 +1480,52 @@ def test_eigensolver_on_card_matches_cpu(cuda_device, tmp_path):
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
 
 
+def test_apply_gram_on_card_sums_u_as_the_host_fold(cuda_device, tmp_path,
+                                                    monkeypatch):
+    """apply_gram on the card: U's float64 additions there (index_add_ of
+    each column band's K2 partial) give the bits of the host fold
+    `U[rows] += u` over the same partials in band order; column bands
+    hold only touched words; U comes down once (vocab x b x 8 bytes)."""
+    import importlib
+    import scipy.sparse as sps
+    from bof_tpu_torch.utils import METRICS
+    eig = importlib.import_module("bof_tpu_torch.apps.eigensolver")
+    a_sp = sps.random(3000, 200000, density=2e-4, format="csr",
+                      dtype=np.float32, random_state=np.random.RandomState(7))
+    v = np.random.default_rng(7).standard_normal((200000, 24)).astype(
+        np.float32)
+    seen = []
+    stream = eig._one_pass_stream
+
+    def spy(a, v_np, ctx, device, fwd, trans, finalize=None):
+        def t_product(w, cband):
+            rows, u = trans(w, cband)
+            seen.append((cband.rows.copy(), cband.counts.copy(),
+                         u.cpu().numpy()))
+            return rows, u
+        return stream(a, v_np, ctx, device, fwd, t_product, finalize)
+    monkeypatch.setattr(eig, "_one_pass_stream", spy)
+    ctx = bof_tpu_torch.FlashContext(bof_tpu_torch.FlashConfig(
+        device="cuda", scratch_dir=str(tmp_path), max_nnzs=1 << 14,
+        hbm_budget=1 << 28))
+    d2h = METRICS.get("eig.d2h_bytes")
+    try:
+        A = bof_tpu_torch.CsrFlashMatrix.from_scipy(a_sp, ctx=ctx)
+        got = bof_tpu_torch.apply_gram(A, v, ctx=ctx)
+    finally:
+        ctx.destroy()
+    host = np.zeros(v.shape, np.float64)
+    for rows, counts, u in seen:
+        assert (counts > 0).all()
+        host[rows] += u
+    assert len(seen) > 1
+    assert got.tobytes() == host.tobytes()
+    assert METRICS.get("eig.d2h_bytes") - d2h == got.nbytes
+    want = a_sp.T.astype(np.float64) @ (a_sp.astype(np.float64) @ v)
+    np.testing.assert_allclose(got, want, rtol=2e-4,
+                               atol=2e-4 * np.abs(want).max())
+
+
 def test_topic_model_on_card_matches_cpu(cuda_device, tmp_path):
     """topic_model through K2 (projection) and B7 (clustering) on the card
     against the CPU: labels equal, topic-word matrices within 1e-4."""

@@ -237,7 +237,8 @@ def test_new_kernel_sources_are_built_and_in_the_digest(tmp_path):
 def test_apps_slice_imports_neither_jax_nor_bof_tpu():
     """The applications, their drivers and B8's wrapper import no jax,
     ml_dtypes or bof_tpu module; the package root exports bof_tpu's app
-    names, and bof_tpu_torch.apps all seven."""
+    names, and bof_tpu_torch.apps all seven, and the port's own addition,
+    the operator both solvers call (`apply_gram`), from both."""
     code = ("import sys, bof_tpu_torch.apps, bof_tpu_torch.ops.topk_cuda, "
             + ", ".join(f"bof_tpu_torch.drivers.{m}" for m in (
                 "eigensolver", "xml_rank", "topic_model"))
@@ -249,11 +250,12 @@ def test_apps_slice_imports_neither_jax_nor_bof_tpu():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
     import bof_tpu_torch.apps as apps
-    assert sorted(apps.__all__) == sorted(bof_tpu.apps.__all__)
-    for name in bof_tpu.apps.__all__:
+    assert sorted(apps.__all__) == sorted(bof_tpu.apps.__all__
+                                          + ["apply_gram"])
+    for name in apps.__all__:
         assert getattr(apps, name).__name__ == name
-    for name in ("block_lanczos_svd", "block_power_svd", "topic_model",
-                 "xml_rank"):
+    for name in ("apply_gram", "block_lanczos_svd", "block_power_svd",
+                 "topic_model", "xml_rank"):
         assert name in bof_tpu_torch.__all__
         assert getattr(bof_tpu_torch, name) is getattr(apps, name)
 

@@ -51,6 +51,7 @@ def test_readme_quickstart_api(tmp_path):
         centers, inertia = bt.kmeans_fit(P, 4, n_iters=3, seed=0)
 
         sigma, V = bt.block_lanczos_svd(S, 2, n_restarts=2)
+        U = bt.apply_gram(S, V)
         W = bt.map_array(path("W.bin"), (10, vocab), np.float32, "R",
                          ctx=ctx)
         scores, labels = bt.xml_rank(S, W, 3)
@@ -70,6 +71,9 @@ def test_readme_quickstart_api(tmp_path):
                                rtol=1e-4, atol=1e-4)
     assert centers.shape == (4, 8) and np.isfinite(inertia)
     assert sigma.shape == (2,) and V.shape == (vocab, 2)
+    a64 = a_sp.astype(np.float64)
+    np.testing.assert_allclose(U, a64.T @ (a64 @ V.astype(np.float64)),
+                               rtol=1e-4, atol=1e-4)
     dense = (a_sp @ w_np.T).astype(np.float32)
     np.testing.assert_allclose(got_scores, -np.sort(-dense, axis=1)[:, :3],
                                rtol=2e-4, atol=1e-4)
