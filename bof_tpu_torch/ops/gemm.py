@@ -661,7 +661,7 @@ def gemm(a: FlashArray, b: FlashArray, c: FlashArray,
                 a copy where C is in DRAM, a submitted write to a file."""
                 if c_xfer_bf16:  # widen back (exactly) for fp32 storage
                     host = bf16_to_f32(host)
-                with METRICS.span("gemm.write"):
+                with METRICS.span("gemm.write", host.nbytes):
                     t = _write_rows_async(c, i * sb, j * sb, bi, bj, r, host)
                 tickets.append(t)
                 return t
